@@ -4,22 +4,30 @@
     python3 chip_smoke.py          # from the repository root; needs one card
 
 Phases (any failure exits non-zero, before the result line):
-  1. build the CUDA kernel from knnsvc_torch/csrc (nvcc, sm_90a) and print
-     ptxas's register / shared-memory / spill lines;
-  2. each kernel against its plain PyTorch version on the card, at the main
-     path's shape and at ragged shapes, with CUDA-event times of the kernel,
-     the plain version and one PyTorch library call, beside the kernel's
-     bound on an H100;
+  1. build the CUDA kernels from knnsvc_torch/csrc (one nvcc per source,
+     started together; sm_90a) and print ptxas's register / shared-memory /
+     spill lines;
+  2. each kernel against its plain PyTorch version on the card, with
+     CUDA-event times of the kernel, the plain version and (where one
+     exists) one PyTorch library call, beside the kernel's bound on an
+     H100: the attention kernel at the main path's shape and at ragged
+     shapes; the concat-cost kernel exactly equal at (37, 53, 128) and on
+     ids at row P-1 with duplicate candidates, and the share of equal
+     frames per lane at the main path's (1500, 1500, 1024);
   3. the slice on the card against the slice on the CPU: one full-width
      KnnSvc.random_init("mix") (WavLM-Large, HiFi-GAN v1 config), the same
      weights on both, "highest" precision, a seeded 4-s synthetic singing
      pair with f0 sidecars: layer-6 features, top-32 kNN sets, pre-quantize
-     waveforms;
+     waveforms without post_opt and with post_opt_0.2 (the concat-cost
+     picks of both lanes and both optimizers' step counts on each side);
   4. the main path at full size: KnnSvc.convert_pair(fast=True) on a seeded
-     30-s pair, once cold, then warm on new pairs (host f0 extracted) and
-     repeated (f0 read from its cache); each run must launch the attention
-     kernel exactly 12 times (6 encoder layers x 2 pools); one traced run of
-     each kind, split by stage from the knnsvc.* profiler spans;
+     30-s pair, without post_opt (once cold, then warm on new pairs, host
+     f0 extracted, and repeated, f0 read from its cache) and with
+     post_opt_0.2 (new and repeated); each run must launch the attention
+     kernel exactly 12 times (6 encoder layers x 2 pools) and, with
+     post_opt, the concat-cost kernel once; one wavlm_only post_opt
+     conversion; traced runs split by stage from the knnsvc.* profiler
+     spans;
   5. the card's name and power limit (nvidia-smi).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
@@ -27,6 +35,7 @@ repository, it fails and prints no result.
 """
 
 import json
+import logging
 import os
 import shutil
 import statistics
@@ -39,6 +48,7 @@ import time
 PEAK_FP32_FLOPS = 67e12          # fp32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12       # HBM3
 
+KERNELS = ("gated_bias_attention", "concat_cost_pair")
 ATTN_MAIN = (16, 1500, 64)       # one WavLM-Large layer on a 30-s chunk
 ATTN_RAGGED = [(4, 200, 64, 1.0), (4, 200, 64, 0.0), (4, 200, 64, -0.5)]
 # kernel vs plain: fp32 sums of 1500 terms per score and per output, in
@@ -51,11 +61,23 @@ FEAT_ATOL = 1e-3
 KNN_SET_SHARE_MIN = 0.95         # frames whose top-32 sets agree exactly
 WAV_REL_TOL = 3e-3               # max |dwav| / max |wav|: 10x the 3.2e-4 the
                                  # card and the CPU have shown on this input
+                                 # (3.5e-4 with post_opt_0.2, where both sides
+                                 # take the same picks and step counts)
 SLICE_SECONDS = 4.0
 FULL_SECONDS = 30.0
 WARM_RUNS = 20                   # repeat conversions (f0 read from its cache)
 FRESH_RUNS = 5                   # conversions of pairs never seen (f0 extracted)
 LAUNCHES_PER_PAIR = 12           # 6 early-exit layers x 2 pools x one 30-s chunk
+VOICES = (("src", 190.0, 21), ("ref", 265.0, 22))   # name, f0 in Hz, seed
+
+CONCAT_SMALL = (37, 53, 128)     # (T, P, D) of tests/test_ops.py's Pallas check
+CONCAT_MAIN = (1500, 1500, 1024) # a 30-s source against a 30-s pool, WavLM width
+CONCAT_SHARE_MIN = 0.99          # frames whose picks equal the plain version's
+CONCAT_PLAIN_RUNS = 3            # the plain version is a Python loop over frames
+POST_OPT = "post_opt_0.2"        # the paper's CAT + OPT, the README's first command
+PICK_SHARE_MIN = 0.95            # card vs CPU: frames whose concat picks agree
+PO_FRESH_RUNS = 3                # post_opt conversions of new pairs
+PO_WARM_RUNS = 10                # post_opt repeat conversions
 
 
 def fail(msg: str) -> None:
@@ -113,13 +135,19 @@ def sung_wav(seconds: float, hz: float, seed: int):
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from knnsvc_torch.ops.build import build_kernel
 
     t0 = time.perf_counter()
-    b = build_kernel("gated_bias_attention")
-    log(f"[build] {b.name} in {time.perf_counter() - t0:.1f} s: {b.library.name}")
-    for line in b.ptxas:
-        log(f"[build] {b.name}: {line}")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        builds = list(pool.map(build_kernel, KERNELS))
+    log(f"[build] {len(builds)} kernels, one nvcc each in parallel, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for b in builds:
+        log(f"[build] {b.name}: {b.library.name}")
+        for line in b.ptxas:
+            log(f"[build] {b.name}: {line}")
 
 
 def phase_kernels(dev):
@@ -172,12 +200,92 @@ def phase_kernels(dev):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
 
+def concat_bound_ms(T: int, P: int, D: int, lanes: int) -> tuple[float, str]:
+    """Least time for the work on an H100: per frame and lane 48 dots of D
+    multiply-adds (8 candidate norms, 8 source dots, 32 cross dots), 2
+    flops each; bytes = source and pool rows, ids, f0 tracks and baselines
+    read once and the picks written once."""
+    ops = lanes * (T - 1) * 48 * 2 * D
+    nbytes = 4 * (T * D + P * D + 2 * T * lanes * 4 + (T - 1) + T + P)
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def concat_inputs(T: int, P: int, D: int, seed: int, dev, clamp_and_duplicates=False):
+    """Random ids and features with a smooth source stretch (baselines under
+    0.08, so the pitched lane's weight latches part way through); optionally
+    ids at row P-1 and own candidates equal to each other and to prev + 1."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    src = rng.standard_normal((T, D)).astype(np.float32)
+    src[12:20] = src[12] + 0.01 * rng.standard_normal((8, D)).astype(np.float32)
+    tgt = rng.standard_normal((P, D)).astype(np.float32)
+    idx_u, idx_p = rng.integers(0, P, (T, 4)), rng.integers(0, P, (T, 4))
+    if clamp_and_duplicates:
+        idx_u[::3, 0] = P - 1
+        idx_p[::4, 1] = P - 1
+        idx_u[1::2, 2] = idx_u[1::2, 1]
+        idx_p[1:, 3] = np.minimum(idx_p[:-1, 0] + 1, P - 1)
+    sf0 = (80 + 300 * rng.random(T)).astype(np.float32)
+    sf0[::5] = 0.0
+    tf0 = (80 + 300 * rng.random(P)).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (idx_u, idx_p, src, tgt, sf0, tf0)]
+
+
+def phase_concat_kernel(dev):
+    import torch
+
+    from knnsvc_torch.match.concat_cost import knn_with_concat_cost_pair
+    from knnsvc_torch.ops.concat_scan import concat_cost_pair, concat_cost_single
+
+    max_err = 0
+    for dup in (False, True):
+        args = concat_inputs(*CONCAT_SMALL, 3, dev, clamp_and_duplicates=dup)
+        got = [*concat_cost_pair(*args), concat_cost_single(args[0], *args[2:4])]
+        want = knn_with_concat_cost_pair(*args)
+        want = [*want, want[0]]
+        torch.cuda.synchronize()
+        err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+        max_err = max(max_err, err)
+        log(f"[kernel] concat_cost_pair {CONCAT_SMALL} "
+            f"{'ids at P-1, duplicates' if dup else 'random ids'}: pair and single lane "
+            f"equal to the plain version: {err == 0} (max |id diff| {err})")
+        if err != 0:
+            fail(f"concat_cost_pair disagrees with its plain version at {CONCAT_SMALL}")
+
+    T, P, D = CONCAT_MAIN
+    args = concat_inputs(T, P, D, 4, dev)
+    got = concat_cost_pair(*args)
+    want = knn_with_concat_cost_pair(*args)
+    shares = [float((g == w).all(dim=1).float().mean()) for g, w in zip(got, want)]
+    log(f"[kernel] concat_cost_pair {CONCAT_MAIN}: frames equal to the plain version, "
+        f"unpitched {shares[0]:.2%}, pitched {shares[1]:.2%} (min {CONCAT_SHARE_MIN:.0%})")
+    if not min(shares) >= CONCAT_SHARE_MIN:
+        fail(f"concat_cost_pair agrees with its plain version on only {min(shares):.2%} "
+             "of frames at the main shape")
+    ms = cuda_ms(lambda: concat_cost_pair(*args))
+    plain_ms = cuda_ms(lambda: knn_with_concat_cost_pair(*args), iters=CONCAT_PLAIN_RUNS,
+                       warmup=1)
+    bound_ms, bound_by = concat_bound_ms(T, P, D, lanes=2)
+    log(f"[kernel] concat_cost_pair {CONCAT_MAIN}: kernel {ms:.4f} ms "
+        f"({1e3 * ms / (T - 1):.3f} us per frame), plain {plain_ms:.4f} ms, library none, "
+        f"bound {bound_ms:.4f} ms ({bound_by}); roofline share {bound_ms / ms:.2%}")
+    return {"name": "concat_cost_pair", "route": "cuda",
+            "source": "knnsvc_torch/csrc/concat_cost_pair.cu",
+            "replaces": "knnsvc_tpu/ops/concat_scan.py:182",
+            "launches": None, "max_abs_err": float(max_err), "equal_share": min(shares),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
 def write_pair(root: str, seconds: float, sidecars: bool):
     from knnsvc_torch.dsp.f0 import save_f0_sidecar
     from knnsvc_torch.io.audio import save_audio
 
     paths = []
-    for name, hz, seed in (("src", 190.0, 21), ("ref", 265.0, 22)):
+    for name, hz, seed in VOICES:
         wav, f0 = sung_wav(seconds, hz, seed)
         path = os.path.join(root, f"{name}_{int(seconds)}s.wav")
         save_audio(path, wav, 16000)
@@ -185,6 +293,41 @@ def write_pair(root: str, seconds: float, sidecars: bool):
             save_f0_sidecar(path, f0)
         paths.append(path)
     return paths
+
+
+class OptimizerSteps(logging.Handler):
+    """Collects the step counts that the smoothness optimizer logs (DEBUG,
+    one record per optimization) while the context is open."""
+
+    def emit(self, record) -> None:
+        self.steps.append(int(record.args[0]))
+
+    def __enter__(self):
+        self.steps: list[int] = []
+        self.logger = logging.getLogger("knnsvc_torch.match.smoothness")
+        self.level = self.logger.level
+        self.logger.setLevel(logging.DEBUG)
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+        self.logger.setLevel(self.level)
+
+
+def concat_picks(q, pool, qf0, pool_f0):
+    """The post_opt match up to the concat-cost reselection, through the
+    port's public functions: (unpitched, pitched) picks (T, 4) on the CPU."""
+    from knnsvc_torch.match.f0_logic import (shift_f0_to_target_register,
+                                             sort_by_f0_compatibility)
+    from knnsvc_torch.match.knn import knn_topk
+    from knnsvc_torch.ops.concat_scan import concat_cost_pair
+
+    nearest, _ = knn_topk(q, pool, k=32)
+    shifted = shift_f0_to_target_register(qf0, pool_f0)
+    pitched = sort_by_f0_compatibility(shifted, pool_f0, nearest)[:, :4]
+    return [x.cpu() for x in concat_cost_pair(nearest[:, :4], pitched, q, pool, shifted,
+                                              pool_f0)]
 
 
 def phase_slice_cpu_vs_cuda(root: str, dev):
@@ -231,33 +374,68 @@ def phase_slice_cpu_vs_cuda(root: str, dev):
         f"max |cuda - cpu| / max |cpu| = {rel:.3e} (tol {WAV_REL_TOL})")
     if not (wa.shape == wb.shape and np.isfinite(wb).all() and rel <= WAV_REL_TOL):
         fail(f"pre-quantize waveforms differ between cuda and cpu: rel {rel}")
+
+    # post_opt: the concat-cost picks of each side from its own features and
+    # the f0 sidecars, then the whole conversion with the optimizer
+    f0 = {name: sung_wav(SLICE_SECONDS, hz, seed)[1] for name, hz, seed in VOICES}
+    picks = []
+    for side, device in ((0, torch.device("cpu")), (1, dev)):
+        q, pool = feats["src"][side].to(device), feats["ref"][side].to(device)
+        qf0 = torch.from_numpy(f0["src"][:q.shape[0]].copy()).to(device)
+        pf0 = torch.from_numpy(f0["ref"][:pool.shape[0]].copy()).to(device)
+        picks.append(concat_picks(q, pool, qf0, pf0))
+    shares = [float((a == b).all(dim=1).float().mean()) for a, b in zip(*picks)]
+    log(f"[slice] {POST_OPT} concat-cost picks equal on cuda and cpu: unpitched "
+        f"{shares[0]:.1%}, pitched {shares[1]:.1%} of {picks[0][0].shape[0]} frames "
+        f"(min {PICK_SHARE_MIN:.0%})")
+    if not min(shares) >= PICK_SHARE_MIN:
+        fail(f"concat-cost picks agree on only {min(shares):.1%} of frames")
+    with OptimizerSteps() as cpu_steps:
+        wa = cpu.convert_waveform(src, ref, post_opt=POST_OPT).numpy()
+    with OptimizerSteps() as gpu_steps:
+        wb = gpu.convert_waveform(src, ref, post_opt=POST_OPT).cpu().numpy()
+    peak = float(np.abs(wa).max())
+    rel = float(np.abs(wa - wb).max()) / max(peak, 1e-30)
+    log(f"[slice] {POST_OPT} optimizer steps (wavlm, harmonics): cpu {cpu_steps.steps}, "
+        f"cuda {gpu_steps.steps}")
+    log(f"[slice] {POST_OPT} pre-quantize waveform {wa.shape}: max |cpu| {peak:.3e}, "
+        f"max |cuda - cpu| / max |cpu| = {rel:.3e} (tol {WAV_REL_TOL})")
+    if not (wa.shape == wb.shape and np.isfinite(wb).all() and rel <= WAV_REL_TOL
+            and len(gpu_steps.steps) == 2):
+        fail(f"{POST_OPT} waveforms differ between cuda and cpu: rel {rel}")
     del cpu
     return gpu
 
 
-def phase_full(root: str, knn, kernel_record):
+def phase_full(root: str, knn, records, dev):
     import numpy as np
     import torch
 
+    from knnsvc_torch.hub import KnnSvc
     from knnsvc_torch.io.audio import load_audio
     from knnsvc_torch.match.serve import quantize_int16
     from knnsvc_torch.models.wavlm.model import frame_count
     from knnsvc_torch.ops.attention import gated_bias_attention
+    from knnsvc_torch.ops.concat_scan import concat_cost_pair
 
     src, ref = write_pair(root, FULL_SECONDS, sidecars=False)
     out = os.path.join(root, "converted.wav")
     n_frames = frame_count(knn.wavlm_cfg, int(16000 * FULL_SECONDS) + 320)
 
-    def run(s, r):
+    def run(s, r, post_opt="no_post_opt", model=knn):
+        """One convert_pair, its counts set to 0 just before and read just
+        after: 12 attention launches, and one concat-cost launch with post_opt."""
         gated_bias_attention.launches = 0
+        concat_cost_pair.launches = 0
         t0 = time.perf_counter()
-        path = knn.convert_pair(s, r, fast=True, output_path=out)
+        path = model.convert_pair(s, r, fast=True, post_opt=post_opt, output_path=out)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches = gated_bias_attention.launches
-        if launches != LAUNCHES_PER_PAIR:
-            fail(f"convert_pair launched the attention kernel {launches} times, "
-                 f"expected {LAUNCHES_PER_PAIR}")
+        launches = (gated_bias_attention.launches, concat_cost_pair.launches)
+        want = (LAUNCHES_PER_PAIR, 0 if post_opt == "no_post_opt" else 1)
+        if launches != want:
+            fail(f"convert_pair({model.ckpt_type}, {post_opt}) launched (attention, concat) "
+                 f"{launches} times, expected {want}")
         return dt, launches, path
 
     def new_pair(tag):
@@ -275,7 +453,6 @@ def phase_full(root: str, knn, kernel_record):
                 f"{FULL_SECONDS / med:.2f} audio-s/s")
 
     cold_s, launches, path = run(src, ref)
-    kernel_record["launches"] = launches
     log(f"[full] cold convert_pair(fast=True) on a {FULL_SECONDS:.0f}-s pair: {cold_s:.3f} s "
         f"(first conversion in the process; includes the native f0 build when the "
         f"checkout has none, and f0 extraction)")
@@ -286,7 +463,6 @@ def phase_full(root: str, knn, kernel_record):
     log(f"[full] warm latency, repeat conversion (f0 cached) s ({WARM_RUNS} runs): "
         f"{summary(cached)}")
     log(f"[full] peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
-    log(f"kernels: gated_bias_attention={launches}")
 
     y, sr = load_audio(path)
     if not (sr == 16000 and y.shape[-1] == n_frames * 320 and np.isfinite(y).all()):
@@ -300,8 +476,48 @@ def phase_full(root: str, knn, kernel_record):
     log(f"[full] output {n_frames} frames = {y.shape[-1]} samples; pre-quantize peak {peak:.3e}, "
         f"non-zero int16 codes {int((quantize_int16(wav) != 0).sum())}")
 
+    # post_opt_0.2, the paper's CAT + OPT
+    first_s, _, _ = run(src, ref, POST_OPT)
+    log(f"[post_opt] first convert_pair(fast=True, post_opt={POST_OPT!r}) in the process: "
+        f"{first_s:.3f} s (f0 cached)")
+    torch.cuda.reset_peak_memory_stats()
+    with OptimizerSteps() as steps:
+        fresh = [run(*new_pair(f"po_new{i}"), POST_OPT)[0] for i in range(PO_FRESH_RUNS)]
+        cached = []
+        for _ in range(PO_WARM_RUNS):
+            dt, launches, path = run(src, ref, POST_OPT)
+            cached.append(dt)
+    log(f"[post_opt] warm latency, new pair (f0 extracted) s ({PO_FRESH_RUNS} runs): "
+        f"{summary(fresh)}")
+    log(f"[post_opt] warm latency, repeat conversion (f0 cached) s ({PO_WARM_RUNS} runs): "
+        f"{summary(cached)}")
+    pairs = sorted({tuple(steps.steps[i:i + 2]) for i in range(0, len(steps.steps), 2)})
+    log(f"[post_opt] optimizer steps per conversion (wavlm, harmonics): {pairs}")
+    log(f"[post_opt] peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    records["gated_bias_attention"]["launches"] = launches[0]
+    records["concat_cost_pair"]["launches"] = launches[1]
+    log(f"kernels: gated_bias_attention={launches[0]} concat_cost_pair={launches[1]} "
+        f"(one {POST_OPT} mix conversion)")
+    y, sr = load_audio(path)
+    wav = knn.convert_waveform(src, ref, post_opt=POST_OPT)
+    torch.cuda.synchronize()
+    peak = float(wav.abs().max())
+    if not (sr == 16000 and y.shape[-1] == n_frames * 320 and wav.shape[0] == y.shape[-1]
+            and bool(torch.isfinite(wav).all()) and peak > 0):
+        fail(f"{POST_OPT} output: sr {sr}, length {y.shape[-1]}, peak {peak}")
+    log(f"[post_opt] output {y.shape[-1]} samples; pre-quantize peak {peak:.3e}")
+
+    wknn = KnnSvc.random_init("wavlm_only", seed=0, device=dev)
+    with OptimizerSteps() as wsteps:
+        w_times = [run(src, ref, POST_OPT, model=wknn)[0] for _ in range(2)]
+    log(f"[post_opt] wavlm_only convert_pair({POST_OPT!r}) s: first {w_times[0]:.4f}, "
+        f"second {w_times[1]:.4f}; launches (attention, concat) "
+        f"({LAUNCHES_PER_PAIR}, 1) each; optimizer steps {wsteps.steps}")
+
     phase_profile(knn, *new_pair("traced"), out, "new pair (f0 extracted)")
     phase_profile(knn, src, ref, out, "repeat conversion (f0 cached)")
+    phase_profile(knn, src, ref, out, f"mix {POST_OPT} repeat", POST_OPT)
+    phase_profile(wknn, src, ref, out, f"wavlm_only {POST_OPT} repeat", POST_OPT)
 
 
 def stage_times(events) -> dict[str, list[float]]:
@@ -341,7 +557,8 @@ def device_events(events):
             and not getattr(e, "is_user_annotation", False) and not e.name.startswith("knnsvc.")]
 
 
-def phase_profile(knn, src: str, ref: str, out: str, label: str) -> None:
+def phase_profile(knn, src: str, ref: str, out: str, label: str,
+                  post_opt: str = "no_post_opt") -> None:
     """One more warm convert_pair traced with torch.profiler (CUPTI): the
     device busy share, device time by kernel, and the per-stage split read
     from the knnsvc.* spans. A trace without device events is reported as
@@ -352,7 +569,7 @@ def phase_profile(knn, src: str, ref: str, out: str, label: str) -> None:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        knn.convert_pair(src, ref, fast=True, output_path=out)
+        knn.convert_pair(src, ref, fast=True, post_opt=post_opt, output_path=out)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.events()
@@ -374,11 +591,12 @@ def phase_profile(knn, src: str, ref: str, out: str, label: str) -> None:
         f"{busy / 1e3:.2f} ms ({busy / wall_us:.1%}), idle share {1 - busy / wall_us:.1%}, "
         f"{len(spans)} device events adding up to {sum(e - s for s, e, _ in spans) / 1e3:.2f} ms")
     stages = stage_times(events)
-    log(f"[profile] {label}: stages (host ms in span, device kernel ms) " + json.dumps(
+    log(f"[profile] {label}: stages (host ms in span, device kernel ms; concat_cost and "
+        f"smoothness nest in match, whose host ms include theirs) " + json.dumps(
         {k: [round(h, 3), round(d, 3)] for k, (h, d) in stages.items()}))
-    attn = sum(v[0] for k, v in by_name.items() if "gated_bias_attention" in k)
-    log(f"[profile] {label}: gated_bias_attention {attn / 1e3:.2f} ms "
-        f"({attn / busy:.1%} of device busy)")
+    for kernel in ("gated_bias_attention", "concat_cost"):
+        us = sum(v[0] for k, v in by_name.items() if kernel in k)
+        log(f"[profile] {label}: {kernel} {us / 1e3:.2f} ms ({us / busy:.1%} of device busy)")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         log(f"[profile]   {us / 1e3:8.3f} ms x{n:<4d} {name[:100]}")
 
@@ -403,11 +621,12 @@ def main() -> int:
 
     t_all = time.perf_counter()
     phase_build()
-    record = phase_kernels(dev)
+    records = {"gated_bias_attention": phase_kernels(dev),
+               "concat_cost_pair": phase_concat_kernel(dev)}
     root = tempfile.mkdtemp(prefix="knnsvc_smoke_")
     try:
         knn = phase_slice_cpu_vs_cuda(root, dev)
-        phase_full(root, knn, record)
+        phase_full(root, knn, records, dev)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -417,7 +636,7 @@ def main() -> int:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     log(f"[done] all phases in {time.perf_counter() - t_all:.1f} s")
     print(smi.stdout.strip().splitlines()[0], flush=True)
-    print(json.dumps({"kernels": [record]}), flush=True)
+    print(json.dumps({"kernels": list(records.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -2,16 +2,18 @@
 
 The JAX package (knnsvc_tpu/) is the reference; this package mirrors its
 module layout so each counterpart is easy to find, and imports nothing from
-it. Plain tensor code is PyTorch; the one TPU kernel on the ported path,
-gated-bias attention, is a hand-written CUDA kernel (csrc/, bound in
-ops/attention.py).
+it. Plain tensor code is PyTorch; the two TPU kernels, gated-bias
+attention and the concat-cost reselection, are hand-written CUDA kernels
+(csrc/, bound in ops/attention.py and ops/concat_scan.py).
 
   io/        WAV codec (numpy), loader of the JAX package's parameter pytrees
   dsp/       linear spectrogram, additive-harmonic / sine excitation, f0
              (sidecars, native Harvest over ctypes, YIN)
   ops/       CUDA kernels, their nvcc build step, their plain PyTorch versions
   models/    WavLM encoder and HiFi-GAN vocoder as nn.Modules
-  match/     cosine kNN, f0 register shift and re-rank, pools, serving core
+  match/     cosine kNN, f0 register shift and re-rank, concat-cost
+             reselection and smoothness optimizer (post_opt), pools,
+             serving core
   cli/       ddsp_inference-compatible CLI (pair mode, --fast)
 
 Entry points (KnnSvc, KnnSvc.random_init, the CLI) run on device="cuda"

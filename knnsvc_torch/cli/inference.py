@@ -6,8 +6,9 @@ knnsvc_tpu/cli/inference.py; the reference's ddsp_inference.py surface):
 
 Runs on --device cuda (the default; no card -> error, never a silent CPU
 run) or --device cpu. Ported so far: file -> file with --fast true,
-no_post_opt, matcher exact/approx; bulk (folder) mode, the host-pool path,
-post_opt and the streaming path are still to port and exit with a message.
+matcher exact/approx, with or without --post_opt (e.g. post_opt_0.2); bulk
+(folder) mode, the host-pool path and the streaming path are still to port
+and exit with a message.
 """
 
 from __future__ import annotations
@@ -37,7 +38,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--ckpt_type", type=str, default="mix",
                         help="mix, mix_harm_no_amp_*, mix_no_harm_no_amp_*, wavlm_only")
     parser.add_argument("--post_opt", type=str, default="no_post_opt",
-                        help="no_post_opt (post_opt_<w> is still to port)")
+                        help="no_post_opt, post_opt_<w> (concat weight w + smoothness "
+                             "optimizer), post_opt_extra (w = 0.3) or no_post_opt_<w> "
+                             "(concat only)")
     parser.add_argument("--topk", type=int, default=4)
     parser.add_argument("--matcher", type=str, default="exact",
                         choices=["exact", "approx", "int8", "sharded", "sharded_int8"],

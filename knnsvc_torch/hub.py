@@ -3,7 +3,8 @@ reference's KNeighborsVC / ddsp_hubconf surface, ref ddsp_matcher.py:303-1156).
 
 Ported so far: the constructor, `random_init`, `load` for `.knnsvc.pkl`
 payloads, and `convert_pair(fast=True)` — the single-pair serving path for
-the MIX and F0_ONLY families without post_opt. Everything runs on
+the MIX and F0_ONLY families, with or without post_opt (concat-cost
+reselection and the smoothness optimizer). Everything runs on
 device="cuda" unless the caller passes device="cpu".
 """
 
@@ -170,8 +171,10 @@ class KnnSvc:
         fast=True is the device-resident serving path: pools, match and
         vocode stay on the device, f0 comes from the host extractor (or its
         sidecar), and the output is quantized to int16 on the device and
-        downloaded once. The host-pool path (fast=False), post_opt and
-        loudness normalization are still to port and raise."""
+        downloaded once. post_opt takes 'no_post_opt', 'post_opt_<w>',
+        'post_opt_extra' or 'no_post_opt_<w>' (concat without the
+        optimizer). The host-pool path (fast=False) and loudness
+        normalization are still to port and raise."""
         if not fast:
             raise NotImplementedError(
                 "convert_pair(fast=False), the host-pool path, is still to port "

@@ -1,7 +1,7 @@
-"""Serving core of the fast path: harmonics gather + kNN match + HiFi-GAN
-vocode (`convert_pools`) and the int16 quantize (`quantize_int16`) —
-counterpart of knnsvc_tpu/match/serve.py: _convert_core (no_post_opt
-branch) and convert_pools_fused.
+"""Serving core of the fast path: harmonics gather + kNN match (+ post_opt)
++ HiFi-GAN vocode (`convert_pools`) and the int16 quantize
+(`quantize_int16`) — counterpart of knnsvc_tpu/match/serve.py:
+_convert_core and convert_pools_fused.
 
 The JAX package fuses these into one compiled program; PyTorch runs them
 eagerly on the pools' device, and the caller downloads the int16 result once.
@@ -14,7 +14,7 @@ from torch.profiler import record_function
 
 from knnsvc_torch import SAMPLE_RATE
 from knnsvc_torch.config import PostOpt, uses_harmonics
-from knnsvc_torch.match.pipeline import match_core
+from knnsvc_torch.match.pipeline import match_core, match_core_post_opt
 from knnsvc_torch.match.pool import DevicePool, harmonic_amplitudes
 
 
@@ -32,11 +32,6 @@ def convert_pools(vocoder, ckpt_type: str, src: DevicePool, ref: DevicePool,
     quantization, shifted f0 (T,))."""
     if matcher not in ("exact", "approx"):
         raise ValueError(f"the fast path supports matcher 'exact' or 'approx', not {matcher!r}")
-    if post_opt.enabled or post_opt.concat_weight != -1.0:
-        raise NotImplementedError(
-            f"post_opt {post_opt.raw!r}: concat-cost reselection and the smoothness "
-            "optimizer belong to the post_opt slice, still to port (ROADMAP.md, "
-            "Queue 1 item 7); use no_post_opt")
     use_harm = uses_harmonics(ckpt_type)
     # record_function spans name the stages in a torch.profiler trace
     with record_function("knnsvc.f0_join"):
@@ -44,9 +39,14 @@ def convert_pools(vocoder, ckpt_type: str, src: DevicePool, ref: DevicePool,
         ref_f0 = ref.f0
     with record_function("knnsvc.match"):
         harm_pool = harmonic_amplitudes(ref.spec, ref_f0, sr) if use_harm else None
-        out, shifted, harm = match_core(src.matching, ref.matching, ref.synth, ref_f0,
-                                        harm_pool, src_f0, None, topk=topk,
-                                        use_harmonics=use_harm)
+        args = (src.matching, ref.matching, ref.synth, ref_f0, harm_pool, src_f0, None)
+        if not post_opt.enabled and post_opt.concat_weight == -1.0:
+            out, shifted, harm = match_core(*args, topk=topk, use_harmonics=use_harm)
+        else:
+            # spans knnsvc.concat_cost and knnsvc.smoothness nest in this one
+            out, shifted, harm = match_core_post_opt(
+                *args, topk=topk, use_harmonics=use_harm,
+                concat_weight=post_opt.concat_weight, opt_enabled=post_opt.enabled)
     with record_function("knnsvc.vocode"):
         wav = vocoder(out[None], shifted.reshape(1, -1, 1),
                       None if harm is None else harm[None])

@@ -36,8 +36,9 @@ def test_unported_options_raise(pair):
     out = str(root / "unported.wav")
     with pytest.raises(NotImplementedError, match="fast=False"):
         knn.convert_pair(src, ref, output_path=out)
-    with pytest.raises(NotImplementedError, match="post_opt"):
-        knn.convert_pair(src, ref, fast=True, post_opt="post_opt_0.2", output_path=out)
+    with pytest.raises(NotImplementedError, match="loudness"):
+        knn.convert_pair(src, ref, fast=True, post_opt="post_opt_0.2", tgt_loudness_db=-20.0,
+                         output_path=out)
     with pytest.raises(NotImplementedError, match="multi-device"):
         knn.convert_pair(src, ref, fast=True, matcher="sharded", output_path=out)
 

@@ -9,13 +9,17 @@ package, so it also runs where those are not installed:
 Tolerances: 1e-4 at the main path's T=1500, where the kernel sums 1500
 fp32 terms per score and per output in another order than cuBLAS and
 torch.softmax; 2e-5 (test_ops.py's bound for the Pallas kernel) at T<=200.
+The concat-cost kernel's selections must equal its plain version's exactly
+on these random inputs.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from knnsvc_torch.match.concat_cost import knn_with_concat_cost, knn_with_concat_cost_pair
 from knnsvc_torch.ops.attention import gated_bias_attention, reference_attention
+from knnsvc_torch.ops.concat_scan import concat_cost_pair, concat_cost_single
 
 
 def _cuda():
@@ -66,3 +70,63 @@ def test_attention_kernel_rejects_bad_inputs():
     with pytest.raises(ValueError):
         gated_bias_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, bias, gate)
     assert gated_bias_attention.launches == before
+
+
+def _concat_inputs(T, P, D, seed, device, clamp_and_duplicates=False):
+    """Random ids and features with a smooth source stretch (baselines under
+    0.08, so the pitched lane's weight latches part way through)."""
+    rng = np.random.default_rng(seed)
+    src = rng.standard_normal((T, D)).astype(np.float32)
+    src[12:20] = src[12] + 0.01 * rng.standard_normal((8, D)).astype(np.float32)
+    tgt = rng.standard_normal((P, D)).astype(np.float32)
+    idx_u = rng.integers(0, P, (T, 4))
+    idx_p = rng.integers(0, P, (T, 4))
+    if clamp_and_duplicates:
+        idx_u[::3, 0] = P - 1
+        idx_p[::4, 1] = P - 1
+        idx_u[1::2, 2] = idx_u[1::2, 1]
+        idx_p[1:, 3] = np.minimum(idx_p[:-1, 0] + 1, P - 1)
+    sf0 = (80 + 300 * rng.random(T)).astype(np.float32)
+    sf0[::5] = 0.0
+    tf0 = (80 + 300 * rng.random(P)).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (idx_u, idx_p, src, tgt, sf0, tf0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,P,D,clamp_and_duplicates", [
+    (37, 53, 128, False),     # test_ops.py's shape for the Pallas kernel
+    (37, 53, 128, True),      # ids at row P-1, own candidates equal to prev + 1
+    (300, 400, 1024, False),  # the served width
+])
+def test_concat_kernel_matches_plain(T, P, D, clamp_and_duplicates):
+    idx_u, idx_p, src, tgt, sf0, tf0 = _concat_inputs(T, P, D, 7, _cuda(), clamp_and_duplicates)
+    before = concat_cost_pair.launches
+    got_u, got_p = concat_cost_pair(idx_u, idx_p, src, tgt, sf0, tf0, concat_weight=0.2)
+    got_s = concat_cost_single(idx_u, src, tgt, concat_weight=0.2)
+    got_sp = concat_cost_single(idx_p, src, tgt, sf0, tf0, concat_weight=0.3)
+    torch.cuda.synchronize()
+    assert concat_cost_pair.launches == before + 3
+    want_u, want_p = knn_with_concat_cost_pair(idx_u, idx_p, src, tgt, sf0, tf0,
+                                               concat_weight=0.2)
+    assert torch.equal(got_u, want_u) and torch.equal(got_p, want_p)
+    assert torch.equal(got_s, want_u)
+    assert torch.equal(got_sp, knn_with_concat_cost(idx_p, src, tgt, sf0, tf0,
+                                                    concat_weight=0.3))
+
+
+@pytest.mark.gpu
+def test_concat_kernel_rejects_bad_inputs():
+    idx_u, idx_p, src, tgt, sf0, tf0 = _concat_inputs(20, 30, 64, 8, _cuda())
+    before = concat_cost_pair.launches
+    with pytest.raises(ValueError, match="k=4"):            # k = 3: not compiled
+        concat_cost_pair(idx_u[:, :3], idx_p[:, :3], src, tgt, sf0, tf0)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        concat_cost_pair(idx_u, idx_p, src[:, :62].contiguous(), tgt[:, :62].contiguous(),
+                         sf0, tf0)
+    with pytest.raises(TypeError, match="integers"):
+        concat_cost_pair(idx_u.float(), idx_p, src, tgt, sf0, tf0)
+    with pytest.raises(ValueError, match="is on"):          # a pool left on the CPU
+        concat_cost_pair(idx_u, idx_p, src, tgt.cpu(), sf0, tf0)
+    with pytest.raises(TypeError):
+        concat_cost_pair(idx_u, idx_p, src.double(), tgt.double(), sf0, tf0)
+    assert concat_cost_pair.launches == before
