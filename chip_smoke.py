@@ -11,9 +11,12 @@ Phases (any failure exits non-zero, before the result line):
      CUDA-event times of the kernel, the plain version and (where one
      exists) one PyTorch library call, beside the kernel's bound on an
      H100: the attention kernel at the main path's shape and at ragged
-     shapes; the concat-cost kernel exactly equal at (37, 53, 128) and on
-     ids at row P-1 with duplicate candidates, and the share of equal
-     frames per lane at the main path's (1500, 1500, 1024);
+     shapes; the concat-cost kernel exactly equal at (37, 53, 128), on
+     random ids and on ids at row P-1 with duplicate candidates, at k = 4
+     and k in CONCAT_KS, and at (300, 400, 1024) with k = 8 (its rows read
+     from L2), the share of equal frames per lane (all of them) at the
+     main path's (1500, 1500, 1024) with k = 4 and k = 8, and the time of
+     its pre-pass alone;
   3. the slice on the card against the slice on the CPU: one full-width
      KnnSvc.random_init("mix") (WavLM-Large, HiFi-GAN v1 config), the same
      weights on both, "highest" precision, a seeded 4-s synthetic singing
@@ -25,9 +28,10 @@ Phases (any failure exits non-zero, before the result line):
      f0 extracted, and repeated, f0 read from its cache) and with
      post_opt_0.2 (new and repeated); each run must launch the attention
      kernel exactly 12 times (6 encoder layers x 2 pools) and, with
-     post_opt, the concat-cost kernel once; one wavlm_only post_opt
-     conversion; traced runs split by stage from the knnsvc.* profiler
-     spans;
+     post_opt, the concat-cost kernel once; one post_opt conversion with
+     topk=8; one wavlm_only post_opt conversion; traced runs (new and
+     repeated pairs, without and with post_opt) split by stage from the
+     knnsvc.* profiler spans;
   5. the card's name and power limit (nvidia-smi).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
@@ -71,13 +75,16 @@ LAUNCHES_PER_PAIR = 12           # 6 early-exit layers x 2 pools x one 30-s chun
 VOICES = (("src", 190.0, 21), ("ref", 265.0, 22))   # name, f0 in Hz, seed
 
 CONCAT_SMALL = (37, 53, 128)     # (T, P, D) of tests/test_ops.py's Pallas check
+CONCAT_KS = (2, 8, 32)           # top-k beside the reference's 4, up to the kNN width
+CONCAT_L2 = (300, 400, 1024, 8)  # (T, P, D, k): rows too many for shared memory
 CONCAT_MAIN = (1500, 1500, 1024) # a 30-s source against a 30-s pool, WavLM width
-CONCAT_SHARE_MIN = 0.99          # frames whose picks equal the plain version's
+CONCAT_SHARE_MIN = 1.0           # frames whose picks equal the plain version's
 CONCAT_PLAIN_RUNS = 3            # the plain version is a Python loop over frames
 POST_OPT = "post_opt_0.2"        # the paper's CAT + OPT, the README's first command
 PICK_SHARE_MIN = 0.95            # card vs CPU: frames whose concat picks agree
 PO_FRESH_RUNS = 3                # post_opt conversions of new pairs
 PO_WARM_RUNS = 10                # post_opt repeat conversions
+TOPK_WIDE = 8                    # a --topk beside the reference's 4
 
 
 def fail(msg: str) -> None:
@@ -200,18 +207,18 @@ def phase_kernels(dev):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
 
-def concat_bound_ms(T: int, P: int, D: int, lanes: int) -> tuple[float, str]:
-    """Least time for the work on an H100: per frame and lane 48 dots of D
-    multiply-adds (8 candidate norms, 8 source dots, 32 cross dots), 2
-    flops each; bytes = source and pool rows, ids, f0 tracks and baselines
-    read once and the picks written once."""
-    ops = lanes * (T - 1) * 48 * 2 * D
-    nbytes = 4 * (T * D + P * D + 2 * T * lanes * 4 + (T - 1) + T + P)
+def concat_bound_ms(T: int, P: int, D: int, lanes: int, k: int) -> tuple[float, str]:
+    """Least time for the work on an H100: per frame and lane 2k^2 + 2k
+    dots of D multiply-adds (k x 2k cross dots against the picks, 2k source
+    dots), plus the P pool norms once, 2 flops each; bytes = source and pool
+    rows, ids, f0 tracks and baselines read once and the picks written once."""
+    ops = (lanes * (T - 1) * (2 * k * k + 2 * k) + P) * 2 * D
+    nbytes = 4 * (T * D + P * D + 2 * T * lanes * k + (T - 1) + T + P)
     t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def concat_inputs(T: int, P: int, D: int, seed: int, dev, clamp_and_duplicates=False):
+def concat_inputs(T: int, P: int, D: int, seed: int, dev, clamp_and_duplicates=False, k=4):
     """Random ids and features with a smooth source stretch (baselines under
     0.08, so the pitched lane's weight latches part way through); optionally
     ids at row P-1 and own candidates equal to each other and to prev + 1."""
@@ -222,12 +229,12 @@ def concat_inputs(T: int, P: int, D: int, seed: int, dev, clamp_and_duplicates=F
     src = rng.standard_normal((T, D)).astype(np.float32)
     src[12:20] = src[12] + 0.01 * rng.standard_normal((8, D)).astype(np.float32)
     tgt = rng.standard_normal((P, D)).astype(np.float32)
-    idx_u, idx_p = rng.integers(0, P, (T, 4)), rng.integers(0, P, (T, 4))
+    idx_u, idx_p = rng.integers(0, P, (T, k)), rng.integers(0, P, (T, k))
     if clamp_and_duplicates:
         idx_u[::3, 0] = P - 1
-        idx_p[::4, 1] = P - 1
-        idx_u[1::2, 2] = idx_u[1::2, 1]
-        idx_p[1:, 3] = np.minimum(idx_p[:-1, 0] + 1, P - 1)
+        idx_p[::4, 1 % k] = P - 1
+        idx_u[1::2, 2 % k] = idx_u[1::2, 1 % k]
+        idx_p[1:, 3 % k] = np.minimum(idx_p[:-1, 0] + 1, P - 1)
     sf0 = (80 + 300 * rng.random(T)).astype(np.float32)
     sf0[::5] = 0.0
     tf0 = (80 + 300 * rng.random(P)).astype(np.float32)
@@ -237,47 +244,69 @@ def concat_inputs(T: int, P: int, D: int, seed: int, dev, clamp_and_duplicates=F
 def phase_concat_kernel(dev):
     import torch
 
-    from knnsvc_torch.match.concat_cost import knn_with_concat_cost_pair
-    from knnsvc_torch.ops.concat_scan import concat_cost_pair, concat_cost_single
+    from knnsvc_torch.match.concat_cost import knn_with_concat_cost_pair, scan_inputs
+    from knnsvc_torch.ops.concat_scan import (concat_cost_pair, concat_cost_prepass,
+                                              concat_cost_single)
 
     max_err = 0
-    for dup in (False, True):
-        args = concat_inputs(*CONCAT_SMALL, 3, dev, clamp_and_duplicates=dup)
+    cases = [(*CONCAT_SMALL, k, dup) for k in (4, *CONCAT_KS) for dup in (False, True)]
+    for T, P, D, k, dup in [*cases, (*CONCAT_L2, False)]:
+        args = concat_inputs(T, P, D, 3, dev, clamp_and_duplicates=dup, k=k)
         got = [*concat_cost_pair(*args), concat_cost_single(args[0], *args[2:4])]
         want = knn_with_concat_cost_pair(*args)
         want = [*want, want[0]]
         torch.cuda.synchronize()
         err = max(int((g - w).abs().max()) for g, w in zip(got, want))
         max_err = max(max_err, err)
-        log(f"[kernel] concat_cost_pair {CONCAT_SMALL} "
+        log(f"[kernel] concat_cost_pair ({T}, {P}, {D}) k={k} "
             f"{'ids at P-1, duplicates' if dup else 'random ids'}: pair and single lane "
             f"equal to the plain version: {err == 0} (max |id diff| {err})")
         if err != 0:
-            fail(f"concat_cost_pair disagrees with its plain version at {CONCAT_SMALL}")
+            fail(f"concat_cost_pair disagrees with its plain version at ({T}, {P}, {D}) k={k}")
+
+    def equal_shares(args, k):
+        """Frames whose picks equal the plain version's, per lane; fails
+        below CONCAT_SHARE_MIN."""
+        got = concat_cost_pair(*args)
+        want = knn_with_concat_cost_pair(*args)
+        shares = [float((g == w).all(dim=1).float().mean()) for g, w in zip(got, want)]
+        log(f"[kernel] concat_cost_pair {CONCAT_MAIN} k={k}: frames equal to the plain "
+            f"version, unpitched {shares[0]:.2%}, pitched {shares[1]:.2%} "
+            f"(min {CONCAT_SHARE_MIN:.0%})")
+        if not min(shares) >= CONCAT_SHARE_MIN:
+            fail(f"concat_cost_pair agrees with its plain version on only {min(shares):.2%} "
+                 f"of frames at the main shape, k={k}")
+        return min(shares)
 
     T, P, D = CONCAT_MAIN
     args = concat_inputs(T, P, D, 4, dev)
-    got = concat_cost_pair(*args)
-    want = knn_with_concat_cost_pair(*args)
-    shares = [float((g == w).all(dim=1).float().mean()) for g, w in zip(got, want)]
-    log(f"[kernel] concat_cost_pair {CONCAT_MAIN}: frames equal to the plain version, "
-        f"unpitched {shares[0]:.2%}, pitched {shares[1]:.2%} (min {CONCAT_SHARE_MIN:.0%})")
-    if not min(shares) >= CONCAT_SHARE_MIN:
-        fail(f"concat_cost_pair agrees with its plain version on only {min(shares):.2%} "
-             "of frames at the main shape")
+    share = equal_shares(args, 4)
     ms = cuda_ms(lambda: concat_cost_pair(*args))
+    idx = torch.stack(args[:2], dim=1).to(torch.int32).contiguous()
+    svn = scan_inputs(args[2], None, None)[0]
+    prepass_ms = cuda_ms(lambda: concat_cost_prepass(idx, svn, args[3]))
     plain_ms = cuda_ms(lambda: knn_with_concat_cost_pair(*args), iters=CONCAT_PLAIN_RUNS,
                        warmup=1)
-    bound_ms, bound_by = concat_bound_ms(T, P, D, lanes=2)
-    log(f"[kernel] concat_cost_pair {CONCAT_MAIN}: kernel {ms:.4f} ms "
+    bound_ms, bound_by = concat_bound_ms(T, P, D, lanes=2, k=4)
+    log(f"[kernel] concat_cost_pair {CONCAT_MAIN} k=4: kernel {ms:.4f} ms "
         f"({1e3 * ms / (T - 1):.3f} us per frame), plain {plain_ms:.4f} ms, library none, "
         f"bound {bound_ms:.4f} ms ({bound_by}); roofline share {bound_ms / ms:.2%}")
+    log(f"[kernel] concat_cost_pair {CONCAT_MAIN} k=4: of which the pre-pass alone "
+        f"(pool norms, own source dots) {prepass_ms:.4f} ms")
+    wide = concat_inputs(T, P, D, 5, dev, k=TOPK_WIDE)
+    share = min(share, equal_shares(wide, TOPK_WIDE))
+    wide_ms = cuda_ms(lambda: concat_cost_pair(*wide), iters=5, warmup=1)
+    wide_bound_ms, wide_by = concat_bound_ms(T, P, D, lanes=2, k=TOPK_WIDE)
+    log(f"[kernel] concat_cost_pair {CONCAT_MAIN} k={TOPK_WIDE} (rows in L2): kernel "
+        f"{wide_ms:.4f} ms ({1e3 * wide_ms / (T - 1):.3f} us per frame), bound "
+        f"{wide_bound_ms:.4f} ms ({wide_by})")
     return {"name": "concat_cost_pair", "route": "cuda",
             "source": "knnsvc_torch/csrc/concat_cost_pair.cu",
             "replaces": "knnsvc_tpu/ops/concat_scan.py:182",
-            "launches": None, "max_abs_err": float(max_err), "equal_share": min(shares),
+            "launches": None, "max_abs_err": float(max_err), "equal_share": share,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "library_ms": None, "us_per_frame": 1e3 * ms / (T - 1), "prepass_ms": prepass_ms,
+            "launch_note": "one launch per call: the pre-pass kernel, then the chain kernel"}
 
 
 def write_pair(root: str, seconds: float, sidecars: bool):
@@ -422,13 +451,14 @@ def phase_full(root: str, knn, records, dev):
     out = os.path.join(root, "converted.wav")
     n_frames = frame_count(knn.wavlm_cfg, int(16000 * FULL_SECONDS) + 320)
 
-    def run(s, r, post_opt="no_post_opt", model=knn):
+    def run(s, r, post_opt="no_post_opt", model=knn, topk=4):
         """One convert_pair, its counts set to 0 just before and read just
         after: 12 attention launches, and one concat-cost launch with post_opt."""
         gated_bias_attention.launches = 0
         concat_cost_pair.launches = 0
         t0 = time.perf_counter()
-        path = model.convert_pair(s, r, fast=True, post_opt=post_opt, output_path=out)
+        path = model.convert_pair(s, r, topk=topk, fast=True, post_opt=post_opt,
+                                  output_path=out)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = (gated_bias_attention.launches, concat_cost_pair.launches)
@@ -507,6 +537,15 @@ def phase_full(root: str, knn, records, dev):
         fail(f"{POST_OPT} output: sr {sr}, length {y.shape[-1]}, peak {peak}")
     log(f"[post_opt] output {y.shape[-1]} samples; pre-quantize peak {peak:.3e}")
 
+    wide_s, wide_launches, _ = run(src, ref, POST_OPT, topk=TOPK_WIDE)
+    wav = knn.convert_waveform(src, ref, topk=TOPK_WIDE, post_opt=POST_OPT)
+    torch.cuda.synchronize()
+    peak = float(wav.abs().max())
+    if not (wav.shape[0] == n_frames * 320 and bool(torch.isfinite(wav).all()) and peak > 0):
+        fail(f"{POST_OPT} topk={TOPK_WIDE}: shape {tuple(wav.shape)}, peak {peak}")
+    log(f"[post_opt] convert_pair(topk={TOPK_WIDE}, post_opt={POST_OPT!r}) in {wide_s:.4f} s; "
+        f"launches (attention, concat) {wide_launches}; pre-quantize peak {peak:.3e}, finite")
+
     wknn = KnnSvc.random_init("wavlm_only", seed=0, device=dev)
     with OptimizerSteps() as wsteps:
         w_times = [run(src, ref, POST_OPT, model=wknn)[0] for _ in range(2)]
@@ -517,6 +556,8 @@ def phase_full(root: str, knn, records, dev):
     phase_profile(knn, *new_pair("traced"), out, "new pair (f0 extracted)")
     phase_profile(knn, src, ref, out, "repeat conversion (f0 cached)")
     phase_profile(knn, src, ref, out, f"mix {POST_OPT} repeat", POST_OPT)
+    phase_profile(knn, *new_pair("po_traced"), out, f"mix {POST_OPT} new pair (f0 extracted)",
+                  POST_OPT)
     phase_profile(wknn, src, ref, out, f"wavlm_only {POST_OPT} repeat", POST_OPT)
 
 

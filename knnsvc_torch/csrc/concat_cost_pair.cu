@@ -7,51 +7,81 @@
 // version is knnsvc_torch/match/concat_cost.py::concat_cost_scan.
 //
 // A serial recurrence over T frames, per lane (lane 0 unpitched, lane 1
-// pitched; one lane for the single reselection), k = 4:
-//   cand    = own top-4 of frame t, then min(picks of frame t-1 + 1, P - 1)
+// pitched; one lane for the single reselection), for any k in 1..32:
+//   cand    = own top-k of frame t, then min(picks of frame t-1 + 1, P - 1)
 //   match_c = 1 - cand_c . svn_t / |cand_c|
 //   cc_jc   = 1 - prev_j . cand_c / (|prev_j| |cand_c|)
 //   unpitched: cc > b -> 1.5 cc - b;   pitched: b < 0.08 and cc < 5 b -> 0,
 //              weight latched to 0 for good once b >= 0.08
-//   total_c = weight * median4_j(cc_jc) + match_c [+ |tlf0[cand_c] - slf0_t|]
-//   picks   = the 4 smallest totals, ties to the lowest candidate position
-// with b = 2 (1 - svn_{t-1} . svn_t) and the log2 f0 tracks computed by the
-// wrapper with the same torch ops as the plain version.
+//   total_c = weight * median_j(cc_jc) + match_c [+ |tlf0[cand_c] - slf0_t|]
+//   picks   = the k smallest totals, ties to the lowest candidate position,
+//             NaN after everything (torch.sort's order)
+// with median = sorted[(k-1)/2], b = 2 (1 - svn_{t-1} . svn_t) and the
+// log2 f0 tracks computed by the wrapper with the plain version's torch ops.
 //
-// What bounds it at the main path's shape (T = P = 1500, D = 1024, 2 lanes):
-//   - operations: 48 dots of 2D operations per frame and lane, 0.29 GFLOP,
-//     ~4.4 us at the H100's 67 TFLOP/s fp32 rate;
-//   - bytes: source and pool read once, 12.3 MB, ~3.7 us at 3.35 TB/s.
-// Neither is what limits it: frame t needs frame t-1's picks, so the frames
-// form a chain of T dependent steps, each waiting on row loads from L2 and a
-// few block barriers. It is bound by that latency.
+// What bounds it at the main path's shape (T = P = 1500, D = 1024, k = 4,
+// 2 lanes): the k x 2k cross dots and 2k source dots of D per frame and
+// lane, plus the P pool norms once, are 0.25 GFLOP (~3.7 us at 67 TFLOP/s
+// fp32), the rows read once 12.4 MB (~3.7 us at 3.35 TB/s). Neither
+// limits it: frame t's candidates hold frame t-1's picks + 1, so the frames
+// are a chain of T dependent steps and the kernel is bound by the latency
+// of one step. The design takes off that chain all it can:
+//   1. concat_cost_prepass_kernel, a parallel pass over the card before the
+//      chain: the norm of every pool row, and for every own candidate c of
+//      every frame t and lane the source dots c . svn_t and min(c + 1, P -
+//      1) . svn_{t+1}, with the warp_dot of the chain's producers, so a
+//      value computed ahead has the bits it would have there;
+//   2. concat_cost_chain_kernel, one block per lane (lanes are
+//      independent). Four producer warps work one frame ahead: once frame
+//      t's candidate set S_t is known (at the start of step t), frame t+1's
+//      prev+1 candidates are a subset of {min(c + 1, P - 1) : c in S_t}.
+//      The producers copy those 2k rows and frame t+1's k own rows into a
+//      ring in shared memory, one TMA bulk copy (cp.async.bulk) per row
+//      completing on an mbarrier, compute the k source dots the pre-pass
+//      cannot know (frame t-1's picks + 2), and gather every scalar the
+//      selector needs (norms, f0, baseline) into shared memory;
+//   3. on the chain per frame: the dot warps wait on the mbarrier of frame
+//      t's rows, which landed during step t-1, and form the k x 2k cross
+//      dots against the picks; for k <= 4 each of the 8 warps takes a slice
+//      of D for all pairs, so every row is read from shared memory once,
+//      and a butterfly reduce-scatter leaves one partial per pair and lane.
+//      One named barrier (bar.arrive by the dot warps, bar.sync by the
+//      selector), then the selector warp forms one concat cost per lane and
+//      pair, the medians, and ranks the candidates in one round (each counts
+//      those that come before it under (value, position)); one
+//      __syncthreads ends the frame. No global load is left on the chain.
+// The per-frame time this leaves (chip_smoke.py; PERF.md) is the cross dots
+// and the selector's dependent shared-memory and division latencies, about
+// 2 us a frame, with the producers' one L2 round trip close behind.
 //
-// Design. One block per lane (the lanes are independent, so the pair takes
-// the time of one lane), looping over frames inside the kernel. Per frame:
-// the 8 candidate rows and the source row are loaded into shared memory
-// with 16-byte loads (the 6 MB pool stays in the 50 MB L2); the rows picked
-// in the previous frame stay in shared memory (two candidate buffers
-// alternate), with their norms, so no previous row is ever loaded again;
-// warp c computes candidate c's norm, source dot and 4 cross dots with
-// shuffle reductions; warp 0 forms the costs, the medians and the picks
-// (argmin over 8 lanes, ties to the lowest position), writes them out and
-// updates the carry. The scalar cost arithmetic uses __f*_rn intrinsics, so
-// no multiply-add is contracted that the plain version rounds twice: the
-// two differ only in the order of the dot-product sums. Ids are clamped to
+// Rows in shared memory: 3 frames of k own rows and 3 frames of 2k prev+1
+// rows, 9 k D floats. When they and the static arrays fit the block's
+// opt-in shared memory (227 KB on an H100: k <= 6 at D = 1024, every k at
+// D = 128) the rows live there; otherwise (k >= 7 at D = 1024) the chain
+// reads them from global memory (L2), the same arithmetic on other
+// pointers, with a dependent row load on the chain. launch_chain decides.
+// The chain is compiled for k <= 4, 8 and 32 (KM) and runs any k up to that.
+// The scalar cost arithmetic uses __f*_rn intrinsics and the dots explicit
+// fmaf, so no multiply-add is contracted where the plain version rounds
+// twice: the two differ only in the order of the dot-product sums, and
+// equal rows give equal sums wherever they are formed. Ids are clamped to
 // [0, P-1] before any row is read (XLA's gather clamps the same way).
-// Prefetching the next frame's own candidates (cp.async / TMA) and
-// precomputed pool norms are left for later work.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cmath>
+#include <cstdint>
 
 namespace {
 
-constexpr int K = 4;            // picks per lane
-constexpr int C = 2 * K;        // candidates per frame and lane
-constexpr int THREADS = C * 32; // one warp per candidate
+constexpr int MAX_K = 32;
 constexpr int MAX_LANES = 32;
+constexpr int DOT_WARPS = 8;     // cross dots; warp 0 also selects
+constexpr int PROD_WARPS = 4;    // producers, one frame ahead
+constexpr int THREADS = (DOT_WARPS + PROD_WARPS) * 32;
+constexpr int PROD_THREADS = PROD_WARPS * 32;
+constexpr int PREPASS_THREADS = 256;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -59,186 +89,510 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// sum(a * b) over D floats (D a multiple of 4) by one warp; every lane gets
-// it. The order of the sum depends on D alone, so equal rows give equal sums.
+// One term group of a dot: s += x . y, in a fixed order with fused
+// multiply-adds, so every dot of equal rows gives equal bits.
+__device__ __forceinline__ float fma4(float4 x, float4 y, float s) {
+  s = __fmaf_rn(x.x, y.x, s);
+  s = __fmaf_rn(x.y, y.y, s);
+  s = __fmaf_rn(x.z, y.z, s);
+  return __fmaf_rn(x.w, y.w, s);
+}
+
+// sum(a * b) over D floats (d4 = D / 4 float4) by one warp; every lane gets
+// it. The order depends on D alone.
 __device__ __forceinline__ float warp_dot(const float* a, const float* b, int d4, int ln) {
   const float4* a4 = reinterpret_cast<const float4*>(a);
   const float4* b4 = reinterpret_cast<const float4*>(b);
   float s = 0.f;
-  for (int i = ln; i < d4; i += 32) {
-    const float4 x = a4[i], y = b4[i];
-    s += x.x * y.x;
-    s += x.y * y.y;
-    s += x.z * y.z;
-    s += x.w * y.w;
-  }
+#pragma unroll 8
+  for (int i = ln; i < d4; i += 32) s = fma4(a4[i], b4[i], s);
   return warp_sum(s);
 }
 
-// torch.median of 4 values: the lower middle, the 2nd smallest
-__device__ __forceinline__ float median4(float a, float b, float c, float d) {
-  const float s1 = fminf(a, b), l1 = fmaxf(a, b);
-  const float s2 = fminf(c, d), l2 = fmaxf(c, d);
-  return fminf(fmaxf(s1, s2), fminf(l1, l2));
+// One step of a butterfly reduce-scatter over the warp: each lane holds
+// 2 OFF partial sums and keeps OFF of them, those whose index has bit OFF
+// equal to its lane's, adding its partner's. After the steps 16..1 lane l
+// holds the warp's sum of value l, in an order that is the same for every l.
+template <int OFF>
+__device__ __forceinline__ void reduce_scatter(float* acc, int ln) {
+  const bool upper = ln & OFF;
+#pragma unroll
+  for (int p = 0; p < OFF; ++p) {
+    const float send = upper ? acc[p] : acc[p + OFF];
+    const float keep = upper ? acc[p + OFF] : acc[p];
+    acc[p] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+  }
 }
 
+// (a, ia) comes before (b, ib): by value, NaN after every number, ties to
+// the lower position (torch.sort(stable=True)'s order)
+__device__ __forceinline__ bool before(float a, int ia, float b, int ib) {
+  const bool na = isnan(a), nb = isnan(b);
+  if (na || nb) return (na && nb) ? ia < ib : nb;
+  return a < b || (a == b && ia < ib);
+}
+
+__device__ __forceinline__ int clamp_id(int id, int P) { return min(max(id, 0), P - 1); }
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               "fence.mbarrier_init.release.cluster;\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// arrive once on `bar` and expect `bytes` of copies to complete on it
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n}\n" ::"r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// one TMA 1-D bulk copy of `bytes` (a multiple of 16) into shared memory
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// Pool norms and source dots of the own candidates, one warp per dot:
+// osd[0][t][l][j] = tgt[c] . svn[t] and osd[1][t][l][j] = tgt[min(c + 1,
+// P - 1)] . svn[t + 1] (frame t+1's prev+1 candidate from own candidate j
+// of frame t), with c = idx[t][l][j] clamped.
+__global__ void __launch_bounds__(PREPASS_THREADS)
+concat_cost_prepass_kernel(const int* __restrict__ idx, const float* __restrict__ svn,
+                           const float* __restrict__ tgt, float* __restrict__ pnorm,
+                           float* __restrict__ osd, int T, int P, int D, int L, int k) {
+  const int ln = threadIdx.x & 31, d4 = D / 4;
+  const long own = (long)T * L * k, items = P + 2 * own;
+  const long warps = (long)gridDim.x * (PREPASS_THREADS / 32);
+  for (long w = blockIdx.x * (PREPASS_THREADS / 32) + (threadIdx.x >> 5); w < items; w += warps) {
+    if (w < P) {
+      const float* row = tgt + (size_t)w * D;
+      const float n = warp_dot(row, row, d4, ln);
+      if (ln == 0) pnorm[w] = sqrtf(n);
+    } else {
+      const long e = (w - P) % own;              // (t, lane, j) of idx
+      const int next = (int)((w - P) / own);     // 0: own, 1: own + 1
+      const int t = (int)(e / ((long)L * k)) + next;
+      const int id = min(clamp_id(idx[e], P) + next, P - 1);
+      const float s =
+          t < T ? warp_dot(tgt + (size_t)id * D, svn + (size_t)t * D, d4, ln) : 0.f;
+      if (ln == 0) osd[w - P] = s;
+    }
+  }
+}
+
+// Per-frame scalars the selector reads, double-buffered by frame parity.
+template <int KM>
+struct FrameData {
+  int oid[KM];                    // own candidate ids, clamped
+  float onorm[KM], osd[KM], olf0[KM];
+  int xid[2 * KM];                // min(S_{t-1}[q] + 1, P - 1)
+  float xnorm[2 * KM], xsd[2 * KM], xlf0[2 * KM];
+  float b, slf0;                  // baseline b_{t-1}, source log2 f0 of t
+};
+
+// Pick state of one frame, double-buffered by frame parity.
+template <int KM>
+struct Picks {
+  int pos[KM];                    // candidate position of pick r
+  float norm[KM];
+  int at[KM];                     // its row: a ring offset, or a pool row id (L2)
+};
+
+// Cross dots of one frame, written by the dot warps for the selector. For
+// k <= 4 each warp takes a slice of D for all k x 2k pairs and leaves one
+// partial sum per pair (lane = pair j * 8 + c); above, each candidate's
+// dots are whole.
+template <int KM>
+struct Cross {
+  float v[KM <= 4 ? DOT_WARPS : KM][KM <= 4 ? 32 : 2 * KM];
+};
+
+template <int KM, bool SMEM>
 __global__ void __launch_bounds__(THREADS)
-concat_cost_kernel(const int* __restrict__ idx, const float* __restrict__ svn,
-                   const float* __restrict__ tgt, const float* __restrict__ baselines,
-                   const float* __restrict__ src_lf0, const float* __restrict__ tgt_lf0,
-                   int* __restrict__ out, int T, int P, int D, int L, int pitched_mask,
-                   float concat_weight) {
-  extern __shared__ __align__(16) float smem[];
-  float* rows = smem;              // [2][C][D]: candidate rows of frames t-1 and t
-  float* sv = smem + 2 * C * D;    // [D]: source row of frame t
-  __shared__ int cand_id[C];
-  __shared__ int prev_id[K];       // picks of frame t-1
-  __shared__ int prev_slot[K];     // their rows in frame t-1's buffer
-  __shared__ float prev_norm[K];
-  __shared__ float cn[C], sdot[C], cross[K][C];
-  __shared__ float weight;
+concat_cost_chain_kernel(const int* __restrict__ idx, const float* __restrict__ svn,
+                         const float* __restrict__ tgt, const float* __restrict__ baselines,
+                         const float* __restrict__ src_lf0, const float* __restrict__ tgt_lf0,
+                         const float* __restrict__ pnorm, const float* __restrict__ osd,
+                         int* __restrict__ out, int T, int P, int D, int L, int k,
+                         int pitched_mask, float concat_weight) {
+  constexpr int NC = (2 * KM + 31) / 32;     // candidates per selector lane
+  constexpr bool SPLIT = KM <= 4;            // cross dots split over D
+  // when the rows fit: own rows [3][k][D], then prev+1 rows [3][2k][D]
+  extern __shared__ __align__(128) float ring[];
+  __shared__ FrameData<KM> fd[2];
+  __shared__ Picks<KM> pk[2];
+  __shared__ Cross<KM> cross;
+  __shared__ float tot[2 * KM];
+  __shared__ __align__(8) uint64_t full[3];  // one mbarrier per ring slot
 
   const int lane = blockIdx.x;
   const bool pitched = (pitched_mask >> lane) & 1;
   const int tid = threadIdx.x, warp = tid >> 5, ln = tid & 31;
-  const int d4 = D / 4;
-  const float4* tgt4 = reinterpret_cast<const float4*>(tgt);
-  const float4* svn4 = reinterpret_cast<const float4*>(svn);
-  float4* sv4 = reinterpret_cast<float4*>(sv);
+  const int pt = tid - DOT_WARPS * 32, pw = pt >> 5;  // producer thread and warp
+  const int d4 = D / 4, C = 2 * k;
+  // ring slots of frame f's own row j and prev+1 row q; a dot finds a row
+  // by its "at": the slot's offset, or the pool row's id when the rows go to L2
+  auto own_slot = [&](int f, int j) { return ring + ((size_t)(f % 3) * k + j) * D; };
+  auto x_slot = [&](int f, int q) { return ring + ((size_t)(3 + 2 * (f % 3)) * k + q) * D; };
+  auto own_at = [&](int f, int j, int id) { return SMEM ? ((f % 3) * k + j) * D : id; };
+  auto x_at = [&](int f, int q, int id) { return SMEM ? ((3 + 2 * (f % 3)) * k + q) * D : id; };
+  auto row_of = [&](int at) -> const float* { return SMEM ? ring + at : tgt + (size_t)at * D; };
+  const unsigned row_bytes = (unsigned)D * sizeof(float);
+  const int* idx0 = idx + (size_t)lane * k;
+  int own_next = 0;  // producer thread C + j: raw own id j of the frame staged next
 
-  // frame 0 passes through; its ids are frame 1's previous picks, in buffer 0
-  if (tid < K) {
-    const int id = idx[lane * K + tid];
-    out[lane * K + tid] = id;
-    prev_id[tid] = min(max(id, 0), P - 1);
-    prev_slot[tid] = tid;
-  }
-  if (tid == 0) weight = concat_weight;
+  // Producers: stage frame f, given S_{f-1}'s ids through sid(q): one TMA
+  // bulk copy per row into the ring slot (completing on full[f % 3]), the
+  // scalars, the next frame's own ids and the k source dots the pre-pass
+  // cannot know, all loads of one latency; nothing here waits for the rows.
+  auto stage = [&](int f, auto sid) {
+    FrameData<KM>& F = fd[f & 1];
+    if (pt < C) F.xid[pt] = min(sid(pt) + 1, P - 1);
+    else if (pt < 3 * k) F.oid[pt - C] = clamp_id(own_next, P);
+    if (SMEM && pt == 0) mbar_expect_tx(&full[f % 3], 3u * k * row_bytes);
+    bar_sync(2, PROD_THREADS);
+    const bool is_x = pt < C, is_own = !is_x && pt < 3 * k, is_frame = pt == PROD_THREADS - 1;
+    const int j = pt - C, id = is_x ? F.xid[pt] : is_own ? F.oid[j] : 0;
+    if (SMEM && (is_x || is_own))
+      bulk_copy(is_x ? x_slot(f, pt) : own_slot(f, j), tgt + (size_t)id * D, row_bytes,
+                &full[f % 3]);
+    // loads first, stores after, so they all wait on one latency
+    float norm = 0.f, lf0 = 0.f, sdot = 0.f;
+    if (is_x || is_own) {
+      norm = pnorm[id];
+      lf0 = pitched ? tgt_lf0[id] : 0.f;
+    }
+    if (is_own) {
+      sdot = osd[((size_t)f * L + lane) * k + j];
+      if (f + 1 < T) own_next = idx[((size_t)(f + 1) * L + lane) * k + j];
+    } else if (is_x && pt < k) {  // own_{f-1} + 1: from the pre-pass
+      sdot = osd[(size_t)T * L * k + ((size_t)(f - 1) * L + lane) * k + pt];
+    }
+    const float b = is_frame ? baselines[f - 1] : 0.f;
+    const float slf0 = is_frame && pitched ? src_lf0[f] : 0.f;
+    for (int q = k + pw; q < C; q += PROD_WARPS) {  // frame f-2's picks + 2
+      const float s = warp_dot(tgt + (size_t)F.xid[q] * D, svn + (size_t)f * D, d4, ln);
+      if (ln == 0) F.xsd[q] = s;
+    }
+    if (is_x) {
+      if (pt < k) F.xsd[pt] = sdot;
+      F.xnorm[pt] = norm;
+      F.xlf0[pt] = lf0;
+    } else if (is_own) {
+      F.onorm[j] = norm;
+      F.osd[j] = sdot;
+      F.olf0[j] = lf0;
+    } else if (is_frame) {
+      F.b = b;
+      F.slf0 = slf0;
+    }
+  };
+
+  if (tid < 3) mbar_init(&full[tid]);
   __syncthreads();
-  for (int i = tid; i < K * d4; i += THREADS) {
-    const int r = i / d4, c = i - r * d4;
-    reinterpret_cast<float4*>(rows + r * D)[c] = tgt4[(size_t)prev_id[r] * d4 + c];
+  // frame 0 passes through; its own rows are frame 1's previous picks
+  if (warp == 0 && ln < k) {
+    const int raw = idx0[ln], id = clamp_id(raw, P);
+    out[(size_t)lane * k + ln] = raw;
+    pk[0].pos[ln] = ln;
+    pk[0].norm[ln] = pnorm[id];
+    pk[0].at[ln] = own_at(0, ln, id);
   }
+  if (warp >= DOT_WARPS && T > 1) {
+    if (SMEM && pt == 0) mbar_expect_tx(&full[0], k * row_bytes);
+    bar_sync(2, PROD_THREADS);
+    if (SMEM && pt < k)
+      bulk_copy(own_slot(0, pt), tgt + (size_t)clamp_id(idx0[pt], P) * D, row_bytes, &full[0]);
+    if (pt >= C && pt < 3 * k) own_next = idx[((size_t)L + lane) * k + pt - C];
+    stage(1, [&](int q) { return clamp_id(idx0[q % k], P); });
+  }
+  float weight = concat_weight;  // carried by the selector (warp 0)
   __syncthreads();
-  if (warp < K) {
-    const float n = warp_dot(rows + warp * D, rows + warp * D, d4, ln);
-    if (ln == 0) prev_norm[warp] = sqrtf(n);
-  }
 
   for (int t = 1; t < T; ++t) {
-    float* cur = rows + (t & 1) * C * D;
-    const float* prv = rows + ((t - 1) & 1) * C * D;
-    if (tid < K) {
-      const int id = idx[((size_t)t * L + lane) * K + tid];
-      cand_id[tid] = min(max(id, 0), P - 1);
-    } else if (tid < C) {
-      cand_id[tid] = min(prev_id[tid - K] + 1, P - 1);
-    }
-    __syncthreads();  // cand_id set; frame t-2's buffer and sv no longer read
-    for (int i = tid; i < (C + 1) * d4; i += THREADS) {
-      const int r = i / d4, c = i - r * d4;
-      if (r < C)
-        reinterpret_cast<float4*>(cur + r * D)[c] = tgt4[(size_t)cand_id[r] * d4 + c];
-      else
-        sv4[c] = svn4[(size_t)t * d4 + c];
-    }
-    __syncthreads();
-
-    {  // warp c: candidate c's norm, source dot and cross dots
-      const float* row = cur + warp * D;
-      const float n = warp_dot(row, row, d4, ln);
-      const float s = warp_dot(row, sv, d4, ln);
-      float x[K];
-#pragma unroll
-      for (int j = 0; j < K; ++j) x[j] = warp_dot(prv + prev_slot[j] * D, row, d4, ln);
-      if (ln == 0) {
-        cn[warp] = sqrtf(n);
-        sdot[warp] = s;
-#pragma unroll
-        for (int j = 0; j < K; ++j) cross[j][warp] = x[j];
+    const int par = t & 1, ppar = par ^ 1;
+    const FrameData<KM>& F = fd[par];
+    const Picks<KM>& prev = pk[ppar];
+    if (warp < DOT_WARPS) {
+      if (SMEM) {  // frame t's rows (and at t = 1 frame 0's) have landed
+        if (t == 1) mbar_wait(&full[0], 0);
+        mbar_wait(&full[t % 3], (t / 3) & 1);
       }
-    }
-    __syncthreads();
-
-    if (warp == 0) {
-      const float b = baselines[t - 1];
-      const bool low = b < 0.08f;
-      const float w = (pitched && !low) ? 0.f : weight;
-      float total = INFINITY;  // lanes past C never win
-      if (ln < C) {
-        float cc[K];
+      auto cand_at = [&](int c) {
+        if (c < k) return own_at(t, c, F.oid[c]);
+        const int q = prev.pos[c - k];
+        return x_at(t, q, F.xid[q]);
+      };
+      if constexpr (SPLIT) {
+        // warp w sums the float4 w*32 + ln + 256 m of every pair, each row
+        // read once; a butterfly leaves pair j * 8 + c's partial on lane it
+        const float4* c4[8];
+        const float4* p4[4];
+        float acc[32];
 #pragma unroll
-        for (int j = 0; j < K; ++j) {
-          float v = __fsub_rn(1.f, __fdiv_rn(cross[j][ln], __fmul_rn(prev_norm[j], cn[ln])));
+        for (int c = 0; c < 8; ++c)
+          c4[c] = reinterpret_cast<const float4*>(row_of(cand_at(c < C ? c : 0)));
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          p4[j] = reinterpret_cast<const float4*>(row_of(prev.at[j < k ? j : 0]));
+#pragma unroll
+        for (int p = 0; p < 32; ++p) acc[p] = 0.f;
+        for (int i = warp * 32 + ln; i < d4; i += DOT_WARPS * 32) {
+          float4 y[8], x[4];
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            if (c < C) y[c] = c4[c][i];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (j < k) x[j] = p4[j][i];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int c = 0; c < 8; ++c)
+              if (j < k && c < C) acc[j * 8 + c] = fma4(x[j], y[c], acc[j * 8 + c]);
+        }
+        reduce_scatter<16>(acc, ln);
+        reduce_scatter<8>(acc, ln);
+        reduce_scatter<4>(acc, ln);
+        reduce_scatter<2>(acc, ln);
+        reduce_scatter<1>(acc, ln);
+        cross.v[warp][ln] = acc[0];
+      } else {
+        // warp w takes candidates w, w + 8, ...: its row read once for all picks
+        for (int c = warp; c < C; c += DOT_WARPS) {
+          const float4* c4 = reinterpret_cast<const float4*>(row_of(cand_at(c)));
+          const float4* p4[KM];
+          float acc[KM];
+#pragma unroll
+          for (int j = 0; j < KM; ++j) {
+            p4[j] = reinterpret_cast<const float4*>(row_of(prev.at[j < k ? j : 0]));
+            acc[j] = 0.f;
+          }
+          for (int i = ln; i < d4; i += 32) {
+            const float4 y = c4[i];
+#pragma unroll
+            for (int j = 0; j < KM; ++j)
+              if (j < k) acc[j] = fma4(p4[j][i], y, acc[j]);
+          }
+#pragma unroll
+          for (int j = 0; j < KM; ++j)
+            if (j < k) {
+              const float s = warp_sum(acc[j]);
+              if (ln == 0) cross.v[j][c] = s;
+            }
+        }
+      }
+      if (warp != 0) {
+        bar_arrive(1, DOT_WARPS * 32);
+      } else {
+        bar_sync(1, DOT_WARPS * 32);
+        // the selector: costs, medians and the picks of frame t
+        const bool low = F.b < 0.08f;
+        const float w = (pitched && !low) ? 0.f : weight;
+        Picks<KM>& next = pk[par];
+        // where pair (j, c)'s dot is, and where its concat cost goes
+        auto pair = [&](int j, int c) -> float& {
+          if constexpr (SPLIT) return cross.v[0][j * 8 + c];
+          else return cross.v[j][c];
+        };
+        // 1. the concat cost of every pair (j, c), one pair per lane
+        for (int p = ln; p < k * C; p += 32) {
+          const int j = p / C, c = p - j * C;
+          float x = pair(j, c);
+          if constexpr (SPLIT) {  // the dot warps' partial sums, in warp order
+#pragma unroll
+            for (int s = 1; s < DOT_WARPS; ++s) x += cross.v[s][j * 8 + c];
+          }
+          const float cn = c < k ? F.onorm[c] : F.xnorm[prev.pos[c - k]];
+          float v = __fsub_rn(1.f, __fdiv_rn(x, __fmul_rn(prev.norm[j], cn)));
           if (pitched) {
-            if (low && v < __fmul_rn(5.f, b)) v = 0.f;
-          } else if (v > b) {
-            v = __fsub_rn(__fmul_rn(1.5f, v), b);
+            if (low && v < __fmul_rn(5.f, F.b)) v = 0.f;
+          } else if (v > F.b) {
+            v = __fsub_rn(__fmul_rn(1.5f, v), F.b);
           }
-          cc[j] = v;
+          pair(j, c) = v;
         }
-        const float matching = __fsub_rn(1.f, __fdiv_rn(sdot[ln], cn[ln]));
-        total = __fadd_rn(__fmul_rn(w, median4(cc[0], cc[1], cc[2], cc[3])), matching);
-        if (pitched)
-          total = __fadd_rn(total, fabsf(__fsub_rn(tgt_lf0[cand_id[ln]], src_lf0[t])));
-        if (isnan(total)) total = INFINITY;  // sorts last, as torch.sort puts NaN
-      }
-      int my_pick = 0;
+        __syncwarp();
+        // 2. each candidate's median (torch.median: the value of rank
+        // (k-1)/2) and total
+        int cid[NC];
+        float cnorm[NC];
+        int cat[NC];
 #pragma unroll
-      for (int s = 0; s < K; ++s) {
-        float v = total;
-        int j = ln;
+        for (int h = 0; h < NC; ++h) {
+          const int c = ln + 32 * h;
+          if (c >= C) continue;
+          float sd, lf;
+          if (c < k) {
+            cid[h] = F.oid[c];
+            cnorm[h] = F.onorm[c];
+            sd = F.osd[c];
+            lf = F.olf0[c];
+          } else {
+            const int q = prev.pos[c - k];
+            cid[h] = F.xid[q];
+            cnorm[h] = F.xnorm[q];
+            sd = F.xsd[q];
+            lf = F.xlf0[q];
+          }
+          cat[h] = cand_at(c);
+          float med = pair(0, c);
+          if constexpr (KM <= 8) {  // in registers, unrolled
+            float cc[KM];
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-          const int oj = __shfl_xor_sync(0xffffffffu, j, off);
-          if (ov < v || (ov == v && oj < j)) {
-            v = ov;
-            j = oj;
+            for (int j = 0; j < KM; ++j)
+              if (j < k) cc[j] = pair(j, c);
+#pragma unroll
+            for (int j = 0; j < KM; ++j) {
+              if (j >= k) break;
+              int r = 0;
+#pragma unroll
+              for (int i = 0; i < KM; ++i)
+                if (i < k && before(cc[i], i, cc[j], j)) ++r;
+              if (r == (k - 1) / 2) med = cc[j];
+            }
+          } else {                  // large k: from shared memory
+            for (int j = 0; j < k; ++j) {
+              const float v = pair(j, c);
+              int r = 0;
+              for (int i = 0; i < k; ++i) r += before(pair(i, c), i, v, j);
+              if (r == (k - 1) / 2) med = v;
+            }
+          }
+          const float matching = __fsub_rn(1.f, __fdiv_rn(sd, cnorm[h]));
+          float total = __fadd_rn(__fmul_rn(w, med), matching);
+          if (pitched) total = __fadd_rn(total, fabsf(__fsub_rn(lf, F.slf0)));
+          tot[c] = total;
+        }
+        __syncwarp();
+        // 3. one round: candidate c's rank is the count of those before it
+#pragma unroll
+        for (int h = 0; h < NC; ++h) {
+          const int c = ln + 32 * h;
+          if (c >= C) continue;
+          const float v = tot[c];
+          int r = 0;
+#pragma unroll
+          for (int o = 0; o < 2 * KM; ++o)
+            if (o < C) r += before(tot[o], o, v, c);
+          if (r < k) {
+            out[((size_t)t * L + lane) * k + r] = cid[h];
+            next.pos[r] = c;
+            next.norm[r] = cnorm[h];
+            next.at[r] = cat[h];
           }
         }
-        if (ln == s) my_pick = j;
-        if (ln == j) total = INFINITY;
+        weight = w;
       }
-      __syncwarp();  // every lane has read prev_norm before lanes < K rewrite it
-      if (ln < K) {
-        const int id = cand_id[my_pick];
-        out[((size_t)t * L + lane) * K + ln] = id;
-        prev_id[ln] = id;
-        prev_slot[ln] = my_pick;
-        prev_norm[ln] = cn[my_pick];
-      }
-      if (ln == 0) weight = w;
+    } else if (t + 1 < T) {
+      // producers: frame t+1, from S_t = own_t, then frame t-1's picks + 1
+      stage(t + 1, [&](int q) { return q < k ? F.oid[q] : F.xid[prev.pos[q - k]]; });
     }
     __syncthreads();
   }
+}
+
+int smem_optin() {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return -1;
+  return optin;
+}
+
+// bytes of dynamic shared memory: the 9 k rows when they fit beside the
+// static arrays, else 0; negative on a CUDA error
+template <int KM>
+long dyn_bytes(int k, int D) {
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, concat_cost_chain_kernel<KM, true>) != cudaSuccess)
+    return -1;
+  const long rows = 9L * k * D * (long)sizeof(float);
+  const int optin = smem_optin();
+  if (optin < 0) return -1;
+  return (long)attr.sharedSizeBytes + rows <= optin ? rows : 0;
+}
+
+template <int KM>
+int launch_chain(const int* idx, const float* svn, const float* tgt, const float* baselines,
+                 const float* src_lf0, const float* tgt_lf0, const float* pnorm,
+                 const float* osd, int* out, int T, int P, int D, int L, int k,
+                 int pitched_mask, float concat_weight, cudaStream_t stream) {
+  const long bytes = dyn_bytes<KM>(k, D);
+  if (bytes < 0) return (int)cudaGetLastError();
+  auto kernel = bytes ? concat_cost_chain_kernel<KM, true> : concat_cost_chain_kernel<KM, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<L, THREADS, bytes, stream>>>(idx, svn, tgt, baselines, src_lf0, tgt_lf0, pnorm, osd,
+                                        out, T, P, D, L, k, pitched_mask, concat_weight);
+  return (int)cudaGetLastError();
+}
+
+bool bad_shape(int T, int P, int D, int L, int k) {
+  return T <= 0 || P <= 0 || D <= 0 || D % 4 || L <= 0 || L > MAX_LANES || k < 1 || k > MAX_K;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches one block per lane on `stream`; returns the cudaError_t of the
-// launch (0 = success). idx and out are (T, L, 4) int32, svn (T, D), tgt
-// (P, D), baselines (T-1,), src_lf0 (T,) and tgt_lf0 (P,) fp32, all
+// The pre-pass alone, on `stream`: pnorm (P,) and osd (2, T, L, k) fp32.
+int concat_cost_prepass_f32(const int* idx, const float* svn, const float* tgt, float* pnorm,
+                            float* osd, int T, int P, int D, int L, int k, void* stream) {
+  if (bad_shape(T, P, D, L, k)) return (int)cudaErrorInvalidValue;
+  const long items = (long)P + 2L * T * L * k;
+  const long per_block = PREPASS_THREADS / 32;
+  const int blocks = (int)std::min<long>((items + per_block - 1) / per_block, 132L * 8);
+  concat_cost_prepass_kernel<<<blocks, PREPASS_THREADS, 0, (cudaStream_t)stream>>>(
+      idx, svn, tgt, pnorm, osd, T, P, D, L, k);
+  return (int)cudaGetLastError();
+}
+
+// The whole reselection on `stream`: the pre-pass, then one chain block per
+// lane; returns the cudaError_t of the launches (0 = success). idx and out
+// are (T, L, k) int32, svn (T, D), tgt (P, D), baselines (T-1,), src_lf0
+// (T,) and tgt_lf0 (P,) fp32; pnorm (P,) and osd (2, T, L, k) fp32 scratch; all
 // contiguous and 16-byte aligned (checked by the Python wrapper); the f0
 // tracks may be null when no lane is pitched.
 int concat_cost_pair_f32(const int* idx, const float* svn, const float* tgt,
                          const float* baselines, const float* src_lf0, const float* tgt_lf0,
-                         int* out, int T, int P, int D, int L, int pitched_mask,
-                         float concat_weight, void* stream) {
-  if (T <= 0 || P <= 0 || D <= 0 || D % 4 || L <= 0 || L > MAX_LANES)
-    return (int)cudaErrorInvalidValue;
+                         float* pnorm, float* osd, int* out, int T, int P, int D, int L, int k,
+                         int pitched_mask, float concat_weight, void* stream) {
+  if (bad_shape(T, P, D, L, k)) return (int)cudaErrorInvalidValue;
   if (pitched_mask && (src_lf0 == nullptr || tgt_lf0 == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(2 * C + 1) * D * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(concat_cost_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  concat_cost_kernel<<<L, THREADS, smem, (cudaStream_t)stream>>>(
-      idx, svn, tgt, baselines, src_lf0, tgt_lf0, out, T, P, D, L, pitched_mask,
-      concat_weight);
-  return (int)cudaGetLastError();
+  const int err = concat_cost_prepass_f32(idx, svn, tgt, pnorm, osd, T, P, D, L, k, stream);
+  if (err) return err;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (k <= 4)
+    return launch_chain<4>(idx, svn, tgt, baselines, src_lf0, tgt_lf0, pnorm, osd, out, T, P, D,
+                           L, k, pitched_mask, concat_weight, s);
+  if (k <= 8)
+    return launch_chain<8>(idx, svn, tgt, baselines, src_lf0, tgt_lf0, pnorm, osd, out, T, P, D,
+                           L, k, pitched_mask, concat_weight, s);
+  return launch_chain<32>(idx, svn, tgt, baselines, src_lf0, tgt_lf0, pnorm, osd, out, T, P, D,
+                          L, k, pitched_mask, concat_weight, s);
 }
 
 const char* knnsvc_cuda_error_string(int code) {

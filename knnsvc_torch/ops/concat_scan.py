@@ -3,7 +3,11 @@ kernel (csrc/concat_cost_pair.cu) and its plain PyTorch version.
 
 Counterpart of knnsvc_tpu/ops/concat_scan.py::concat_cost_pair_pallas, the
 Pallas TPU kernel (pl.pallas_call at concat_scan.py:182): the serial
-per-frame reselection of match/concat_cost.py over stacked lanes, k = 4.
+per-frame reselection of match/concat_cost.py over stacked lanes, for any
+k in 1..MAX_K. One call launches the kernel's pre-pass (pool norms and the
+own candidates' source dots) and its chain (one block per lane) and counts
+one launch. The chain keeps its candidate rows in shared memory while 9 k D
+floats fit (at D = 1024: k <= 6) and reads them from L2 above.
 
 The wrapper computes the row-normalized source, the continuity baselines
 and the log2 f0 tracks with the same torch ops as the plain version
@@ -22,11 +26,7 @@ import torch
 from knnsvc_torch.match.concat_cost import concat_cost_scan, scan_inputs
 
 KERNEL = "concat_cost_pair"
-K = 4                            # picks per lane: the reference's live top-k
-# bytes of dynamic shared memory: a Hopper block's 227 KB less 1 KB for the
-# kernel's static arrays
-SMEM_LIMIT = 226 * 1024
-SMEM_ROWS = 2 * 2 * K + 1        # two candidate buffers and the source row
+MAX_K = 32   # picks per lane the kernel takes: the kNN sets' width (match/pipeline.py)
 
 
 def _check_inputs(lanes, src, tgt, shifted_src_f0, tgt_f0) -> None:
@@ -49,17 +49,52 @@ def _check_inputs(lanes, src, tgt, shifted_src_f0, tgt_f0) -> None:
 
 
 def _check_kernel_shape(k: int, D: int) -> None:
-    """What the CUDA kernel is compiled for."""
-    if k != K:
-        raise ValueError(f"the CUDA concat-cost kernel is compiled for k={K} (the "
-                         f"reference's top-k), got k={k}; other k on the card are still "
-                         "to port (ROADMAP.md, Queue 2 item 2)")
+    """What the CUDA kernel takes."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"the CUDA concat-cost kernel takes 1 <= k <= {MAX_K}, got k={k}")
     if D % 4:
         raise ValueError(f"the CUDA concat-cost kernel loads rows as float4: D={D} is "
                          "not a multiple of 4")
-    if SMEM_ROWS * D * 4 > SMEM_LIMIT:
-        raise ValueError(f"D={D} needs {SMEM_ROWS * D * 4} bytes of shared memory, "
-                         f"more than the {SMEM_LIMIT} a block has")
+
+
+def _library():
+    """The kernel's library (built on first use) with its C functions typed."""
+    from knnsvc_torch.ops.build import load_kernel
+
+    lib = load_kernel(KERNEL)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for fn, args in ((lib.concat_cost_pair_f32, [ptr] * 9 + [i32] * 6 + [ctypes.c_float, ptr]),
+                     (lib.concat_cost_prepass_f32, [ptr] * 5 + [i32] * 5 + [ptr])):
+        fn.restype, fn.argtypes = i32, args
+    return lib
+
+
+def concat_cost_prepass(idx: torch.Tensor, svn: torch.Tensor, tgt: torch.Tensor):
+    """The kernel's pre-pass alone on the card, for timing it: idx (T, L, k)
+    int32, svn (T, D), tgt (P, D) -> (pool norms (P,), source dots (2, T,
+    L, k): [0] own candidate . svn[t], [1] min(own candidate + 1, P - 1) .
+    svn[t + 1], 0 at t = T - 1). Counts no launch: the reselection's call
+    does."""
+    from knnsvc_torch.ops.build import check_launch
+
+    T, L, k = idx.shape
+    P, D = tgt.shape
+    if not (idx.is_cuda and svn.is_cuda and tgt.is_cuda):
+        raise ValueError("the concat-cost pre-pass runs on CUDA tensors only")
+    if tuple(svn.shape) != (T, D):
+        raise ValueError(f"svn has shape {tuple(svn.shape)}, expected {(T, D)}")
+    _check_kernel_shape(k, D)
+    _check_kernel_tensors(idx=idx, svn=svn, tgt=tgt)
+    pnorm = tgt.new_empty(P)
+    osd = tgt.new_empty((2, T, L, k))
+    lib = _library()
+    with torch.cuda.device(tgt.device):
+        stream = torch.cuda.current_stream(tgt.device).cuda_stream
+        code = lib.concat_cost_prepass_f32(idx.data_ptr(), svn.data_ptr(), tgt.data_ptr(),
+                                           pnorm.data_ptr(), osd.data_ptr(), T, P, D, L, k,
+                                           stream)
+    check_launch(lib, KERNEL, code)
+    return pnorm, osd
 
 
 def _check_kernel_tensors(**tensors) -> None:
@@ -87,28 +122,29 @@ def _concat_cost_lanes(lanes: list[torch.Tensor], pitched: tuple[bool, ...],
         raise ValueError(f"the concat-cost reselection runs on cpu or cuda, not {src.device}")
     T, D = src.shape
     P = tgt.shape[0]
-    _check_kernel_shape(lanes[0].shape[1], D)
+    k = lanes[0].shape[1]
+    _check_kernel_shape(k, D)
     if src.dtype != torch.float32:
         raise TypeError(f"src must be float32, got {src.dtype}")
-    idx = torch.stack(lanes, dim=1).to(torch.int32).contiguous()      # (T, L, K)
+    idx = torch.stack(lanes, dim=1).to(torch.int32).contiguous()      # (T, L, k)
     svn, baselines, src_lf0, tgt_lf0 = scan_inputs(src, shifted_src_f0, tgt_f0)
     _check_kernel_tensors(idx=idx, svn=svn, tgt=tgt, baselines=baselines,
                           src_lf0=src_lf0, tgt_lf0=tgt_lf0)
-    from knnsvc_torch.ops.build import check_launch, load_kernel
+    from knnsvc_torch.ops.build import check_launch
 
-    lib = load_kernel(KERNEL)
-    fn = lib.concat_cost_pair_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_void_p])
+    lib = _library()
     out = torch.empty_like(idx)
+    pnorm = tgt.new_empty(P)                  # scratch of the pre-pass
+    osd = tgt.new_empty((2, T, len(lanes), k))
     pitched_mask = sum(1 << i for i, p in enumerate(pitched) if p)
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
-        code = fn(idx.data_ptr(), svn.data_ptr(), tgt.data_ptr(), baselines.data_ptr(),
-                  None if src_lf0 is None else src_lf0.data_ptr(),
-                  None if tgt_lf0 is None else tgt_lf0.data_ptr(),
-                  out.data_ptr(), T, P, D, len(lanes), pitched_mask, concat_weight, stream)
+        code = lib.concat_cost_pair_f32(
+            idx.data_ptr(), svn.data_ptr(), tgt.data_ptr(), baselines.data_ptr(),
+            None if src_lf0 is None else src_lf0.data_ptr(),
+            None if tgt_lf0 is None else tgt_lf0.data_ptr(), pnorm.data_ptr(),
+            osd.data_ptr(), out.data_ptr(), T, P, D, len(lanes), k, pitched_mask,
+            concat_weight, stream)
     check_launch(lib, KERNEL, code)
     concat_cost_pair.launches += 1
     return out.long()
@@ -118,9 +154,9 @@ def concat_cost_pair(idx_unpitched: torch.Tensor, idx_pitched: torch.Tensor,
                      src: torch.Tensor, tgt: torch.Tensor, shifted_src_f0: torch.Tensor,
                      tgt_f0: torch.Tensor, concat_weight: float = 0.2):
     """Both post_opt reselections, lane 0 unpitched and lane 1 pitched, in
-    one launch (one thread block per lane). idx (T, 4) each; src (T, D);
-    tgt (P, D); f0 (T,) and (P,) in Hz. -> (unpitched (T, 4), pitched
-    (T, 4)) int64. CUDA tensors add one to `concat_cost_pair.launches`."""
+    one launch (one chain block per lane). idx (T, k) each; src (T, D);
+    tgt (P, D); f0 (T,) and (P,) in Hz. -> (unpitched (T, k), pitched
+    (T, k)) int64. CUDA tensors add one to `concat_cost_pair.launches`."""
     out = _concat_cost_lanes([idx_unpitched, idx_pitched], (False, True), src, tgt,
                              shifted_src_f0, tgt_f0, concat_weight)
     return out[:, 0], out[:, 1]
@@ -131,7 +167,7 @@ def concat_cost_single(idx: torch.Tensor, src: torch.Tensor, tgt: torch.Tensor,
                        tgt_f0: torch.Tensor | None = None,
                        concat_weight: float = 0.2) -> torch.Tensor:
     """One lane on the same kernel (one block), pitched when both f0 tracks
-    are given: the `wavlm_only` reselection. -> (T, 4) int64. CUDA tensors
+    are given: the `wavlm_only` reselection. -> (T, k) int64. CUDA tensors
     add one to `concat_cost_pair.launches`."""
     pitched = shifted_src_f0 is not None
     return _concat_cost_lanes([idx], (pitched,), src, tgt, shifted_src_f0,

@@ -10,7 +10,10 @@ Tolerances: 1e-4 at the main path's T=1500, where the kernel sums 1500
 fp32 terms per score and per output in another order than cuBLAS and
 torch.softmax; 2e-5 (test_ops.py's bound for the Pallas kernel) at T<=200.
 The concat-cost kernel's selections must equal its plain version's exactly
-on these random inputs.
+on these random inputs, at every tested k (1..32), with its rows in shared
+memory (every k at D = 128, k = 4 at D = 1024) and read from L2 (k = 8 at
+D = 1024); its pre-pass values within 1e-5 relative of the
+plain norms and dots (sums of D fp32 terms in another order).
 """
 
 import numpy as np
@@ -19,7 +22,9 @@ import torch
 
 from knnsvc_torch.match.concat_cost import knn_with_concat_cost, knn_with_concat_cost_pair
 from knnsvc_torch.ops.attention import gated_bias_attention, reference_attention
-from knnsvc_torch.ops.concat_scan import concat_cost_pair, concat_cost_single
+from knnsvc_torch.match.concat_cost import scan_inputs
+from knnsvc_torch.ops.concat_scan import (concat_cost_pair, concat_cost_prepass,
+                                          concat_cost_single)
 
 
 def _cuda():
@@ -72,20 +77,20 @@ def test_attention_kernel_rejects_bad_inputs():
     assert gated_bias_attention.launches == before
 
 
-def _concat_inputs(T, P, D, seed, device, clamp_and_duplicates=False):
+def _concat_inputs(T, P, D, seed, device, clamp_and_duplicates=False, k=4):
     """Random ids and features with a smooth source stretch (baselines under
     0.08, so the pitched lane's weight latches part way through)."""
     rng = np.random.default_rng(seed)
     src = rng.standard_normal((T, D)).astype(np.float32)
     src[12:20] = src[12] + 0.01 * rng.standard_normal((8, D)).astype(np.float32)
     tgt = rng.standard_normal((P, D)).astype(np.float32)
-    idx_u = rng.integers(0, P, (T, 4))
-    idx_p = rng.integers(0, P, (T, 4))
+    idx_u = rng.integers(0, P, (T, k))
+    idx_p = rng.integers(0, P, (T, k))
     if clamp_and_duplicates:
         idx_u[::3, 0] = P - 1
-        idx_p[::4, 1] = P - 1
-        idx_u[1::2, 2] = idx_u[1::2, 1]
-        idx_p[1:, 3] = np.minimum(idx_p[:-1, 0] + 1, P - 1)
+        idx_p[::4, 1 % k] = P - 1
+        idx_u[1::2, 2 % k] = idx_u[1::2, 1 % k]
+        idx_p[1:, 3 % k] = np.minimum(idx_p[:-1, 0] + 1, P - 1)
     sf0 = (80 + 300 * rng.random(T)).astype(np.float32)
     sf0[::5] = 0.0
     tf0 = (80 + 300 * rng.random(P)).astype(np.float32)
@@ -93,13 +98,16 @@ def _concat_inputs(T, P, D, seed, device, clamp_and_duplicates=False):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("T,P,D,clamp_and_duplicates", [
-    (37, 53, 128, False),     # test_ops.py's shape for the Pallas kernel
-    (37, 53, 128, True),      # ids at row P-1, own candidates equal to prev + 1
-    (300, 400, 1024, False),  # the served width
+@pytest.mark.parametrize("T,P,D,clamp_and_duplicates,k", [
+    # test_ops.py's shape for the Pallas kernel, random ids, and ids at row
+    # P-1 with own candidates equal to prev + 1
+    *[(37, 53, 128, dup, k) for dup in (False, True) for k in (1, 3, 4, 8, 16, 32)],
+    (300, 400, 1024, False, 4),   # the served width, rows in shared memory
+    (300, 400, 1024, False, 8),   # the served width, rows read from L2
 ])
-def test_concat_kernel_matches_plain(T, P, D, clamp_and_duplicates):
-    idx_u, idx_p, src, tgt, sf0, tf0 = _concat_inputs(T, P, D, 7, _cuda(), clamp_and_duplicates)
+def test_concat_kernel_matches_plain(T, P, D, clamp_and_duplicates, k):
+    idx_u, idx_p, src, tgt, sf0, tf0 = _concat_inputs(T, P, D, 7, _cuda(), clamp_and_duplicates,
+                                                      k)
     before = concat_cost_pair.launches
     got_u, got_p = concat_cost_pair(idx_u, idx_p, src, tgt, sf0, tf0, concat_weight=0.2)
     got_s = concat_cost_single(idx_u, src, tgt, concat_weight=0.2)
@@ -115,11 +123,36 @@ def test_concat_kernel_matches_plain(T, P, D, clamp_and_duplicates):
 
 
 @pytest.mark.gpu
-def test_concat_kernel_rejects_bad_inputs():
-    idx_u, idx_p, src, tgt, sf0, tf0 = _concat_inputs(20, 30, 64, 8, _cuda())
+def test_concat_prepass_matches_plain_norms_and_dots():
+    idx_u, idx_p, src, tgt, sf0, tf0 = _concat_inputs(50, 70, 1024, 9, _cuda(), k=4)
+    idx = torch.stack([idx_u, idx_p], dim=1).to(torch.int32).contiguous()
+    svn = scan_inputs(src, None, None)[0]
     before = concat_cost_pair.launches
-    with pytest.raises(ValueError, match="k=4"):            # k = 3: not compiled
-        concat_cost_pair(idx_u[:, :3], idx_p[:, :3], src, tgt, sf0, tf0)
+    pnorm, osd = concat_cost_prepass(idx, svn, tgt)
+    torch.cuda.synchronize()
+    assert concat_cost_pair.launches == before
+    want_norm = torch.sqrt((tgt * tgt).sum(-1))
+    own = idx.long()
+    want_own = (tgt[own] * svn[:, None, None, :]).sum(-1)
+    nxt = torch.clamp(own[:-1] + 1, max=tgt.shape[0] - 1)
+    want_next = (tgt[nxt] * svn[1:, None, None, :]).sum(-1)
+    assert torch.allclose(pnorm, want_norm, rtol=1e-5, atol=0)
+    assert torch.allclose(osd[0], want_own, rtol=1e-5, atol=1e-5)
+    assert torch.allclose(osd[1, :-1], want_next, rtol=1e-5, atol=1e-5)
+    assert (osd[1, -1] == 0).all()
+
+
+@pytest.mark.gpu
+def test_concat_kernel_rejects_bad_inputs():
+    _, _, src, tgt, sf0, tf0 = _concat_inputs(20, 30, 64, 8, _cuda())
+    idx_u, idx_p = (torch.randint(0, 30, (20, 33), device=src.device) for _ in range(2))
+    before = concat_cost_pair.launches
+    for k in (0, 33):                                        # outside 1..32
+        with pytest.raises(ValueError, match="k <= 32"):
+            concat_cost_pair(idx_u[:, :k], idx_p[:, :k], src, tgt, sf0, tf0)
+        with pytest.raises(ValueError, match="k <= 32"):
+            concat_cost_single(idx_u[:, :k], src, tgt)
+    idx_u, idx_p = idx_u[:, :4], idx_p[:, :4]
     with pytest.raises(ValueError, match="multiple of 4"):
         concat_cost_pair(idx_u, idx_p, src[:, :62].contiguous(), tgt[:, :62].contiguous(),
                          sf0, tf0)
