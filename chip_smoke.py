@@ -10,8 +10,10 @@ Phases (any failure exits non-zero, before the result line):
   2. each kernel against its plain PyTorch version on the card, with
      CUDA-event times of the kernel, the plain version and (where one
      exists) one PyTorch library call, beside the kernel's bound on an
-     H100: the attention kernel at the main path's shape and at ragged
-     shapes; the concat-cost kernel exactly equal at (37, 53, 128), on
+     H100: the attention kernel (bias given as its (H, 2T-1) diagonal
+     table) at the main path's shape and at ragged shapes, and its
+     one-pass TF32 instance ("fastest" precision) at the main shape; the
+     concat-cost kernel exactly equal at (37, 53, 128), on
      random ids and on ids at row P-1 with duplicate candidates, at k = 4
      and k in CONCAT_KS, and at (300, 400, 1024) with k = 8 (its rows read
      from L2), the share of equal frames per lane (all of them) at the
@@ -50,15 +52,20 @@ import time
 
 # H100 SXM published peaks (NVIDIA data sheet), for the bounds
 PEAK_FP32_FLOPS = 67e12          # fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12         # TF32 on the tensor cores, dense
 PEAK_BYTES_PER_S = 3.35e12       # HBM3
 
 KERNELS = ("gated_bias_attention", "concat_cost_pair")
 ATTN_MAIN = (16, 1500, 64)       # one WavLM-Large layer on a 30-s chunk
 ATTN_RAGGED = [(4, 200, 64, 1.0), (4, 200, 64, 0.0), (4, 200, 64, -0.5)]
 # kernel vs plain: fp32 sums of 1500 terms per score and per output, in
-# another order than cuBLAS and torch.softmax
+# another order than cuBLAS and torch.softmax, the products in 3 TF32
+# tensor-core passes (fp32-grade)
 ATTN_ATOL_MAIN = 1e-4
 ATTN_ATOL_RAGGED = 2e-5
+# the one-pass TF32 instance ("fastest") vs the fp32 plain version: 10
+# mantissa bits per operand; ~3x the 7.9e-4 it shows at the main shape
+ATTN_ATOL_TF32 = 2.5e-3
 # cuda vs cpu, fp32 with TF32 off: cuDNN/cuBLAS/cuFFT sum in other orders
 # than the CPU kernels, ~1e-6 relative per op through 7 convs and 6 layers
 FEAT_ATOL = 1e-3
@@ -112,13 +119,14 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(H: int, T: int, d: int) -> tuple[float, str]:
-    """Least time for the work on an H100: 2 flops per multiply-add of the
-    two products (4*H*T^2*d) plus 5 per score (scale-and-gate, max, exp,
-    sum); bytes = q, k, v, bias, gate read once and out written once."""
-    ops = 4 * H * T * T * d + 5 * H * T * T
-    nbytes = 4 * (4 * H * T * d + H * T * T + H * T)
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+def attention_bound_ms(H: int, T: int, d: int, passes: int = 3) -> tuple[float, str]:
+    """Least time for the kernel's work on an H100: `passes` TF32
+    tensor-core passes of the two products (2 flops per multiply-add,
+    4*H*T^2*d each); bytes = q, k, v, the (H, 2T-1) diagonal and gate read
+    once and out written once."""
+    ops = passes * 4 * H * T * T * d
+    nbytes = 4 * (4 * H * T * d + H * (2 * T - 1) + H * T)
+    t_ops, t_bytes = ops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -161,16 +169,19 @@ def phase_kernels(dev):
     import torch
     import torch.nn.functional as F
 
-    from knnsvc_torch.ops.attention import gated_bias_attention, reference_attention
+    from knnsvc_torch.ops.attention import (gated_bias_attention, reference_attention,
+                                            toeplitz_bias)
+    from knnsvc_torch.precision import set_precision
 
     gen = torch.Generator().manual_seed(1)
 
     def inputs(H, T, d, gate_value=None):
+        """q, k, v, the bias's (H, 2T-1) diagonal table, gate"""
         q, k, v = (torch.randn(H, T, d, generator=gen) for _ in range(3))
-        bias = torch.randn(H, T, T, generator=gen)
+        diag = torch.randn(H, 2 * T - 1, generator=gen)
         gate = (torch.rand(H, T, generator=gen) * 2 if gate_value is None
                 else torch.full((H, T), gate_value))
-        return [t.to(dev) for t in (q, k, v, bias, gate)]
+        return [t.to(dev) for t in (q, k, v, diag, gate)]
 
     for H, T, d, g in ATTN_RAGGED:
         args = inputs(H, T, d, g)
@@ -185,26 +196,44 @@ def phase_kernels(dev):
     args = inputs(H, T, d)
     out = gated_bias_attention(*args)
     torch.cuda.synchronize()
-    err = float((out - reference_attention(*args)).abs().max())
+    want = reference_attention(*args)
+    err = float((out - want).abs().max())
     log(f"[kernel] gated_bias_attention ({H},{T},{d}): max_abs_err={err:.3e} "
         f"(atol {ATTN_ATOL_MAIN})")
     if not (err <= ATTN_ATOL_MAIN and bool(torch.isfinite(out).all())):
         fail(f"gated_bias_attention disagrees at the main shape: {err}")
 
-    q, k, v, bias, gate = args
+    q, k, v, diag, gate = args
+    bias = toeplitz_bias(diag).contiguous()      # the library call's mask, expanded untimed
     ms = cuda_ms(lambda: gated_bias_attention(*args))
     plain_ms = cuda_ms(lambda: reference_attention(*args))
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q[None], k[None], v[None], attn_mask=(gate[..., None] * bias)[None]))
     bound_ms, bound_by = attention_bound_ms(H, T, d)
-    log(f"[kernel] gated_bias_attention ({H},{T},{d}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"library (sdpa + mask product) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}); roofline share {bound_ms / ms:.1%}")
+    log(f"[kernel] gated_bias_attention ({H},{T},{d}), 3xTF32: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library (sdpa + mask product) {library_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}); roofline share {bound_ms / ms:.1%}")
+
+    set_precision("fastest")
+    try:
+        tf32_out = gated_bias_attention(*args)
+        torch.cuda.synchronize()
+        tf32_ms = cuda_ms(lambda: gated_bias_attention(*args))
+    finally:
+        set_precision("highest")
+    tf32_err = float((tf32_out - want).abs().max())
+    tf32_bound_ms, _ = attention_bound_ms(H, T, d, passes=1)
+    log(f"[kernel] gated_bias_attention ({H},{T},{d}), one TF32 pass (fastest): "
+        f"max_abs_err={tf32_err:.3e} (atol {ATTN_ATOL_TF32}), kernel {tf32_ms:.4f} ms, bound "
+        f"{tf32_bound_ms:.4f} ms; roofline share {tf32_bound_ms / tf32_ms:.1%}")
+    if not (tf32_err <= ATTN_ATOL_TF32 and bool(torch.isfinite(tf32_out).all())):
+        fail(f"gated_bias_attention's TF32 instance disagrees at the main shape: {tf32_err}")
     return {"name": "gated_bias_attention", "route": "cuda",
             "source": "knnsvc_torch/csrc/gated_bias_attention.cu",
             "replaces": "knnsvc_tpu/ops/attention.py:82",
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "tf32_ms": tf32_ms, "tf32_max_abs_err": tf32_err, "tf32_bound_ms": tf32_bound_ms}
 
 
 def concat_bound_ms(T: int, P: int, D: int, lanes: int, k: int) -> tuple[float, str]:

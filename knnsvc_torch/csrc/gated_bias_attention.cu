@@ -1,214 +1,363 @@
-// Fused self-attention with a gated relative-position bias, fp32, for Hopper
-// (sm_90a). Built with nvcc into a shared library with a plain C interface
-// and bound with ctypes (knnsvc_torch/ops/build.py, ops/attention.py).
+// Fused self-attention with a gated relative-position bias, fp32 in and out,
+// products on Hopper's tensor cores (sm_90a). Built with nvcc into a shared
+// library with a plain C interface and bound with ctypes
+// (knnsvc_torch/ops/build.py, ops/attention.py).
 //
 // Replaces the TPU kernel knnsvc_tpu/ops/attention.py::gated_bias_attention
 // (pl.pallas_call at attention.py:82, body _attn_kernel at :34):
 //
 //     out[h] = softmax(q[h] k[h]^T * d^-1/2 + gate[h, :, None] * bias[h]) v[h]
+//     bias[h, i, j] = diag[h, T-1 + j - i]
 //
-// q, k, v, out: (H, T, 64) fp32; bias: (H, T, T) fp32; gate: (H, T) fp32.
+// q, k, v, out: (H, T, 64) fp32; diag: (H, 2T-1) fp32; gate: (H, T) fp32.
+// The TPU kernel reads a (H, T, T) bias; WavLM's bias is the Toeplitz gather
+// of its (H, 2T-1) diagonal (models/wavlm/model.py::compute_position_diag),
+// so this kernel reads the diagonal and builds each tile's bias itself: 12 KB
+// per head instead of 144 MB per launch at T = 1500.
 //
-// What bounds it at the main path's shape (H=16, T=1500, d=64, one WavLM
-// layer on a 30-s chunk):
-//   - operations: 4*H*T^2*d = 9.2 GFLOP of fp32 products, ~137 us at the
-//     H100's 67 TFLOP/s fp32 rate outside the tensor cores;
-//   - bytes: the (H, T, T) bias is 144 MB, q/k/v/out 24.6 MB, ~169 MB in
-//     all, ~50 us at 3.35 TB/s.
-// So in fp32 on the CUDA cores it is bound by operations.
+// Bound at the main path's shape (H=16, T=1500, d=64: one WavLM layer on a
+// 30-s chunk):
+//   - operations: 3 tensor-core passes (below) of 4*H*T^2*d = 9.2 GFLOP,
+//     27.6 GFLOP at the H100's 495 TFLOP/s dense TF32: ~56 us;
+//   - bytes: q, k, v, out 24.6 MB, diag and gate 0.3 MB: ~7 us at 3.35 TB/s.
+// So it is bound by operations.
 //
-// Design. The Pallas kernel keeps a whole (256, T) score row in VMEM and
-// takes a one-pass softmax. A block here has at most 227 KB of shared
-// memory, and a (64, 1500) fp32 score tile alone is 384 KB, so each block
-// (one head, 64 queries) streams 64-key tiles of K, V and the bias through
-// shared memory with an online softmax (running row max and sum, rescaling
-// the partial output when the max grows). No score ever reaches device
-// memory; the bias is read once, straight from global memory into
-// registers. Ragged T is handled inside the kernel with bounds masks: keys
-// past T get -inf, whatever the gate, and rows past T are computed on zeros
-// and never stored, so the caller pads nothing (padding the bias would be a
-// 144 MB copy). 256 threads as 16x16: thread (ty, tx) owns score rows
-// ty*4..+3 and key columns tx*4..+3 of a tile, and output rows ty*4..+3,
-// dims tx*4..+3; row reductions are 16-lane shuffles. Tensor cores (TF32
-// wgmma), TMA and building the bias in-kernel from its (2T-1, H) diagonal
-// table are left for later work.
+// Why 3xTF32. A TF32 operand keeps 10 mantissa bits (~3 decimal digits), too
+// few for the fp32 tolerances the port holds this kernel to (1e-4 at
+// T = 1500, 2e-5 at T <= 200). Each operand x is split in registers into
+// hi = rna_tf32(x) and lo = rna_tf32(x - hi) (round to nearest, ties away:
+// cvt.rna.tf32.f32's rounding, done with an integer add and mask, because
+// ptxas expands that cvt into ~4 instructions and the split is most of this
+// kernel's instructions), and a product is summed as lo*hi + hi*lo + hi*hi
+// (small terms first) into fp32 accumulators; the dropped lo*lo term is
+// ~2^-22 of the product. Under the port's "fastest" precision the same
+// kernel takes one pass (hi*hi), as cuBLAS takes TF32 under that policy
+// (template parameter PASSES).
+//
+// Tile shapes. A block is one head and BQ = 64 queries: 4 warps, 16 query
+// rows each. It streams BK = 32-key tiles of K and V, and the BQ + BK - 1
+// diagonal values that (query block, key tile) pair reads, through a
+// 2-stage cp.async ring in shared memory (36.6 KB per block; one barrier per
+// tile, the next tile's copies in flight while a tile is computed), with an online
+// softmax in registers (running row max and sum, rescaling the output when
+// the max grows). 3 blocks fit an SM (168 registers a thread, the launch
+// bound), so 16 heads x 24 query blocks = 384 blocks fill 132 SMs x 3 in one
+// wave. BK = 32 rather than 64 keeps the score tile at 16 registers and the
+// kernel free of spills. No score and no bias ever reaches device memory.
+//
+// Fragments (mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32; lane =
+// 4*g + t, g = lane/4, t = lane%4):
+//   A (16x8): a0 (row g, k-slot t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
+//   B (8x8):  b0 (k-slot t, col g), b1 (t+4, g)
+//   C (16x8): c0 (row g, col 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
+// A sum over k does not care which k-slot holds which k, as long as A and B
+// agree. So k-slot t holds element 2t of each 8-wide step and k-slot t+4
+// element 2t+1:
+//   - S = Q K^T: a0/a2 of a step are Q[g][2t], Q[g][2t+1], adjacent, and
+//     b0/b1 are K[g][2t], K[g][2t+1], one 8-byte shared load; a warp's Q
+//     fragments (16 rows x 64 dims, hi and lo) stay in registers for the
+//     whole key loop, pre-scaled by d^-1/2 (0.125 at d = 64, exact).
+//   - O = P V: the S accumulator of keys 8n..8n+7 is already P's A fragment
+//     (a0 = c0, a1 = c2, a2 = c1, a3 = c3), so P moves neither through
+//     shuffles nor through shared memory; V's b0/b1 are V[2t][g], V[2t+1][g].
+// Shared rows are padded so the 32 lanes hit distinct banks: K rows 72
+// floats (8-byte loads: 8g + 2t + {0,1} over a half-warp), V rows 68 floats
+// (4-byte loads: 8t + g). One fp32 load of a B element feeds two of the
+// three products (hi to lo*hi and hi*hi, lo to hi*lo).
+//
+// Ragged T is masked inside the kernel: K and V rows past T are zero-filled
+// by the copies, keys past T get -inf AFTER the gate multiply (no zero or
+// negative gate revives them), diagonal indices outside [0, 2T-2] read 0,
+// and rows past T are computed on zeros and never stored. The caller pads
+// nothing.
 
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <cstdint>
 
 namespace {
 
-constexpr int D = 64;         // head dim
-constexpr int BQ = 64;        // queries per block
-constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = 256;
-// Qs [BQ][D] + Kt [D][BK] (K transposed) + Vs [BK][D] + Ps [BQ][BK]
-constexpr int SMEM_BYTES = (BQ * D + D * BK + BK * D + BQ * BK) * (int)sizeof(float);
+constexpr int D = 64;          // head dim
+constexpr int BQ = 64;         // queries per block
+constexpr int BK = 32;         // keys per tile
+constexpr int NT = BK / 8;     // 8-key steps per tile
+constexpr int WARPS = BQ / 16;
+constexpr int THREADS = 32 * WARPS;
+constexpr int MIN_BLOCKS_PER_SM = 3;
+constexpr int KS = D + 8;      // K row stride in floats
+constexpr int VS = D + 4;      // V row stride in floats
+constexpr int BIAS_N = BQ + BK - 1;
+constexpr int BIAS_SLOTS = (BIAS_N + 3) / 4 * 4;
+constexpr int STAGES = 2;
+constexpr int STAGE_FLOATS = BK * KS + BK * VS + BIAS_SLOTS;
+constexpr int SMEM_BYTES = STAGES * STAGE_FLOATS * (int)sizeof(float);
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float f4_get(const float4& v, int i) {
-  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+static_assert(BIAS_N <= BIAS_SLOTS && BIAS_N <= THREADS, "one diagonal value per thread");
+static_assert((KS * 4) % 16 == 0 && (VS * 4) % 16 == 0, "16-byte aligned shared rows");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
+// `bytes` of 16 (or 4) copied from src, the rest of the slot zero-filled
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero:
+// cvt.rna.tf32.f32's result for finite x, in two integer instructions
+__device__ __forceinline__ uint32_t rna_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo in TF32; lo is not formed (and the compiler drops it) for 1 pass
+template <int PASSES>
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = rna_tf32(x);
+  lo = PASSES == 3 ? rna_tf32(x - __uint_as_float(hi)) : 0u;
+}
+
+// 2^x; results below 2^-126 flush to 0 (weights under 1e-38 of the row max)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a * b in PASSES tensor-core passes: lo*hi + hi*lo + hi*hi, or hi*hi
+template <int PASSES>
+__device__ __forceinline__ void mma_passes(float (&c)[4], const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4], uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  if (PASSES == 3) {
+    mma_tf32(c, alo, bh0, bh1);
+    mma_tf32(c, ahi, bl0, bl1);
+  }
+  mma_tf32(c, ahi, bh0, bh1);
+}
+
+template <int PASSES>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS_PER_SM)
 gated_bias_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, const float* __restrict__ bias,
-                            const float* __restrict__ gate, float* __restrict__ out,
-                            int T, float scale) {
+                            const float* __restrict__ v, const float* __restrict__ diag,
+                            const float* __restrict__ gate, float* __restrict__ out, int T,
+                            float scale) {
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Kt = Qs + BQ * D;
-  float* Vs = Kt + D * BK;
-  float* Ps = Vs + BK * D;
 
   const int h = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
   const int tid = threadIdx.x;
-  const int ty = tid >> 4;
-  const int tx = tid & 15;
+  const int warp = tid >> 5;
+  const int g = (tid & 31) >> 2;
+  const int t = tid & 3;
 
   const size_t head = (size_t)h * T * D;
-  const float* qh = q + head;
   const float* kh = k + head;
   const float* vh = v + head;
-  const float* bh = bias + (size_t)h * T * T;
-  const float* gh = gate + (size_t)h * T;
+  const float* dh = diag + (size_t)h * (2 * T - 1);
+  const int ntiles = (T + BK - 1) / BK;
 
-  for (int idx = tid; idx < BQ * D / 4; idx += THREADS) {
-    const int r = idx / (D / 4), c4 = idx % (D / 4);
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < T) val = reinterpret_cast<const float4*>(qh + (size_t)(q0 + r) * D)[c4];
-    reinterpret_cast<float4*>(Qs + r * D)[c4] = val;
+  // key tile `tile` -> ring stage `stage`: K and V rows (zeros past T) and
+  // diag[T-1 + k0 - q0 - (BQ-1) + n], n < BQ + BK - 1 (zeros outside the table)
+  auto load_tile = [&](int tile, int stage) {
+    float* Ks = smem + stage * STAGE_FLOATS;
+    float* Vs = Ks + BK * KS;
+    float* Bs = Vs + BK * VS;
+    const int k0 = tile * BK;
+#pragma unroll
+    for (int i = 0; i < BK * D / 4 / THREADS; ++i) {
+      const int idx = tid + i * THREADS;
+      const int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
+      const bool ok = k0 + r < T;
+      const size_t off = ok ? (size_t)(k0 + r) * D + c : 0;
+      cp_async16(Ks + r * KS + c, kh + off, ok ? 16 : 0);
+      cp_async16(Vs + r * VS + c, vh + off, ok ? 16 : 0);
+    }
+    if (tid < BIAS_N) {
+      const int idx = T - 1 + k0 - q0 - (BQ - 1) + tid;
+      const bool ok = idx >= 0 && idx <= 2 * T - 2;
+      cp_async4(Bs + tid, dh + (ok ? idx : 0), ok ? 4 : 0);
+    }
+  };
+
+  load_tile(0, 0);
+  cp_async_commit();
+
+  // this thread's query rows: ii[r] = warp*16 + g + 8r within the block
+  const int ii0 = warp * 16 + g;
+  bool row_ok[2];
+  float gv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    row_ok[r] = q0 + ii0 + 8 * r < T;
+    gv[r] = row_ok[r] ? gate[(size_t)h * T + q0 + ii0 + 8 * r] : 0.f;
   }
 
-  bool row_ok[4];
-  float g[4], m[4], l[4], o[4][4];
+  // Q's A fragments for the 8 k-steps over d, hi and lo, pre-scaled
+  uint32_t qhi[8][4], qlo[8][4];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = q0 + ty * 4 + a;
-    row_ok[a] = r < T;
-    g[a] = row_ok[a] ? gh[r] : 0.f;
-    m[a] = -INFINITY;
-    l[a] = 0.f;
+  for (int ks = 0; ks < 8; ++ks) {
+    float2 x[2];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) o[a][c] = 0.f;
+    for (int r = 0; r < 2; ++r) {
+      x[r] = row_ok[r] ? *reinterpret_cast<const float2*>(q + head + (size_t)(q0 + ii0 + 8 * r) * D +
+                                                          ks * 8 + 2 * t)
+                       : make_float2(0.f, 0.f);
+    }
+    split<PASSES>(x[0].x * scale, qhi[ks][0], qlo[ks][0]);
+    split<PASSES>(x[1].x * scale, qhi[ks][1], qlo[ks][1]);
+    split<PASSES>(x[0].y * scale, qhi[ks][2], qlo[ks][2]);
+    split<PASSES>(x[1].y * scale, qhi[ks][3], qlo[ks][3]);
   }
-  const bool vec_bias = (T & 3) == 0;  // 16-byte aligned bias rows
 
-  for (int k0 = 0; k0 < T; k0 += BK) {
-    __syncthreads();  // Qs written / previous tile's Kt, Vs, Ps consumed
-    for (int idx = tid; idx < BK * D; idx += THREADS) {
-      const int j = idx % BK, dd = idx / BK;
-      Kt[dd * BK + j] = (k0 + j < T) ? kh[(size_t)(k0 + j) * D + dd] : 0.f;
-    }
-    for (int idx = tid; idx < BK * D / 4; idx += THREADS) {
-      const int j = idx / (D / 4), c4 = idx % (D / 4);
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + j < T) val = reinterpret_cast<const float4*>(vh + (size_t)(k0 + j) * D)[c4];
-      reinterpret_cast<float4*>(Vs + j * D)[c4] = val;
-    }
+  float o[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // this lane's share of each row sum
+
+  for (int tile = 0; tile < ntiles; ++tile) {
+    // one barrier per tile: after it, this tile has landed and every warp is
+    // done with the other stage, which then takes the next tile while this
+    // one is computed
+    cp_async_wait_all();
     __syncthreads();
+    if (tile + 1 < ntiles) {
+      load_tile(tile + 1, (tile + 1) & 1);
+      cp_async_commit();
+    }
 
-    float s[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) s[a][b] = 0.f;
+    const float* Ks = smem + (tile & 1) * STAGE_FLOATS;
+    const float* Vs = Ks + BK * KS;
+    const float* Bs = Vs + BK * VS;
+    const int k0 = tile * BK;
 
-#pragma unroll 4
-    for (int dd = 0; dd < D; dd += 4) {
-      float4 qa[4];
+    // s[n][c]: row ii0 + 8*(c/2), key k0 + 8n + 2t + c%2
+    float s[NT][4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
-        qa[a] = *reinterpret_cast<const float4*>(Qs + (ty * 4 + a) * D + dd);
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float4 kb = *reinterpret_cast<const float4*>(Kt + (dd + e) * BK + tx * 4);
+      for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const float qv = f4_get(qa[a], e);
-          s[a][0] += qv * kb.x;
-          s[a][1] += qv * kb.y;
-          s[a][2] += qv * kb.z;
-          s[a][3] += qv * kb.w;
-        }
+    for (int ks = 0; ks < 8; ++ks) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float2 kb = *reinterpret_cast<const float2*>(Ks + (n * 8 + g) * KS + ks * 8 + 2 * t);
+        uint32_t bh0, bh1, bl0, bl1;
+        split<PASSES>(kb.x, bh0, bl0);
+        split<PASSES>(kb.y, bh1, bl1);
+        mma_passes<PASSES>(s[n], qhi[ks], qlo[ks], bh0, bh1, bl0, bl1);
       }
     }
 
-    const int c0 = k0 + tx * 4;
+    // + gate * bias, bias[i][j] = Bs[jj - ii + BQ - 1]
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      float bv[4] = {0.f, 0.f, 0.f, 0.f};
-      if (row_ok[a]) {
-        const float* brow = bh + (size_t)(q0 + ty * 4 + a) * T + c0;
-        if (vec_bias && c0 + 3 < T) {
-          const float4 b4 = __ldg(reinterpret_cast<const float4*>(brow));
-          bv[0] = b4.x; bv[1] = b4.y; bv[2] = b4.z; bv[3] = b4.w;
-        } else {
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-          for (int b = 0; b < 4; ++b)
-            if (c0 + b < T) bv[b] = __ldg(brow + b);
-        }
-      }
-      float tmax = -INFINITY;
+      for (int c = 0; c < 4; ++c)
+        s[n][c] = fmaf(gv[c >> 1], Bs[n * 8 + 2 * t + (c & 1) - ii0 - 8 * (c >> 1) + BQ - 1],
+                       s[n][c]);
+    if (k0 + BK > T) {  // keys past T: -inf after the gate multiply
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        // keys past T get -inf AFTER the gate multiply: no gate revives them
-        s[a][b] = (c0 + b < T) ? s[a][b] * scale + g[a] * bv[b] : -INFINITY;
-        tmax = fmaxf(tmax, s[a][b]);
-      }
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      // every tile holds key k0 < T, so m_new is finite
-      const float m_new = fmaxf(m[a], tmax);
-      const float alpha = expf(m[a] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        s[a][b] = expf(s[a][b] - m_new);
-        rs += s[a][b];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[a] = l[a] * alpha + rs;
-      m[a] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) o[a][c] *= alpha;
-      *reinterpret_cast<float4*>(Ps + (ty * 4 + a) * BK + tx * 4) =
-          make_float4(s[a][0], s[a][1], s[a][2], s[a][3]);
+        for (int c = 0; c < 4; ++c)
+          if (k0 + n * 8 + 2 * t + (c & 1) >= T) s[n][c] = -INFINITY;
     }
-    __syncthreads();
 
-#pragma unroll 4
-    for (int j = 0; j < BK; j += 4) {
-      float4 pa[4];
+    // online softmax; every tile holds key k0 < T, so each new max is finite
+    float alpha[2];
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
-        pa[a] = *reinterpret_cast<const float4*>(Ps + (ty * 4 + a) * BK + j);
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float4 vb = *reinterpret_cast<const float4*>(Vs + (j + e) * D + tx * 4);
+      for (int n = 0; n < NT; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      alpha[r] = ex2((m[r] - m_new) * LOG2E);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const float p = f4_get(pa[a], e);
-          o[a][0] += p * vb.x;
-          o[a][1] += p * vb.y;
-          o[a][2] += p * vb.z;
-          o[a][3] += p * vb.w;
-        }
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[n][c] = ex2((s[n][c] - m[c >> 1]) * LOG2E);
+        l[c >> 1] += s[n][c];
+      }
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o[dn][c] *= alpha[c >> 1];
+
+    // O += P V; P's A fragment for keys 8n..8n+7 is s[n] (see the note above)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      uint32_t phi[4], plo[4];
+      split<PASSES>(s[n][0], phi[0], plo[0]);
+      split<PASSES>(s[n][2], phi[1], plo[1]);
+      split<PASSES>(s[n][1], phi[2], plo[2]);
+      split<PASSES>(s[n][3], phi[3], plo[3]);
+      const float* vrow = Vs + (n * 8 + 2 * t) * VS + g;
+#pragma unroll
+      for (int dn = 0; dn < 8; ++dn) {
+        uint32_t bh0, bh1, bl0, bl1;
+        split<PASSES>(vrow[dn * 8], bh0, bl0);
+        split<PASSES>(vrow[VS + dn * 8], bh1, bl1);
+        mma_passes<PASSES>(o[dn], phi, plo, bh0, bh1, bl0, bl1);
       }
     }
   }
 
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    if (!row_ok[a]) continue;
-    float* orow = out + head + (size_t)(q0 + ty * 4 + a) * D + tx * 4;
-    *reinterpret_cast<float4*>(orow) =
-        make_float4(o[a][0] / l[a], o[a][1] / l[a], o[a][2] / l[a], o[a][3] / l[a]);
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(FULL, l[r], 1);
+    l[r] += __shfl_xor_sync(FULL, l[r], 2);
+    if (!row_ok[r]) continue;
+    float* orow = out + head + (size_t)(q0 + ii0 + 8 * r) * D + 2 * t;
+#pragma unroll
+    for (int dn = 0; dn < 8; ++dn)
+      *reinterpret_cast<float2*>(orow + dn * 8) =
+          make_float2(o[dn][2 * r] / l[r], o[dn][2 * r + 1] / l[r]);
   }
+}
+
+// 3 blocks of 36.6 KB each: ask for the SM's largest shared-memory carveout
+template <int PASSES>
+cudaError_t configure() {
+  return cudaFuncSetAttribute(gated_bias_attention_kernel<PASSES>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
 }
 
 }  // namespace
@@ -216,19 +365,22 @@ gated_bias_attention_kernel(const float* __restrict__ q, const float* __restrict
 extern "C" {
 
 // Launches on `stream`; returns the cudaError_t of the launch (0 = success).
-// Pointers must be 16-byte aligned and the tensors contiguous (checked by
-// the Python wrapper).
-int gated_bias_attention_f32(const float* q, const float* k, const float* v,
-                             const float* bias, const float* gate, float* out,
-                             int H, int T, int d, float scale, void* stream) {
-  if (d != D || H <= 0 || T <= 0 || H > 65535) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(gated_bias_attention_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         SMEM_BYTES);
+// passes: 3 (3xTF32, fp32-grade) or 1 (TF32). Pointers must be 16-byte
+// aligned and the tensors contiguous (checked by the Python wrapper).
+int gated_bias_attention_f32(const float* q, const float* k, const float* v, const float* diag,
+                             const float* gate, float* out, int H, int T, int d, float scale,
+                             int passes, void* stream) {
+  if (d != D || H <= 0 || T <= 0 || H > 65535 || T > (1 << 29) || (passes != 1 && passes != 3))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = passes == 3 ? configure<3>() : configure<1>();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + BQ - 1) / BQ, H);
-  gated_bias_attention_kernel<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      q, k, v, bias, gate, out, T, scale);
+  if (passes == 3)
+    gated_bias_attention_kernel<3><<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+        q, k, v, diag, gate, out, T, scale);
+  else
+    gated_bias_attention_kernel<1><<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+        q, k, v, diag, gate, out, T, scale);
   return (int)cudaGetLastError();
 }
 

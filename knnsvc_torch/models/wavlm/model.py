@@ -18,6 +18,8 @@ Attention with the position bias goes through
 ops.attention.gated_bias_attention, one call per batch row — the CUDA
 kernel on a card, in both precision modes (the JAX package keeps its
 HIGHEST mode off the Pallas kernel only because MXU dots are bf16). The
+bias reaches it as its (H, 2T-1) diagonal table, which the kernel expands
+itself; the (H, T, T) tensor never exists on the card. The
 bucketed/masked encoder is not ported yet.
 """
 
@@ -32,7 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from knnsvc_torch.config import WavLMConfig
-from knnsvc_torch.ops.attention import gated_bias_attention
+from knnsvc_torch.ops.attention import gated_bias_attention, toeplitz_bias
 
 Params = dict[str, Any]
 
@@ -64,17 +66,22 @@ def relative_position_bucket(relative_position: torch.Tensor, num_buckets: int,
     return relative_buckets + torch.where(is_small, rel.to(torch.int32), rel_if_large)
 
 
-def compute_position_bias(rel_attn_bias: torch.Tensor, seq_len: int, num_buckets: int,
+def compute_position_diag(rel_attn_bias: torch.Tensor, seq_len: int, num_buckets: int,
                           max_distance: int) -> torch.Tensor:
-    """(num_buckets, H) table -> (H, T, T) bias, gathered from the 2T-1
-    distinct offsets. The bucket indices are computed on the CPU, so every
-    device gets the same ones."""
+    """(num_buckets, H) table -> (H, 2T-1) diagonal table: entry T-1 + j - i
+    is the bias of query i and key j. The bucket indices are computed on the
+    CPU, so every device gets the same ones."""
     offsets = torch.arange(-(seq_len - 1), seq_len)                     # j - i
     buckets = relative_position_bucket(offsets, num_buckets, max_distance)
-    diag = rel_attn_bias[buckets.to(device=rel_attn_bias.device, dtype=torch.long)].T  # (H, 2T-1)
-    i = torch.arange(seq_len, device=rel_attn_bias.device)
-    idx = (seq_len - 1) + (i[None, :] - i[:, None])                     # (T, T)
-    return diag[:, idx].contiguous()
+    return rel_attn_bias[buckets.to(device=rel_attn_bias.device, dtype=torch.long)].T.contiguous()
+
+
+def compute_position_bias(rel_attn_bias: torch.Tensor, seq_len: int, num_buckets: int,
+                          max_distance: int) -> torch.Tensor:
+    """(num_buckets, H) table -> (H, T, T) bias: the plain expansion of
+    `compute_position_diag`."""
+    return toeplitz_bias(compute_position_diag(rel_attn_bias, seq_len, num_buckets,
+                                               max_distance)).contiguous()
 
 
 class ConvFrontend(nn.Module):
@@ -130,7 +137,8 @@ class MultiheadAttention(nn.Module):
         gate_a, gate_b = torch.sigmoid(g.view(B, H, T, 2, 4).sum(-1)).chunk(2, dim=-1)
         return gate_a * (gate_b * self.grep_a.view(1, H, 1, 1) - 1.0) + 2.0
 
-    def forward(self, x: torch.Tensor, pos_bias: torch.Tensor | None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pos_diag: torch.Tensor | None) -> torch.Tensor:
+        """pos_diag: the (H, 2T-1) diagonal table of the position bias, or None."""
         B, T, C = x.shape
         H = self.num_heads
 
@@ -138,14 +146,14 @@ class MultiheadAttention(nn.Module):
             return t.view(B, T, H, C // H).transpose(1, 2)     # (B, H, T, hd)
 
         q, k, v = heads(self.q(x)), heads(self.k(x)), heads(self.v(x))
-        if pos_bias is None:
+        if pos_diag is None:
             out = F.scaled_dot_product_attention(q, k, v)
         else:
             # one launch per batch row: the bias is shared across the batch
             gate = self.gate_values(x)[..., 0]                     # (B, H, T)
             out = torch.stack([
                 gated_bias_attention(q[b].contiguous(), k[b].contiguous(), v[b].contiguous(),
-                                     pos_bias, gate[b].contiguous())
+                                     pos_diag, gate[b].contiguous())
                 for b in range(B)])
         return self.out(out.transpose(1, 2).reshape(B, T, C))
 
@@ -163,11 +171,11 @@ class EncoderLayer(nn.Module):
         self.fc2 = nn.Linear(cfg.encoder_ffn_embed_dim, D)
         self.ln2 = nn.LayerNorm(D)
 
-    def forward(self, x: torch.Tensor, pos_bias: torch.Tensor | None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pos_diag: torch.Tensor | None) -> torch.Tensor:
         if self.layer_norm_first:
-            x = x + self.attn(self.ln1(x), pos_bias)
+            x = x + self.attn(self.ln1(x), pos_diag)
             return x + self.fc2(F.gelu(self.fc1(self.ln2(x))))
-        x = self.ln1(x + self.attn(x, pos_bias))
+        x = self.ln1(x + self.attn(x, pos_diag))
         return self.ln2(x + self.fc2(F.gelu(self.fc1(x))))
 
 
@@ -214,9 +222,9 @@ class WavLM(nn.Module):
         return x
 
     def position_bias(self, seq_len: int) -> torch.Tensor | None:
-        """The (H, T, T) bias depends only on (table, T): cached per T (both
-        pools and every 30-s chunk share it), dropped when the table changes
-        or moves."""
+        """The position bias as its (H, 2T-1) diagonal table, which depends
+        only on (table, T): cached per T (both pools and every 30-s chunk
+        share it), dropped when the table changes or moves."""
         if not self.cfg.relative_position_embedding:
             return None
         table = self.encoder.rel_attn_bias
@@ -226,7 +234,7 @@ class WavLM(nn.Module):
             self._bias_key = key
         if seq_len not in self._bias_cache:
             with torch.no_grad():
-                self._bias_cache[seq_len] = compute_position_bias(
+                self._bias_cache[seq_len] = compute_position_diag(
                     table.detach(), seq_len, self.cfg.num_buckets, self.cfg.max_distance)
         return self._bias_cache[seq_len]
 
@@ -235,9 +243,9 @@ class WavLM(nn.Module):
         reference's extract_features(output_layer=L)). (B, T_samples) ->
         (B, T, C). Only the first `output_layer` layers run."""
         x = self._prelude(wav)
-        pos_bias = self.position_bias(x.shape[1])
+        pos_diag = self.position_bias(x.shape[1])
         for layer in self.encoder.layers[:output_layer]:
-            x = layer(x, pos_bias)
+            x = layer(x, pos_diag)
         return x
 
 

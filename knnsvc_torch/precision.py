@@ -4,7 +4,8 @@
 convolutions. cuDNN defaults `allow_tf32` to True, which would silently run
 every WavLM and HiFi-GAN conv in TF32 (~3 decimal digits).
 "fastest": TF32 allowed in both, which is what JAX's Precision.DEFAULT
-means on a GPU.
+means on a GPU; the attention kernel (ops/attention.py) then takes one TF32
+tensor-core pass instead of three.
 
 The policy is process-wide, like torch's own backend flags. KnnSvc applies
 it when constructed; `set_precision` applies it at once.

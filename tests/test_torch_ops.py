@@ -1,7 +1,8 @@
 """knnsvc_torch.ops.attention on the CPU: the plain version against the JAX
 package's Pallas kernel (interpret mode) at 2e-5, as tests/test_ops.py holds
-the Pallas kernel, and the launch counter. The CUDA kernel's own tests are
-in test_torch_gpu.py."""
+the Pallas kernel, and the launch counter. The port takes the bias as its
+(H, 2T-1) diagonal table; the Pallas kernel gets the same table expanded with
+numpy. The CUDA kernel's own tests are in test_torch_gpu.py."""
 
 import numpy as np
 import pytest
@@ -16,12 +17,19 @@ from knnsvc_torch.ops.attention import gated_bias_attention
 def _inputs(H, T, d, gate_value=None, seed=0):
     rng = np.random.default_rng(seed)
     q, k, v = (rng.standard_normal((H, T, d)).astype(np.float32) for _ in range(3))
-    bias = rng.standard_normal((H, T, T)).astype(np.float32)
+    diag = rng.standard_normal((H, 2 * T - 1)).astype(np.float32)
     if gate_value is None:
         gate = (rng.random((H, T)) * 2).astype(np.float32)
     else:
         gate = np.full((H, T), gate_value, np.float32)
-    return q, k, v, bias, gate
+    return q, k, v, diag, gate
+
+
+def _expand(diag):
+    """bias[h, i, j] = diag[h, T-1 + j - i], in numpy."""
+    T = (diag.shape[-1] + 1) // 2
+    i = np.arange(T)
+    return diag[:, (T - 1) + i[None, :] - i[:, None]]
 
 
 @pytest.mark.parametrize("T", [96, 200])
@@ -29,9 +37,9 @@ def _inputs(H, T, d, gate_value=None, seed=0):
 def test_plain_attention_matches_pallas_kernel(T, gate_value):
     """T=96 is block-aligned for block_q=96, T=200 is ragged (padded keys
     must take no weight under zero or negative gates)."""
-    arrays = _inputs(4, T, 64, gate_value)
-    ref = np.asarray(jax_gated_bias_attention(*map(jnp.asarray, arrays), block_q=96,
-                                              interpret=True))
+    q, k, v, diag, gate = arrays = _inputs(4, T, 64, gate_value)
+    ref = np.asarray(jax_gated_bias_attention(*map(jnp.asarray, (q, k, v, _expand(diag), gate)),
+                                              block_q=96, interpret=True))
     before = gated_bias_attention.launches
     got = gated_bias_attention(*map(torch.from_numpy, arrays))
     assert gated_bias_attention.launches == before, "a CPU tensor must not count a launch"

@@ -1,6 +1,7 @@
 """knnsvc_torch WavLM against the JAX package's encoder on the CPU: the
-relative-position buckets exactly, at the full-size config, and the early-exit
-layer features within 2e-4."""
+relative-position buckets and the position bias (as its diagonal table,
+expanded) exactly, at the full-size config, and the early-exit layer features
+within 2e-4."""
 
 import numpy as np
 import pytest
@@ -14,8 +15,9 @@ from knnsvc_tpu.models.wavlm.model import frame_count as jax_frame_count
 from knnsvc_tpu.models.wavlm.model import wavlm_extract_layer
 from knnsvc_torch.config import WavLMConfig
 from knnsvc_torch.io.jax_params import wavlm_from_numpy
-from knnsvc_torch.models.wavlm.model import (compute_position_bias, frame_count,
-                                             relative_position_bucket)
+from knnsvc_torch.models.wavlm.model import (compute_position_bias, compute_position_diag,
+                                             frame_count, relative_position_bucket)
+from knnsvc_torch.ops.attention import toeplitz_bias
 
 from test_torch_common import _sing, small_wavlm
 
@@ -41,6 +43,31 @@ def test_position_bias_and_frame_count():
     np.testing.assert_array_equal(got, want)
     for n in (16320, 480320, 123457):
         assert frame_count(cfg, n) == jax_frame_count(cfg, n)
+
+
+@pytest.mark.parametrize("T", [1, 200, 1500])
+def test_position_diag_matches_jax_bias(T):
+    """The (H, 2T-1) table the kernel reads, expanded, equals the JAX
+    package's (H, T, T) bias bit for bit, up to a 30-s chunk."""
+    cfg = WavLMConfig()
+    table = np.random.default_rng(1).standard_normal((cfg.num_buckets, 16)).astype(np.float32)
+    want = np.asarray(jax_compute_position_bias(jnp.asarray(table), T, cfg.num_buckets,
+                                                cfg.max_distance))
+    diag = compute_position_diag(torch.from_numpy(table), T, cfg.num_buckets, cfg.max_distance)
+    assert diag.shape == (16, 2 * T - 1) and diag.is_contiguous()
+    np.testing.assert_array_equal(toeplitz_bias(diag).numpy(), want)
+
+
+def test_position_bias_cache_holds_diagonals():
+    cfg, _, params = small_wavlm()
+    model = wavlm_from_numpy(params, cfg)
+    a = model.position_bias(50)
+    assert a.shape == (cfg.encoder_attention_heads, 99)
+    assert model.position_bias(50) is a                 # cached per T
+    assert model.position_bias(7).shape == (cfg.encoder_attention_heads, 13)
+    with torch.no_grad():
+        model.encoder.rel_attn_bias.add_(1.0)           # a new table drops the cache
+    assert model.position_bias(50) is not a
 
 
 @pytest.mark.parametrize("output_layer,batch", [(1, 1), (3, 1), (3, 2)],
