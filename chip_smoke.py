@@ -18,7 +18,11 @@ Phases (any failure exits non-zero, before the result line):
      and k in CONCAT_KS, and at (300, 400, 1024) with k = 8 (its rows read
      from L2), the share of equal frames per lane (all of them) at the
      main path's (1500, 1500, 1024) with k = 4 and k = 8, and the time of
-     its pre-pass alone;
+     its pre-pass alone; the f0 Viterbi kernel equal on every frame at
+     (1501, 482) on random costs, costs with injected ties and the real
+     costs of a sung 30-s wav, timed against its plain version; device f0
+     on the card against the CPU on that wav, and the time of one 30-s
+     device_f0_tensor with its Viterbi share;
   3. the slice on the card against the slice on the CPU: one full-width
      KnnSvc.random_init("mix") (WavLM-Large, HiFi-GAN v1 config), the same
      weights on both, "highest" precision, a seeded 4-s synthetic singing
@@ -33,7 +37,10 @@ Phases (any failure exits non-zero, before the result line):
      post_opt, the concat-cost kernel once; one post_opt conversion with
      topk=8; one wavlm_only post_opt conversion; traced runs (new and
      repeated pairs, without and with post_opt) split by stage from the
-     knnsvc.* profiler spans;
+     knnsvc.* profiler spans; then with f0_method='device' and int16
+     uploads (2 Viterbi launches per pair, no host f0), new-pair and repeat
+     medians beside the host-f0 ones and a traced new pair; one
+     wavlm_only_original conversion, its vocoder against the CPU;
   5. the card's name and power limit (nvidia-smi).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
@@ -55,7 +62,7 @@ PEAK_FP32_FLOPS = 67e12          # fp32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12         # TF32 on the tensor cores, dense
 PEAK_BYTES_PER_S = 3.35e12       # HBM3
 
-KERNELS = ("gated_bias_attention", "concat_cost_pair")
+KERNELS = ("gated_bias_attention", "concat_cost_pair", "f0_viterbi")
 ATTN_MAIN = (16, 1500, 64)       # one WavLM-Large layer on a 30-s chunk
 ATTN_RAGGED = [(4, 200, 64, 1.0), (4, 200, 64, 0.0), (4, 200, 64, -0.5)]
 # kernel vs plain: fp32 sums of 1500 terms per score and per output, in
@@ -92,6 +99,14 @@ PICK_SHARE_MIN = 0.95            # card vs CPU: frames whose concat picks agree
 PO_FRESH_RUNS = 3                # post_opt conversions of new pairs
 PO_WARM_RUNS = 10                # post_opt repeat conversions
 TOPK_WIDE = 8                    # a --topk beside the reference's 4
+
+VITERBI_MAIN = (1501, 482)       # frames of a 30-s chunk, f0 candidates 65-1047 Hz
+VITERBI_FLOPS_PER_STATE = 10     # fp32 adds, subtracts and compares per state and frame
+F0_VOICING_SHARE_MIN = 0.995     # card vs CPU: frames of equal voicing
+F0_CENTS = 1.0                   # card vs CPU: voiced f0 within this many cents ...
+F0_CENTS_SHARE_MIN = 0.99        # ... on this share of the frames voiced in both
+DEV_FRESH_RUNS = 5               # device-f0 + int16-upload conversions of new pairs
+DEV_WARM_RUNS = 10               # and of the same pair again
 
 
 def fail(msg: str) -> None:
@@ -338,6 +353,85 @@ def phase_concat_kernel(dev):
             "launch_note": "one launch per call: the pre-pass kernel, then the chain kernel"}
 
 
+def viterbi_bound_ms(N: int, C: int) -> tuple[float, str]:
+    """Least time for the recursion on an H100: the (N, C) and (N,) costs
+    read once and the (N,) states written once at the HBM rate; per frame
+    and state ~VITERBI_FLOPS_PER_STATE fp32 operations at the fp32 peak."""
+    nbytes = 4 * (N * C + N + N)
+    ops = VITERBI_FLOPS_PER_STATE * (N - 1) * (C + 1)
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_viterbi_kernel(dev):
+    import numpy as np
+    import torch
+
+    from knnsvc_torch.dsp.f0_device import device_f0, device_f0_tensor, viterbi_inputs
+    from knnsvc_torch.ops.viterbi import f0_viterbi, viterbi_plain
+
+    N, C = VITERBI_MAIN
+    wav, _ = sung_wav(FULL_SECONDS, VOICES[0][1], VOICES[0][2])
+    wav[:16000] = 0.0                     # a silent second: 1e3 rows, ties
+    x = torch.from_numpy(wav).to(dev)
+    real = viterbi_inputs(x, 16000, N)
+    lam_s, switch = real[2:]
+    rng = np.random.default_rng(6)
+    cv = rng.standard_normal((N, C)).astype(np.float32)
+    cu = (0.5 * rng.standard_normal(N)).astype(np.float32)
+    tied_v, tied_u = cv.copy(), cu.copy()
+    tied_v[::3] = 1e3
+    tied_v[1::4, 200:] = tied_v[1::4, 200:201]
+    tied_v[2::5] = np.round(tied_v[2::5])
+    tied_u[::7] = 1e3
+    cases = {"random": (cv, cu), "ties": (tied_v, tied_u), "sung 30-s wav": real[:2]}
+    max_err = 0
+    for name, (a, b) in cases.items():
+        a, b = torch.as_tensor(a).to(dev), torch.as_tensor(b).to(dev)
+        got = f0_viterbi(a, b, lam_s, switch)
+        torch.cuda.synchronize()
+        want = viterbi_plain(a, b, lam_s, switch)
+        equal = float((got == want).float().mean())
+        max_err = max(max_err, int((got - want).abs().max()))
+        log(f"[kernel] f0_viterbi ({N}, {C}) {name}: states equal to the plain version on "
+            f"{equal:.2%} of frames; unvoiced share {float((want == C).float().mean()):.1%}")
+        if equal != 1.0:
+            fail(f"f0_viterbi disagrees with its plain version on {name} costs: {equal:.4%}")
+
+    cost_v, cost_u = real[:2]
+    ms = cuda_ms(lambda: f0_viterbi(cost_v, cost_u, lam_s, switch))
+    plain_ms = cuda_ms(lambda: viterbi_plain(cost_v, cost_u, lam_s, switch), iters=1, warmup=0)
+    bound_ms, bound_by = viterbi_bound_ms(N, C)
+    ptr_bound_ms = 1e3 * (4 * (N * C + 2 * N) + 2 * 2 * (N - 1) * (C + 1)) / PEAK_BYTES_PER_S
+    log(f"[kernel] f0_viterbi ({N}, {C}) sung costs: kernel {ms:.4f} ms "
+        f"({1e3 * ms / (N - 1):.3f} us per frame), plain {plain_ms:.1f} ms (one run), library "
+        f"none, bound {bound_ms:.4f} ms ({bound_by}; {ptr_bound_ms:.4f} ms with the int16 "
+        f"pointers written and read back); latency-bound in fact: a chain of {N - 1} "
+        f"dependent frames")
+
+    # device f0 on the card against the CPU, on the same wav
+    card = device_f0(wav, 16000, device=dev)
+    cpu = device_f0(wav, 16000, device="cpu")
+    voicing = float(((card > 0) == (cpu > 0)).mean())
+    both = (card > 0) & (cpu > 0)
+    within = float((np.abs(1200 * np.log2(card[both] / cpu[both])) <= F0_CENTS).mean())
+    log(f"[f0] device_f0 card vs cpu on the sung {FULL_SECONDS:.0f}-s wav ({len(card)} frames, "
+        f"{both.mean():.1%} voiced in both): voicing equal on {voicing:.2%} (min "
+        f"{F0_VOICING_SHARE_MIN:.1%}), f0 within {F0_CENTS} cent on {within:.2%} (min "
+        f"{F0_CENTS_SHARE_MIN:.0%}); max {float(np.abs(1200 * np.log2(card[both] / cpu[both])).max()):.4f} cents")
+    if not (voicing >= F0_VOICING_SHARE_MIN and within >= F0_CENTS_SHARE_MIN and both.mean() > 0.5):
+        fail(f"device f0 differs between card and cpu: voicing {voicing}, within {within}")
+    tensor_ms = cuda_ms(lambda: device_f0_tensor(x, 16000, N), iters=10)
+    log(f"[f0] one {FULL_SECONDS:.0f}-s device_f0_tensor on the card: {tensor_ms:.4f} ms, of which "
+        f"the Viterbi kernel {ms:.4f} ms ({ms / tensor_ms:.1%})")
+    return {"name": "f0_viterbi", "route": "cuda", "source": "knnsvc_torch/csrc/f0_viterbi.cu",
+            "replaces": "knnsvc_tpu/dsp/f0_device.py:204 (_viterbi, an XLA lax.scan, not a "
+                        "Pallas kernel)",
+            "launches": None, "max_abs_err": float(max_err), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "us_per_frame": 1e3 * ms / (N - 1), "device_f0_ms": tensor_ms}
+
+
 def write_pair(root: str, seconds: float, sidecars: bool):
     from knnsvc_torch.dsp.f0 import save_f0_sidecar
     from knnsvc_torch.io.audio import save_audio
@@ -475,26 +569,31 @@ def phase_full(root: str, knn, records, dev):
     from knnsvc_torch.models.wavlm.model import frame_count
     from knnsvc_torch.ops.attention import gated_bias_attention
     from knnsvc_torch.ops.concat_scan import concat_cost_pair
+    from knnsvc_torch.ops.viterbi import f0_viterbi
 
     src, ref = write_pair(root, FULL_SECONDS, sidecars=False)
     out = os.path.join(root, "converted.wav")
     n_frames = frame_count(knn.wavlm_cfg, int(16000 * FULL_SECONDS) + 320)
 
-    def run(s, r, post_opt="no_post_opt", model=knn, topk=4):
+    def run(s, r, post_opt="no_post_opt", model=knn, topk=4, upload_dtype="float32"):
         """One convert_pair, its counts set to 0 just before and read just
-        after: 12 attention launches, and one concat-cost launch with post_opt."""
+        after: 12 attention launches, one concat-cost launch with post_opt,
+        and one Viterbi launch per pool with device f0."""
         gated_bias_attention.launches = 0
         concat_cost_pair.launches = 0
+        f0_viterbi.launches = 0
         t0 = time.perf_counter()
         path = model.convert_pair(s, r, topk=topk, fast=True, post_opt=post_opt,
-                                  output_path=out)
+                                  output_path=out, upload_dtype=upload_dtype)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches = (gated_bias_attention.launches, concat_cost_pair.launches)
-        want = (LAUNCHES_PER_PAIR, 0 if post_opt == "no_post_opt" else 1)
+        launches = (gated_bias_attention.launches, concat_cost_pair.launches,
+                    f0_viterbi.launches)
+        want = (LAUNCHES_PER_PAIR, 0 if post_opt == "no_post_opt" else 1,
+                2 if model.f0_method == "device" else 0)
         if launches != want:
-            fail(f"convert_pair({model.ckpt_type}, {post_opt}) launched (attention, concat) "
-                 f"{launches} times, expected {want}")
+            fail(f"convert_pair({model.ckpt_type}, {post_opt}, f0 {model.f0_method}) launched "
+                 f"(attention, concat, viterbi) {launches} times, expected {want}")
         return dt, launches, path
 
     def new_pair(tag):
@@ -516,11 +615,12 @@ def phase_full(root: str, knn, records, dev):
         f"(first conversion in the process; includes the native f0 build when the "
         f"checkout has none, and f0 extraction)")
     torch.cuda.reset_peak_memory_stats()
-    fresh = [run(*new_pair(f"new{i}"))[0] for i in range(FRESH_RUNS)]
-    log(f"[full] warm latency, new pair (f0 extracted) s ({FRESH_RUNS} runs): {summary(fresh)}")
-    cached = [run(src, ref)[0] for _ in range(WARM_RUNS)]
+    fresh_np = [run(*new_pair(f"new{i}"))[0] for i in range(FRESH_RUNS)]
+    log(f"[full] warm latency, new pair (f0 extracted) s ({FRESH_RUNS} runs): "
+        f"{summary(fresh_np)}")
+    cached_np = [run(src, ref)[0] for _ in range(WARM_RUNS)]
     log(f"[full] warm latency, repeat conversion (f0 cached) s ({WARM_RUNS} runs): "
-        f"{summary(cached)}")
+        f"{summary(cached_np)}")
     log(f"[full] peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
 
     y, sr = load_audio(path)
@@ -556,7 +656,7 @@ def phase_full(root: str, knn, records, dev):
     records["gated_bias_attention"]["launches"] = launches[0]
     records["concat_cost_pair"]["launches"] = launches[1]
     log(f"kernels: gated_bias_attention={launches[0]} concat_cost_pair={launches[1]} "
-        f"(one {POST_OPT} mix conversion)")
+        f"f0_viterbi={launches[2]} (one {POST_OPT} mix conversion, host f0)")
     y, sr = load_audio(path)
     wav = knn.convert_waveform(src, ref, post_opt=POST_OPT)
     torch.cuda.synchronize()
@@ -575,6 +675,44 @@ def phase_full(root: str, knn, records, dev):
     log(f"[post_opt] convert_pair(topk={TOPK_WIDE}, post_opt={POST_OPT!r}) in {wide_s:.4f} s; "
         f"launches (attention, concat) {wide_launches}; pre-quantize peak {peak:.3e}, finite")
 
+    # device f0 and int16 uploads: no host f0 on a new pair
+    knn.f0_method = "device"
+    try:
+        first_s, _, _ = run(src, ref, upload_dtype="int16")
+        torch.cuda.reset_peak_memory_stats()
+        dev_fresh = [run(*new_pair(f"dev_new{i}"), upload_dtype="int16")[0]
+                     for i in range(DEV_FRESH_RUNS)]
+        dev_cached, launches = [], None
+        for _ in range(DEV_WARM_RUNS):
+            dt, launches, path = run(src, ref, upload_dtype="int16")
+            dev_cached.append(dt)
+        records["f0_viterbi"]["launches"] = launches[2]
+        log(f"[device_f0] first convert_pair(fast=True, f0_method='device', "
+            f"upload_dtype='int16') in the process: {first_s:.3f} s")
+        log(f"[device_f0] warm latency, new pair s ({DEV_FRESH_RUNS} runs): {summary(dev_fresh)}")
+        log(f"[device_f0] warm latency, repeat conversion s ({DEV_WARM_RUNS} runs): "
+            f"{summary(dev_cached)}")
+        log(f"[device_f0] beside host f0 in this run: new pair median "
+            f"{statistics.median(fresh_np):.4f} s, repeat median "
+            f"{statistics.median(cached_np):.4f} s")
+        log(f"[device_f0] peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+        log(f"kernels: gated_bias_attention={launches[0]} concat_cost_pair={launches[1]} "
+            f"f0_viterbi={launches[2]} (one no_post_opt mix conversion, device f0, int16 uploads)")
+        y, sr = load_audio(path)
+        wav = knn.convert_waveform(src, ref, upload_dtype="int16")
+        torch.cuda.synchronize()
+        peak = float(wav.abs().max())
+        if not (sr == 16000 and y.shape[-1] == n_frames * 320 and wav.shape[0] == y.shape[-1]
+                and bool(torch.isfinite(wav).all()) and peak > 0):
+            fail(f"device-f0 output: sr {sr}, length {y.shape[-1]}, peak {peak}")
+        log(f"[device_f0] output {y.shape[-1]} samples; pre-quantize peak {peak:.3e}, finite")
+        phase_profile(knn, *new_pair("dev_traced"), out, "device f0 + int16 new pair",
+                      upload_dtype="int16")
+    finally:
+        knn.f0_method = "fast"
+
+    phase_original(src, ref, out, run, dev)
+
     wknn = KnnSvc.random_init("wavlm_only", seed=0, device=dev)
     with OptimizerSteps() as wsteps:
         w_times = [run(src, ref, POST_OPT, model=wknn)[0] for _ in range(2)]
@@ -582,12 +720,47 @@ def phase_full(root: str, knn, records, dev):
         f"second {w_times[1]:.4f}; launches (attention, concat) "
         f"({LAUNCHES_PER_PAIR}, 1) each; optimizer steps {wsteps.steps}")
 
+
     phase_profile(knn, *new_pair("traced"), out, "new pair (f0 extracted)")
     phase_profile(knn, src, ref, out, "repeat conversion (f0 cached)")
     phase_profile(knn, src, ref, out, f"mix {POST_OPT} repeat", POST_OPT)
     phase_profile(knn, *new_pair("po_traced"), out, f"mix {POST_OPT} new pair (f0 extracted)",
                   POST_OPT)
     phase_profile(wknn, src, ref, out, f"wavlm_only {POST_OPT} repeat", POST_OPT)
+
+
+def phase_original(src: str, ref: str, out: str, run, dev) -> None:
+    """One wavlm_only_original conversion on the card (plain HiFi-GAN v1 on
+    the matched features, no f0): a finite, non-silent waveform; then its
+    vocoder against the same vocoder on the CPU, on the same features."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from knnsvc_torch.hub import KnnSvc
+
+    oknn = KnnSvc.random_init("wavlm_only_original", seed=0, device=dev)
+    dt, launches, _ = run(src, ref, model=oknn)
+    wav = oknn.convert_waveform(src, ref)
+    torch.cuda.synchronize()
+    peak = float(wav.abs().max())
+    if not (bool(torch.isfinite(wav).all()) and peak > 0 and wav.dtype == torch.float32):
+        fail(f"wavlm_only_original: finite {bool(torch.isfinite(wav).all())}, peak {peak}")
+    feats = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (1, 200, oknn.h.hubert_dim)).astype(np.float32))
+    cpu_voc = copy.deepcopy(oknn.vocoder).to("cpu")
+    with torch.no_grad():
+        a = cpu_voc(feats).numpy()
+        b = oknn.vocoder(feats.to(dev)).cpu().numpy()
+    rel = float(np.abs(a - b).max() / max(float(np.abs(a).max()), 1e-30))
+    log(f"[original] wavlm_only_original convert_pair in {dt:.4f} s, launches (attention, "
+        f"concat, viterbi) {launches}; pre-quantize peak {peak:.3e}, finite; vocoder cuda vs "
+        f"cpu on 200 frames of the same features: max |d| / max |cpu| = {rel:.3e} "
+        f"(tol {WAV_REL_TOL})")
+    if not rel <= WAV_REL_TOL:
+        fail(f"wavlm_only_original vocoder differs between cuda and cpu: rel {rel}")
+    del oknn, cpu_voc
 
 
 def stage_times(events) -> dict[str, list[float]]:
@@ -628,7 +801,7 @@ def device_events(events):
 
 
 def phase_profile(knn, src: str, ref: str, out: str, label: str,
-                  post_opt: str = "no_post_opt") -> None:
+                  post_opt: str = "no_post_opt", upload_dtype: str = "float32") -> None:
     """One more warm convert_pair traced with torch.profiler (CUPTI): the
     device busy share, device time by kernel, and the per-stage split read
     from the knnsvc.* spans. A trace without device events is reported as
@@ -639,7 +812,8 @@ def phase_profile(knn, src: str, ref: str, out: str, label: str,
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        knn.convert_pair(src, ref, fast=True, post_opt=post_opt, output_path=out)
+        knn.convert_pair(src, ref, fast=True, post_opt=post_opt, output_path=out,
+                         upload_dtype=upload_dtype)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.events()
@@ -662,9 +836,10 @@ def phase_profile(knn, src: str, ref: str, out: str, label: str,
         f"{len(spans)} device events adding up to {sum(e - s for s, e, _ in spans) / 1e3:.2f} ms")
     stages = stage_times(events)
     log(f"[profile] {label}: stages (host ms in span, device kernel ms; concat_cost and "
-        f"smoothness nest in match, whose host ms include theirs) " + json.dumps(
+        f"smoothness nest in match, f0_device (and f0_viterbi in it) in pool_build, whose "
+        f"host ms include theirs) " + json.dumps(
         {k: [round(h, 3), round(d, 3)] for k, (h, d) in stages.items()}))
-    for kernel in ("gated_bias_attention", "concat_cost"):
+    for kernel in ("gated_bias_attention", "concat_cost", "f0_viterbi"):
         us = sum(v[0] for k, v in by_name.items() if kernel in k)
         log(f"[profile] {label}: {kernel} {us / 1e3:.2f} ms ({us / busy:.1%} of device busy)")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
@@ -692,7 +867,8 @@ def main() -> int:
     t_all = time.perf_counter()
     phase_build()
     records = {"gated_bias_attention": phase_kernels(dev),
-               "concat_cost_pair": phase_concat_kernel(dev)}
+               "concat_cost_pair": phase_concat_kernel(dev),
+               "f0_viterbi": phase_viterbi_kernel(dev)}
     root = tempfile.mkdtemp(prefix="knnsvc_smoke_")
     try:
         knn = phase_slice_cpu_vs_cuda(root, dev)

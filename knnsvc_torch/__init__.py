@@ -3,12 +3,16 @@
 The JAX package (knnsvc_tpu/) is the reference; this package mirrors its
 module layout so each counterpart is easy to find, and imports nothing from
 it. Plain tensor code is PyTorch; the two TPU kernels, gated-bias
-attention and the concat-cost reselection, are hand-written CUDA kernels
-(csrc/, bound in ops/attention.py and ops/concat_scan.py).
+attention and the concat-cost reselection, and the device f0 extractor's
+Viterbi are hand-written CUDA kernels (csrc/, bound in ops/attention.py,
+ops/concat_scan.py and ops/viterbi.py).
 
-  io/        WAV codec (numpy), loader of the JAX package's parameter pytrees
+  io/        WAV codec (numpy), FLAC (native/flacdec over ctypes), loudness,
+             torch .pt checkpoint converters, loader of the JAX package's
+             parameter pytrees
   dsp/       linear spectrogram, additive-harmonic / sine excitation, f0
-             (sidecars, native Harvest over ctypes, YIN)
+             (sidecars, native Harvest over ctypes, YIN, the device
+             extractor)
   ops/       CUDA kernels, their nvcc build step, their plain PyTorch versions
   models/    WavLM encoder and HiFi-GAN vocoder as nn.Modules
   match/     cosine kNN, f0 register shift and re-rank, concat-cost

@@ -1,6 +1,6 @@
 """f0 extraction — the port's own copy of knnsvc_tpu/dsp/f0.py (numpy and
-ctypes only). Sidecar order, cache names and the YIN fallback are kept
-exactly; f0_method='device' (dsp/f0_device.py) is not ported yet.
+ctypes only; 'device' runs dsp/f0_device.py with torch). Sidecar order,
+cache names and the YIN fallback are kept exactly.
 
 The reference uses pyworld's Harvest (C++) with floor 65 Hz, ceil 1047 Hz,
 frame period = hop/sr*1000 = 20 ms, then zeroes voiced estimates below 80 Hz
@@ -166,24 +166,24 @@ _NATIVE_METHODS = {
 
 def get_f0(x: np.ndarray, sr: int, audio_path: str | None = None,
            hop: int = DEFAULT_HOP, use_sidecar: bool = True,
-           write_sidecar: bool = True, method: str = "harvest") -> np.ndarray:
+           write_sidecar: bool = True, method: str = "harvest",
+           device: str = "cuda") -> np.ndarray:
     """Reference-compatible entry: sidecar if present, else extractor,
     caching the result as a sidecar (ref ddsp_prematch_dataset.py:372-386).
 
     method: 'harvest' (native parity-grade Harvest, the live-path default —
     same extractor family as the reference's pyworld call), 'fast' (the
     budget Harvest: same pipeline on a coarser grid, >100x realtime, for
-    latency-sensitive serving), 'dio' (DIO+StoneMask, fastest), or 'yin'
-    (pure-numpy fallback). Native methods fall back to YIN when the native
-    toolchain is unavailable. 'device' is not ported yet."""
-    if method == "device":
-        raise NotImplementedError(
-            "f0_method='device' (the device-resident extractor) is still to "
-            "port (ROADMAP.md, Queue 1 item 8); use 'fast', 'harvest', 'dio' "
-            "or 'yin'")
-    if method != "yin" and method not in _NATIVE_METHODS:
+    latency-sensitive serving), 'dio' (DIO+StoneMask, fastest), 'yin'
+    (pure-numpy fallback) or 'device' (dsp/f0_device.py on `device`, which
+    defaults to the card and raises without one; no YIN fallback; the fast
+    pool build calls it per chunk instead of through this entry). Native
+    methods fall back to YIN when the native toolchain is unavailable."""
+    if method not in ("yin", "device") and method not in _NATIVE_METHODS:
         raise ValueError(f"unknown f0 method {method!r}")
     cache_name = _NATIVE_METHODS.get(method, (None, method))[1]
+    if method == "device":
+        cache_name = "dev1"  # the JAX package's name: bump when the extractor changes
     if use_sidecar and audio_path is not None:
         # the parity sidecar (harvest-grade, the reference's convention) is
         # preferred by every method; approximate methods fall back to their
@@ -193,7 +193,7 @@ def get_f0(x: np.ndarray, sr: int, audio_path: str | None = None,
             p = _sidecar_path(audio_path, cache_name)
             if os.path.exists(p):
                 cached = np.load(p).astype(np.float32)
-        if (cached is None and method != "yin"
+        if (cached is None and method not in ("yin", "device")
                 and not _native_available()):
             # a previous call with this method fell back to YIN and cached
             # under the fallback's name — reuse it instead of recomputing
@@ -205,6 +205,10 @@ def get_f0(x: np.ndarray, sr: int, audio_path: str | None = None,
     cache_used = cache_name
     if method == "yin":
         f0 = yin_f0(x, sr, hop=hop)
+    elif method == "device":
+        from knnsvc_torch.dsp.f0_device import device_f0
+
+        f0 = device_f0(x, sr, hop=hop, device=device)
     else:
         try:
             from knnsvc_torch.dsp import harvest as native

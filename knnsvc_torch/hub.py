@@ -2,10 +2,12 @@
 reference's KNeighborsVC / ddsp_hubconf surface, ref ddsp_matcher.py:303-1156).
 
 Ported so far: the constructor, `random_init`, `load` for `.knnsvc.pkl`
-payloads, and `convert_pair(fast=True)` — the single-pair serving path for
-the MIX and F0_ONLY families, with or without post_opt (concat-cost
-reselection and the smoothness optimizer). Everything runs on
-device="cuda" unless the caller passes device="cpu".
+payloads and the reference's torch `.pt` checkpoints, and
+`convert_pair(fast=True)` — the single-pair serving path for every model
+family (MIX, F0_ONLY, ORIGINAL), with or without post_opt (concat-cost
+reselection and the smoothness optimizer), host or device f0, float32 or
+int16 uploads, WAV or FLAC files and optional loudness normalization.
+Everything runs on device="cuda" unless the caller passes device="cpu".
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from knnsvc_torch import HOP_LENGTH, SPEAKER_INFORMATION_LAYER
 from knnsvc_torch.config import (HiFiGANConfig, PostOpt, WavLMConfig,
                                  model_family_for_ckpt_type)
 from knnsvc_torch.io.audio import save_audio
+from knnsvc_torch.io.loudness import normalize_loudness
 from knnsvc_torch.io.jax_params import generator_from_numpy, load_params, wavlm_from_numpy
 from knnsvc_torch.precision import apply_precision
 from knnsvc_torch.utils.layer_weights import generate_matrix_from_index
@@ -59,8 +62,9 @@ class KnnSvc:
         self.sr = hifigan_cfg.sampling_rate
         self.hop_length = HOP_LENGTH
         self.weighting = generate_matrix_from_index(SPEAKER_INFORMATION_LAYER)
-        # the fast path's host f0 extractor: 'fast' (native budget Harvest on
-        # a background thread), or 'harvest' / 'dio' / 'yin'
+        # the fast path's f0 extractor: 'fast' (native budget Harvest on a
+        # background thread), 'harvest' / 'dio' / 'yin', or 'device' (the
+        # device extractor inside the pool build, no host work)
         self.f0_method = "fast"
 
     # ------------------------------------------------------------- factory
@@ -68,12 +72,16 @@ class KnnSvc:
     @classmethod
     def load(cls, ckpt_dir: str, ckpt_type: str = "mix", wavlm_ckpt: str | None = None,
              config_path: str | None = None, device: str | torch.device = "cuda") -> "KnnSvc":
-        """Build from `.knnsvc.pkl` files (pickled numpy pytrees written by
-        the JAX package): the HiFi-GAN file is the latest match of
-        `*<ckpt_type>*` in ckpt_dir that is not a `do_` (discriminator) file
-        and dispatches to the same model family; the WavLM file is
-        `wavlm_ckpt`. Torch `.pt` checkpoints and orbax directories are not
-        ported yet."""
+        """Build from a checkpoint directory (ref ddsp_hubconf.knn_vc). The
+        HiFi-GAN file is the latest match of `*<ckpt_type>*` in ckpt_dir that
+        is not a `do_` (discriminator) file and dispatches to the same model
+        family: a reference `g_*.pt` ({'generator': state_dict}, weight norm
+        folded on load) or a `.knnsvc.pkl` pytree written by the JAX
+        package. The WavLM file is `wavlm_ckpt` (default
+        <ckpt_dir>/WavLM-Large.pt): a torch `.pt` ({'cfg', 'model'}) or a
+        `.knnsvc.pkl`. Orbax directories are not read: orbax imports JAX."""
+        from knnsvc_torch.io.checkpoints import load_hifigan_checkpoint, load_wavlm_checkpoint
+
         h = HiFiGANConfig() if config_path is None else HiFiGANConfig.from_json(config_path)
         family = model_family_for_ckpt_type(ckpt_type)
         matches = [p for p in glob.glob(os.path.join(ckpt_dir, f"*{ckpt_type}*"))
@@ -81,28 +89,31 @@ class KnnSvc:
                    and model_family_for_ckpt_type(os.path.basename(p)) == family]
         cp_g = sorted(matches)[-1] if matches else None
         if cp_g is None:
+            if os.path.isdir(os.path.join(ckpt_dir, "orbax")):
+                raise NotImplementedError(
+                    f"{ckpt_dir}/orbax: orbax checkpoints are not read by knnsvc_torch "
+                    "(orbax imports JAX); export the generator to .knnsvc.pkl with the "
+                    "JAX package's save_params")
             raise FileNotFoundError(f"no checkpoint matching *{ckpt_type}* in {ckpt_dir}")
-        if not cp_g.endswith(".knnsvc.pkl"):
-            raise NotImplementedError(
-                f"{cp_g}: loading torch .pt and orbax checkpoints is still to port "
-                "(ROADMAP.md, Queue 1 item 1); convert to .knnsvc.pkl with the JAX package")
-        payload = load_params(cp_g)
-        # trained g_ checkpoints wrap the params as {'generator': ...}
-        hifigan_params = payload.get("generator", payload)
+        if cp_g.endswith(".knnsvc.pkl"):
+            payload = load_params(cp_g)
+            # trained g_ checkpoints wrap the params as {'generator': ...}
+            hifigan_params = payload.get("generator", payload)
+        else:
+            hifigan_params = load_hifigan_checkpoint(cp_g, h, family)
 
         if wavlm_ckpt is None:
             wavlm_ckpt = os.path.join(ckpt_dir, "WavLM-Large.pt")
-        if not wavlm_ckpt.endswith(".knnsvc.pkl"):
-            raise NotImplementedError(
-                f"{wavlm_ckpt}: loading torch .pt checkpoints is still to port "
-                "(ROADMAP.md, Queue 1 item 1); pass a .knnsvc.pkl WavLM file")
-        payload = load_params(wavlm_ckpt)
-        if isinstance(payload, dict) and "model" in payload:
-            # {'cfg': dict, 'model': params}, the torch checkpoint's own shape
-            wavlm_params = payload["model"]
-            wavlm_cfg = WavLMConfig.from_dict(payload.get("cfg") or {})
+        if wavlm_ckpt.endswith(".knnsvc.pkl"):
+            payload = load_params(wavlm_ckpt)
+            if isinstance(payload, dict) and "model" in payload:
+                # {'cfg': dict, 'model': params}, the torch checkpoint's own shape
+                wavlm_params = payload["model"]
+                wavlm_cfg = WavLMConfig.from_dict(payload.get("cfg") or {})
+            else:
+                wavlm_params, wavlm_cfg = payload, WavLMConfig()
         else:
-            wavlm_params, wavlm_cfg = payload, WavLMConfig()
+            wavlm_params, wavlm_cfg = load_wavlm_checkpoint(wavlm_ckpt)
         return cls(wavlm_params, wavlm_cfg, hifigan_params, h, ckpt_type, device=device)
 
     @classmethod
@@ -132,7 +143,8 @@ class KnnSvc:
                             f"{src_id}_to_{ref_id}_knn_{self.ckpt_type}_{suffix}.wav")
 
     def convert_waveform(self, src_wav_file: str, ref_wav_file: str, topk: int = 4,
-                         post_opt: str = "no_post_opt", matcher: str = "exact") -> torch.Tensor:
+                         post_opt: str = "no_post_opt", matcher: str = "exact",
+                         upload_dtype: str = "float32") -> torch.Tensor:
         """The fast path up to the vocoder: both device pools, the match and
         the vocode. Returns the (T*hop,) float32 waveform on the device,
         before the int16 quantize."""
@@ -154,7 +166,8 @@ class KnnSvc:
             with record_function("knnsvc.pool_build"):
                 pools.append(build_device_pool(wav, self.wavlm, self.weighting, self.weighting,
                                                self.sr, f0_method=self.f0_method,
-                                               audio_path=str(path)))
+                                               audio_path=str(path),
+                                               upload_dtype=upload_dtype))
         wav, _ = convert_pools(self.vocoder, self.ckpt_type, pools[0], pools[1],
                                PostOpt.parse(post_opt), topk=topk, matcher=matcher, sr=self.sr)
         return wav
@@ -163,33 +176,38 @@ class KnnSvc:
                      prioritize_f0: bool = True, post_opt: str = "no_post_opt",
                      tgt_loudness_db: float | None = None,
                      output_path: str | None = None, matcher: str = "exact",
-                     fast: bool = False) -> str:
+                     fast: bool = False, upload_dtype: str = "float32") -> str:
         """Single file -> single file (ref special_match :937-1023). Writes
         `<src_dir>/<src>_to_<ref>_knn_<ckpt_type>_<post_opt>.wav` unless
-        output_path is given; returns the output path.
+        output_path is given (a `.flac` path writes FLAC); returns the output
+        path.
 
         fast=True is the device-resident serving path: pools, match and
-        vocode stay on the device, f0 comes from the host extractor (or its
-        sidecar), and the output is quantized to int16 on the device and
-        downloaded once. post_opt takes 'no_post_opt', 'post_opt_<w>',
-        'post_opt_extra' or 'no_post_opt_<w>' (concat without the
-        optimizer). The host-pool path (fast=False) and loudness
-        normalization are still to port and raise."""
+        vocode stay on the device, f0 comes from `self.f0_method` (a host
+        extractor or its sidecar, or 'device'), and the output is quantized
+        to int16 on the device and downloaded once. post_opt takes
+        'no_post_opt', 'post_opt_<w>', 'post_opt_extra' or 'no_post_opt_<w>'
+        (concat without the optimizer). upload_dtype='int16' quantizes the
+        two waveform uploads to 16 bits (lossless for 16-bit-sourced audio).
+        tgt_loudness_db, when set, normalizes the downloaded waveform to that
+        integrated loudness (BS.1770; the reference's is commented out,
+        ref :997-1003). The host-pool path (fast=False) is still to port and
+        raises."""
         if not fast:
             raise NotImplementedError(
                 "convert_pair(fast=False), the host-pool path, is still to port "
                 "(ROADMAP.md, Queue 1 item 9); pass fast=True")
         if not prioritize_f0:
             raise ValueError("prioritize_f0 is mandatory on the reference live path (ref :1375)")
-        if tgt_loudness_db is not None:
-            raise NotImplementedError("loudness normalization (io/loudness.py) is still "
-                                      "to port; pass tgt_loudness_db=None")
         from knnsvc_torch.match.serve import quantize_int16
 
         wav = self.convert_waveform(src_wav_file, ref_wav_file, topk=topk,
-                                    post_opt=post_opt, matcher=matcher)
+                                    post_opt=post_opt, matcher=matcher,
+                                    upload_dtype=upload_dtype)
         with record_function("knnsvc.quantize_download"):
             pred = quantize_int16(wav).cpu().numpy().astype(np.float32) / 32768.0
+        if tgt_loudness_db is not None:
+            pred = normalize_loudness(pred, self.sr, tgt_loudness_db)
         if output_path is None:
             output_path = self._default_output_path(src_wav_file, ref_wav_file, post_opt)
         with record_function("knnsvc.write_wav"):

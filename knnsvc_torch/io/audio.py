@@ -4,8 +4,9 @@ copy of knnsvc_tpu/io/audio.py.
 The reference reads audio with torchaudio/librosa (libsndfile/ffmpeg) and
 writes PCM_32 WAV via soundfile (ref lib_ongaku_test.py:89-143). Here WAV I/O
 is implemented directly on the RIFF container (numpy), supporting PCM
-8/16/24/32-bit and IEEE float. FLAC and mp3 are not ported yet: they raise
-NotImplementedError.
+8/16/24/32-bit and IEEE float. FLAC reads and writes go through the
+clean-room native codec (native/flacdec, io/flac.py). mp3 raises: the JAX
+package decodes it through pygame, which the card's machine does not have.
 
 Output convention matches the reference exactly: float waveforms are peak-
 normalized only if |x|>1, scaled by 2^31-1 and written as PCM_32
@@ -34,10 +35,15 @@ def load_audio(path: Union[str, os.PathLike], normalize: bool = True) -> tuple[n
     """
     path = str(path)
     ext = os.path.splitext(path)[-1].lower()
+    if ext == ".flac":
+        from knnsvc_torch.io.flac import decode_flac  # native decoder
+
+        return decode_flac(path, normalize=normalize)
     if ext != ".wav":
         raise NotImplementedError(
-            f"knnsvc_torch decodes WAV only so far (got {ext}); FLAC and mp3 "
-            "are still to port (ROADMAP.md, Queue 1) — decode to wav first."
+            f"knnsvc_torch decodes WAV and FLAC (got {ext}); mp3 is not ported: the "
+            "JAX package decodes it through pygame, which the port does not depend on "
+            "— decode to wav first."
         )
     with open(path, "rb") as f:
         data = f.read()
@@ -123,10 +129,17 @@ def save_audio(filename: Union[str, os.PathLike], waveform, sample_rate: int) ->
         assert waveform.dtype == np.int32, waveform.dtype
 
     ext = os.path.splitext(filename)[-1].lower()
+    if ext == ".flac":
+        from knnsvc_torch.io.flac import encode_flac
+
+        # int32 PCM (the WAV convention) re-enters as float for the 16-bit
+        # FLAC quantizer
+        encode_flac(filename, waveform.astype(np.float64) / (2 ** 31 - 1), sample_rate)
+        return
     if ext not in _SUPPORTED_WRITE_EXT:
         raise NotImplementedError(
-            f"knnsvc_torch encodes WAV only so far (got {ext}); FLAC and mp3 "
-            "are still to port (ROADMAP.md, Queue 1)."
+            f"knnsvc_torch encodes WAV and FLAC (got {ext}); mp3 is not ported "
+            "(its encoder is libmp3lame, which the port does not depend on)."
         )
 
     if waveform.ndim == 1:

@@ -10,7 +10,11 @@ matching and synthesis (T, 1024), the linear spectrogram (T, 200) and f0
 - each chunk's spectrogram is sliced at offset min(chunk_index, spare rows)
   to line up with its feature rows (pool.py:438-450 there);
 - host f0 (sidecar / native Harvest / YIN) runs on a background thread
-  started before the encodes, joined at first `.f0` access.
+  started before the encodes, joined at first `.f0` access; device f0
+  (f0_method='device', dsp/f0_device.py) runs per chunk on the uploaded
+  chunk, with no thread and no sidecar;
+- upload_dtype='int16' quantizes each chunk on the host and dequantizes it
+  on the device as x / 32768.
 """
 
 from __future__ import annotations
@@ -23,9 +27,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from knnsvc_torch import HOP_LENGTH, SAMPLE_RATE
 from knnsvc_torch.dsp.f0 import get_f0
+from knnsvc_torch.dsp.f0_device import device_f0_tensor
 from knnsvc_torch.dsp.stft import linear_spectrogram
 from knnsvc_torch.io.audio import load_audio, resample, to_mono
 from knnsvc_torch.utils.layer_weights import one_hot_layer
@@ -84,17 +90,19 @@ def _f0_executor() -> ThreadPoolExecutor:
 
 
 class DevicePool:
-    """Device-resident pools of one utterance. `f0` is DEFERRED: the host
-    extractor runs on a background thread (the ctypes call releases the
-    GIL, so it overlaps the encodes); first access joins it and moves the
-    f0 to the pool's device."""
+    """Device-resident pools of one utterance. `f0` is either given (device
+    f0) or DEFERRED: the host extractor runs on a background thread (the
+    ctypes call releases the GIL, so it overlaps the encodes); first access
+    joins it and moves the f0 to the pool's device."""
 
     def __init__(self, matching: torch.Tensor, synth: torch.Tensor, spec: torch.Tensor,
-                 f0_future: Future):
+                 f0: torch.Tensor | None = None, f0_future: Future | None = None):
+        if (f0 is None) == (f0_future is None):
+            raise ValueError("a DevicePool takes exactly one of f0 and f0_future")
         self.matching = matching   # (T, D)
         self.synth = synth         # (T, D)
         self.spec = spec           # (T, 200)
-        self._f0 = None
+        self._f0 = f0
         self._f0_future = f0_future
         self._lock = threading.Lock()
 
@@ -124,26 +132,42 @@ def _log_f0_failure(f: Future) -> None:
 @torch.no_grad()
 def build_device_pool(wav: np.ndarray, wavlm, match_weights: np.ndarray,
                       synth_weights: np.ndarray, sr: int = SAMPLE_RATE,
-                      f0_method: str = "fast", audio_path: str | None = None) -> DevicePool:
+                      f0_method: str = "fast", audio_path: str | None = None,
+                      upload_dtype: str = "float32") -> DevicePool:
     """Single-utterance pool on the encoder's device (one-hot layer
-    weightings only — the serving path). f0 runs on the host waveform on a
-    background thread, with the reference's sidecar contract when
-    `audio_path` is given."""
+    weightings only — the serving path).
+
+    f0: host methods run on the host waveform on a background thread, with
+    the reference's sidecar contract when `audio_path` is given.
+    f0_method='device' runs the device extractor on each uploaded 30-s chunk
+    (the Viterbi per chunk, as in the JAX package), reads and writes no
+    sidecar and needs sr = 16000.
+
+    upload_dtype='int16' halves the upload: each chunk is quantized on the
+    host as clip(round(x * 32768)) and dequantized on the device as x /
+    32768 (lossless for 16-bit-sourced audio). 'float32' uploads as is."""
     m_hot = one_hot_layer(match_weights)
     s_hot = one_hot_layer(synth_weights)
     if m_hot is None or s_hot is None or min(m_hot, s_hot) < 1:
         raise ValueError("the device pool needs one-hot weightings of encoder layers >= 1")
+    if upload_dtype not in ("float32", "int16"):
+        raise ValueError(f"upload_dtype must be 'float32' or 'int16', not {upload_dtype!r}")
+    on_device_f0 = f0_method == "device"
+    if on_device_f0 and sr != SAMPLE_RATE:
+        raise ValueError(f"f0_method='device' runs on the {SAMPLE_RATE}-Hz path, got sr={sr}")
     layers = sorted({m_hot, s_hot})
     device = next(wavlm.parameters()).device
 
-    f0_future = _f0_executor().submit(
-        get_f0, wav, sr, audio_path=audio_path, method=f0_method,
-        use_sidecar=audio_path is not None, write_sidecar=audio_path is not None)
-    # a failure of a pool whose f0 is never read would otherwise go unseen
-    f0_future.add_done_callback(_log_f0_failure)
+    f0_future = None
+    if not on_device_f0:
+        f0_future = _f0_executor().submit(
+            get_f0, wav, sr, audio_path=audio_path, method=f0_method,
+            use_sidecar=audio_path is not None, write_sidecar=audio_path is not None)
+        # a failure of a pool whose f0 is never read would otherwise go unseen
+        f0_future.add_done_callback(_log_f0_failure)
 
     feats: dict[int, list[torch.Tensor]] = {l: [] for l in layers}
-    specs = []
+    specs, f0s = [], []
     chunk_len = CHUNK_SECONDS * sr
     start = 0
     chunk_index = 0
@@ -152,7 +176,12 @@ def build_device_pool(wav: np.ndarray, wavlm, match_weights: np.ndarray,
         if len(chunk) <= MIN_CHUNK_SECONDS * sr:
             break
         n_pad = HOP_LENGTH - (len(chunk) % HOP_LENGTH)  # ref :284 pad quirk
-        x = torch.from_numpy(np.pad(chunk, (0, n_pad))).to(device)[None]
+        chunk = np.pad(chunk, (0, n_pad))
+        if upload_dtype == "int16":
+            chunk = np.clip(np.round(chunk * 32768.0), -32768, 32767).astype(np.int16)
+        x = torch.from_numpy(chunk).to(device)[None]       # the upload
+        if x.dtype == torch.int16:
+            x = x.float() / 32768
         for l in layers:
             feats[l].append(wavlm.extract_layer(x, output_layer=l)[0])
         # pool row k of chunk c lines up with continuous spectrogram row
@@ -162,6 +191,11 @@ def build_device_pool(wav: np.ndarray, wavlm, match_weights: np.ndarray,
         spec_c = linear_spectrogram(x[0])
         off = min(chunk_index, spec_c.shape[0] - Tc)
         specs.append(spec_c[off:off + Tc])
+        if on_device_f0:
+            # the f0 grid (frame i at sample i*hop) is the 20-ms grid of the
+            # encoder's stride-320 frontend: one f0 per feature row
+            with record_function("knnsvc.f0_device"):
+                f0s.append(device_f0_tensor(x[0], sr, n_frames=Tc))
         start += chunk_len
         chunk_index += 1
 
@@ -170,4 +204,6 @@ def build_device_pool(wav: np.ndarray, wavlm, match_weights: np.ndarray,
     spec = torch.cat(specs)
     if spec.shape[0] != matching.shape[0]:
         raise AssertionError((spec.shape, matching.shape))
-    return DevicePool(matching, synth, spec, f0_future)
+    if on_device_f0:
+        return DevicePool(matching, synth, spec, f0=torch.cat(f0s)[:matching.shape[0]])
+    return DevicePool(matching, synth, spec, f0_future=f0_future)

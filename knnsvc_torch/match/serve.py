@@ -13,7 +13,7 @@ import torch
 from torch.profiler import record_function
 
 from knnsvc_torch import SAMPLE_RATE
-from knnsvc_torch.config import PostOpt, uses_harmonics
+from knnsvc_torch.config import ModelFamily, PostOpt, uses_harmonics
 from knnsvc_torch.match.pipeline import match_core, match_core_post_opt
 from knnsvc_torch.match.pool import DevicePool, harmonic_amplitudes
 
@@ -48,6 +48,9 @@ def convert_pools(vocoder, ckpt_type: str, src: DevicePool, ref: DevicePool,
                 *args, topk=topk, use_harmonics=use_harm,
                 concat_weight=post_opt.concat_weight, opt_enabled=post_opt.enabled)
     with record_function("knnsvc.vocode"):
-        wav = vocoder(out[None], shifted.reshape(1, -1, 1),
-                      None if harm is None else harm[None])
+        if vocoder.family == ModelFamily.ORIGINAL:
+            wav = vocoder(out[None])      # plain HiFi-GAN: features only
+        else:
+            wav = vocoder(out[None], shifted.reshape(1, -1, 1),
+                          None if harm is None else harm[None])
     return wav[0], shifted

@@ -8,7 +8,11 @@ knnsvc_tpu/models/hifigan/generator.py).
 - F0_ONLY ("wavlm_only" / "*no_harm_no_amp*"): the same topology on a bare
   sine at f0, down-branch at a constant n_harm+2 channels
   (ref hifigan/ddsp_models_f0.py:106-381).
-The ORIGINAL family (plain HiFi-GAN v1) is not ported yet.
+- ORIGINAL ("wavlm_only_original"): the plain HiFi-GAN v1 generator on the
+  features alone: no lin_pre, no excitation, features straight into
+  conv_pre (the JAX package's reconstruction; the reference dispatches to a
+  hifigan/models.py that its repository lacks).
+Both residual block types of the config (`resblock` "1" and "2") are built.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import torch.nn.functional as F
 
 from knnsvc_torch.config import HiFiGANConfig, ModelFamily
 from knnsvc_torch.dsp.synth import harmonic_synth, sine_excitation
-from knnsvc_torch.models.hifigan.layers import LRELU_SLOPE, ResBlock1, ResBlock3
+from knnsvc_torch.models.hifigan.layers import LRELU_SLOPE, ResBlock1, ResBlock2, ResBlock3
 
 Params = dict[str, Any]
 
@@ -35,71 +39,71 @@ def _down_channels(h: HiFiGANConfig, family: ModelFamily) -> list[tuple[int, int
     return [(h.n_harmonic + 2, h.n_harmonic + 2) for _ in range(n)]
 
 
-def _check_supported(h: HiFiGANConfig, family: ModelFamily) -> None:
-    if family == ModelFamily.ORIGINAL:
-        raise NotImplementedError(
-            "the ORIGINAL (wavlm_only_original) vocoder family is still to port "
-            "(ROADMAP.md, Queue 1 item 5)")
-    if h.resblock != "1":
-        raise NotImplementedError(f"resblock {h.resblock!r}: only ResBlock1 is ported")
-
-
 class Generator(nn.Module):
     """The `dec` trunk: feats (B, T, hubert_dim) + excitation condition
-    (B, C_exc, T*hop) -> (B, 1, T*hop) waveform in [-1, 1]."""
+    (B, C_exc, T*hop; None for ORIGINAL) -> (B, 1, T*hop) waveform in
+    [-1, 1]."""
 
     def __init__(self, h: HiFiGANConfig, family: ModelFamily):
         super().__init__()
-        _check_supported(h, family)
+        if h.resblock not in ("1", "2"):
+            raise ValueError(f"resblock must be '1' or '2', not {h.resblock!r}")
         self.h = h
+        self.original = family == ModelFamily.ORIGINAL
         rates, kernels = h.upsample_rates, h.upsample_kernel_sizes
         n = len(rates)
         uic = h.upsample_initial_channel
-        downs_ch = _down_channels(h, family)
-        res_ch = [downs_ch[0][0]] + [oc for _, oc in downs_ch]
-
-        self.lin_pre = nn.Linear(h.hubert_dim, h.hifi_dim)
-        self.conv_pre = nn.Conv1d(h.hifi_dim, uic, 7, padding=3)
-        self.downs = nn.ModuleList(
-            nn.Conv1d(ic, oc, kernels[n - 1 - i], stride=rates[n - 1 - i],
-                      padding=kernels[n - 1 - i] // 2)
-            for i, (ic, oc) in enumerate(downs_ch))
-        self.resblocks_downs = nn.ModuleList(ResBlock3(oc) for _, oc in downs_ch)
-        self.concat_pre = nn.Conv1d(uic + res_ch[n], uic, 3, padding=1)
+        if self.original:
+            self.conv_pre = nn.Conv1d(h.hubert_dim, uic, 7, padding=3)
+        else:
+            downs_ch = _down_channels(h, family)
+            res_ch = [downs_ch[0][0]] + [oc for _, oc in downs_ch]
+            self.lin_pre = nn.Linear(h.hubert_dim, h.hifi_dim)
+            self.conv_pre = nn.Conv1d(h.hifi_dim, uic, 7, padding=3)
+            self.downs = nn.ModuleList(
+                nn.Conv1d(ic, oc, kernels[n - 1 - i], stride=rates[n - 1 - i],
+                          padding=kernels[n - 1 - i] // 2)
+                for i, (ic, oc) in enumerate(downs_ch))
+            self.resblocks_downs = nn.ModuleList(ResBlock3(oc) for _, oc in downs_ch)
+            self.concat_pre = nn.Conv1d(uic + res_ch[n], uic, 3, padding=1)
+            self.concat_conv = nn.ModuleList(
+                nn.Conv1d(uic // 2 ** (i + 1) + res_ch[n - 1 - i], uic // 2 ** (i + 1), 3,
+                          padding=1, bias=False)
+                for i in range(n))
         self.ups = nn.ModuleList(
             nn.ConvTranspose1d(uic // 2 ** i, uic // 2 ** (i + 1), kernels[i],
                                stride=rates[i], padding=(kernels[i] - rates[i]) // 2)
             for i in range(n))
-        self.concat_conv = nn.ModuleList(
-            nn.Conv1d(uic // 2 ** (i + 1) + res_ch[n - 1 - i], uic // 2 ** (i + 1), 3,
-                      padding=1, bias=False)
-            for i in range(n))
+        block = ResBlock1 if h.resblock == "1" else ResBlock2
         self.resblocks = nn.ModuleList(
-            ResBlock1(uic // 2 ** (i + 1), k, d)
+            block(uic // 2 ** (i + 1), k, d)
             for i in range(n)
             for k, d in zip(h.resblock_kernel_sizes, h.resblock_dilation_sizes))
         self.conv_post = nn.Conv1d(uic // 2 ** n, 1, 7, padding=3, bias=False)
 
-    def forward(self, feats: torch.Tensor, ddsp: torch.Tensor) -> torch.Tensor:
+    def forward(self, feats: torch.Tensor, ddsp: torch.Tensor | None) -> torch.Tensor:
         rates = self.h.upsample_rates
         n = len(rates)
         n_res = len(self.h.resblock_kernel_sizes)
-        x = self.conv_pre(self.lin_pre(feats).transpose(1, 2))
-
-        # DDSP down-branch: strided convs over the excitation, rates reversed
-        # (ref ddsp_models.py:123-143,184-195); crop to in_size // u
-        se = ddsp
-        res_features = [se]
-        for i in range(n):
-            in_size = se.shape[-1]
-            se = self.resblocks_downs[i](self.downs[i](se))
-            se = se[:, :, : in_size // rates[n - 1 - i]]
-            res_features.append(se)
-        x = self.concat_pre(torch.cat([x, se], dim=1))
+        if self.original:
+            x = self.conv_pre(feats.transpose(1, 2))
+        else:
+            x = self.conv_pre(self.lin_pre(feats).transpose(1, 2))
+            # DDSP down-branch: strided convs over the excitation, rates
+            # reversed (ref ddsp_models.py:123-143,184-195); crop to in_size // u
+            se = ddsp
+            res_features = [se]
+            for i in range(n):
+                in_size = se.shape[-1]
+                se = self.resblocks_downs[i](self.downs[i](se))
+                se = se[:, :, : in_size // rates[n - 1 - i]]
+                res_features.append(se)
+            x = self.concat_pre(torch.cat([x, se], dim=1))
 
         for i in range(n):
             x = self.ups[i](F.leaky_relu(x, LRELU_SLOPE))
-            x = self.concat_conv[i](torch.cat([x, res_features[n - 1 - i]], dim=1))
+            if not self.original:
+                x = self.concat_conv[i](torch.cat([x, res_features[n - 1 - i]], dim=1))
             acc = None
             for j in range(n_res):
                 y = self.resblocks[i * n_res + j](x)
@@ -111,22 +115,27 @@ class Generator(nn.Module):
 
 
 class Synthesizer(nn.Module):
-    """Excitation + sin_prenet + generator; calling it is the JAX package's
-    `vocode` for the MIX and F0_ONLY families (ref ddsp_matcher.py:374-406)."""
+    """Excitation + sin_prenet + generator (the generator alone for
+    ORIGINAL); calling it is the JAX package's `vocode`
+    (ref ddsp_matcher.py:374-406)."""
 
     def __init__(self, h: HiFiGANConfig, family: ModelFamily):
         super().__init__()
-        _check_supported(h, family)
         self.h = h
         self.family = family
-        self.sin_prenet = nn.Conv1d(1, _down_channels(h, family)[0][0], 3, padding=1)
+        if family != ModelFamily.ORIGINAL:
+            self.sin_prenet = nn.Conv1d(1, _down_channels(h, family)[0][0], 3, padding=1)
         self.dec = Generator(h, family)
 
-    def forward(self, feats: torch.Tensor, f0: torch.Tensor,
+    def forward(self, feats: torch.Tensor, f0: torch.Tensor | None = None,
                 harmonics: torch.Tensor | None = None) -> torch.Tensor:
-        """feats (B, T, hubert_dim), f0 (B, T, 1), harmonics (B, T, 49)
-        (MIX only) -> waveform (B, T*hop)."""
+        """feats (B, T, hubert_dim), f0 (B, T, 1) (not ORIGINAL), harmonics
+        (B, T, 49) (MIX only) -> waveform (B, T*hop)."""
         h = self.h
+        if self.family == ModelFamily.ORIGINAL:
+            return self.dec(feats, None)[:, 0, :]
+        if f0 is None:
+            raise ValueError(f"{self.family.value}-family vocoding needs f0 (B, T, 1)")
         if self.family == ModelFamily.MIX:
             if harmonics is None:
                 raise ValueError("mix-family vocoding needs harmonic amplitudes (B, T, 49)")
@@ -139,8 +148,10 @@ class Synthesizer(nn.Module):
 def init_generator_params(h: HiFiGANConfig, family: ModelFamily,
                           generator: torch.Generator) -> Params:
     """Random weights (folded weight norm) in the JAX package's pytree layout,
-    from the same distributions as its init_generator_params."""
-    _check_supported(h, family)
+    from the same distributions as its init_generator_params, for every
+    family and both residual block types."""
+    if h.resblock not in ("1", "2"):
+        raise ValueError(f"resblock must be '1' or '2', not {h.resblock!r}")
     rates, kernels = h.upsample_rates, h.upsample_kernel_sizes
     n = len(rates)
 
@@ -154,19 +165,27 @@ def init_generator_params(h: HiFiGANConfig, family: ModelFamily,
         return {"w": (torch.randn((in_c, out_c, k), generator=generator) * std).numpy(),
                 "b": np.zeros(out_c, np.float32)}
 
+    def resblock(ch, k, d):
+        if h.resblock == "2":
+            return {"convs": [conv(ch, ch, k) for _ in d]}
+        return {"convs1": [conv(ch, ch, k) for _ in d], "convs2": [conv(ch, ch, k) for _ in d]}
+
     uic = h.upsample_initial_channel
+    original = family == ModelFamily.ORIGINAL
+    dec: Params = {
+        "conv_pre": conv(uic, h.hubert_dim if original else h.hifi_dim, 7),
+        "ups": [conv_t(uic // 2 ** i, uic // 2 ** (i + 1), kernels[i]) for i in range(n)],
+        "resblocks": [resblock(uic // 2 ** (i + 1), k, d)
+                      for i in range(n)
+                      for k, d in zip(h.resblock_kernel_sizes, h.resblock_dilation_sizes)],
+        "conv_post": conv(1, uic // 2 ** n, 7, bias=False),
+    }
+    if original:
+        return {"dec": dec}
     downs_ch = _down_channels(h, family)
     exc_ch = downs_ch[0][0]
     res_ch = [exc_ch] + [oc for _, oc in downs_ch]
-    dec: Params = {
-        "conv_pre": conv(uic, h.hifi_dim, 7),
-        "ups": [conv_t(uic // 2 ** i, uic // 2 ** (i + 1), kernels[i]) for i in range(n)],
-        "resblocks": [
-            {"convs1": [conv(uic // 2 ** (i + 1), uic // 2 ** (i + 1), k) for _ in d],
-             "convs2": [conv(uic // 2 ** (i + 1), uic // 2 ** (i + 1), k) for _ in d]}
-            for i in range(n)
-            for k, d in zip(h.resblock_kernel_sizes, h.resblock_dilation_sizes)],
-        "conv_post": conv(1, uic // 2 ** n, 7, bias=False),
+    dec.update({
         "lin_pre": {"w": (torch.randn((h.hubert_dim, h.hifi_dim), generator=generator)
                           * 0.02).numpy(),
                     "b": np.zeros(h.hifi_dim, np.float32)},
@@ -175,5 +194,5 @@ def init_generator_params(h: HiFiGANConfig, family: ModelFamily,
         "concat_pre": conv(uic, uic + res_ch[n], 3),
         "concat_conv": [conv(uic // 2 ** (i + 1), uic // 2 ** (i + 1) + res_ch[n - 1 - i], 3,
                              bias=False) for i in range(n)],
-    }
+    })
     return {"dec": dec, "sin_prenet": conv(exc_ch, 1, 3)}

@@ -40,6 +40,22 @@ class ResBlock1(nn.Module):
         return x
 
 
+class ResBlock2(nn.Module):
+    """Dilated convs only, each with a pre-activation leaky-relu and a
+    residual add (ref hifigan/ddsp_models.py:55-72)."""
+
+    def __init__(self, ch: int, kernel_size: int, dilations: tuple[int, ...]):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            nn.Conv1d(ch, ch, kernel_size, dilation=d, padding=get_padding(kernel_size, d))
+            for d in dilations)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for c in self.convs:
+            x = c(F.leaky_relu(x, LRELU_SLOPE)) + x
+        return x
+
+
 class ResBlock3(nn.Module):
     """A single dilated conv with a residual add (ref hifigan/ddsp_models.py:81-94)."""
 

@@ -15,7 +15,8 @@ from knnsvc_torch.config import HiFiGANConfig, ModelFamily, WavLMConfig
 from test_pipeline import SMALL_HIFIGAN, SMALL_WAVLM, _sing  # noqa: F401  (re-exported)
 
 FAMILIES = {"mix": (ModelFamily.MIX, JaxModelFamily.MIX),
-            "wavlm_only": (ModelFamily.F0_ONLY, JaxModelFamily.F0_ONLY)}
+            "wavlm_only": (ModelFamily.F0_ONLY, JaxModelFamily.F0_ONLY),
+            "wavlm_only_original": (ModelFamily.ORIGINAL, JaxModelFamily.ORIGINAL)}
 
 
 def small_wavlm(seed: int = 0, overrides: dict | None = None):
@@ -26,14 +27,22 @@ def small_wavlm(seed: int = 0, overrides: dict | None = None):
     return WavLMConfig.from_dict(spec), jcfg, params
 
 
-def small_generator(ckpt_type: str, seed: int = 1):
+def small_generator(ckpt_type: str, seed: int = 1, overrides: dict | None = None):
     """(port cfg, JAX cfg, port family, JAX family, numpy params) of the
     small test vocoder. Weights are rescaled to std 1/sqrt(fan_in): at the
-    init's std 0.01 the waveform stays near 1e-5, too small to test."""
-    h = HiFiGANConfig.from_dict(SMALL_HIFIGAN)
-    jh = JaxHiFiGANConfig.from_dict(SMALL_HIFIGAN)
+    init's std 0.01 the waveform stays near 1e-5, too small to test. With
+    overrides {"resblock": "2", ...} each residual block keeps the first
+    len(dilations) convs of its ResBlock1 init as ResBlock2's {"convs"}."""
+    spec = {**SMALL_HIFIGAN, **(overrides or {})}
+    h = HiFiGANConfig.from_dict(spec)
+    jh = JaxHiFiGANConfig.from_dict(spec)
     fam, jfam = FAMILIES[ckpt_type]
     params = jax.tree.map(np.asarray, init_generator_params(jax.random.PRNGKey(seed), jh, jfam))
+    if h.resblock == "2":
+        params["dec"]["resblocks"] = [
+            {"convs": rb["convs1"][:len(d)]}
+            for rb, d in zip(params["dec"]["resblocks"],
+                             [d for _ in h.upsample_rates for d in h.resblock_dilation_sizes])]
 
     def rescale(tree, key=None):
         if isinstance(tree, dict):
@@ -76,6 +85,31 @@ def write_pair(root):
         p = root / f"{name}.wav"
         save_audio(p, wav, SR)
         save_f0_sidecar(str(p), _vibrato_f0(len(wav) // 320 + 1, hz, seed))
+        paths.append(str(p))
+    return paths
+
+
+def vibrato_wav(seconds, hz, seed):
+    """A sung note: 5 Hz vibrato of +-4%, two harmonics, noise, phrasing.
+    Extracted f0 then varies frame to frame, so the pitched re-rank's order
+    does not hang on the last bit of near-equal f0s (see _vibrato_f0)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(SR * seconds)) / SR
+    phase = 2 * np.pi * np.cumsum(hz * (1 + 0.04 * np.sin(2 * np.pi * 5 * t))) / SR
+    wav = 0.3 * np.sin(phase) + 0.1 * np.sin(2 * phase) + 0.02 * rng.standard_normal(len(t))
+    wav *= 0.5 + 0.5 * np.abs(np.sin(2 * np.pi * 0.7 * t))
+    return np.clip(wav, -0.99, 0.99).astype(np.float32)
+
+
+def write_vibrato_pair(root):
+    """A 1-s source and a 1.3-s target of vibrato_wav under `root`, with no
+    f0 sidecar, for the f0 extractors. -> paths."""
+    from knnsvc_torch.io.audio import save_audio
+
+    paths = []
+    for name, seconds, hz, seed in (("vsrc", 1.0, 190, 21), ("vref", 1.3, 270, 22)):
+        p = root / f"{name}.wav"
+        save_audio(p, vibrato_wav(seconds, hz, seed), SR)
         paths.append(str(p))
     return paths
 

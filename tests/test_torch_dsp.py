@@ -33,7 +33,7 @@ def _f0_track(T, seed):
 def test_audio_io_matches_jax(tmp_path):
     """The port's numpy copy of io/audio.py: a stereo 22.05 kHz WAV written
     by the JAX package reads, downmixes and resamples to 16 kHz identically;
-    FLAC is refused."""
+    mp3 is refused (FLAC: test_torch_io.py)."""
     from knnsvc_tpu.io import audio as jax_audio
     from knnsvc_torch.io import audio
 
@@ -46,11 +46,13 @@ def test_audio_io_matches_jax(tmp_path):
     np.testing.assert_array_equal(
         audio.resample(audio.to_mono(got), 22050, 16000),
         jax_audio.resample(jax_audio.to_mono(want), 22050, 16000))
-    with pytest.raises(NotImplementedError):
-        audio.load_audio(tmp_path / "x.flac")
+    with pytest.raises(NotImplementedError, match="mp3"):
+        audio.load_audio(tmp_path / "x.mp3")
+    with pytest.raises(NotImplementedError, match="mp3"):
+        audio.save_audio(tmp_path / "x.mp3", stereo, 22050)
 
 
-def test_get_f0_yin_and_sidecars_match_jax(tmp_path):
+def test_get_f0_yin_and_sidecars_match_jax(tmp_path, monkeypatch):
     """YIN is the same numpy code in both; the sidecar contract is kept:
     a computed track is cached under the method's name, and the parity
     sidecar `<stem>_f0.npy` wins over every method's own cache."""
@@ -65,8 +67,13 @@ def test_get_f0_yin_and_sidecars_match_jax(tmp_path):
         assert (tmp_path / f"{name}_f0_yin.npy").is_file()
         mod.save_f0_sidecar(audio_path, np.full_like(first, 123.0))
         assert (mod.get_f0(wav, 16000, audio_path=audio_path, method="yin") == 123.0).all()
-    with pytest.raises(NotImplementedError):
+    # the device extractor runs on the card by default and never falls
+    # back to the CPU (its parity: test_torch_f0_device.py)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         port_f0.get_f0(wav, 16000, method="device")
+    with pytest.raises(ValueError, match="unknown f0 method"):
+        port_f0.get_f0(wav, 16000, method="crepe")
 
 
 def test_linear_spectrogram_matches_jax():

@@ -36,9 +36,12 @@ def test_unported_options_raise(pair):
     out = str(root / "unported.wav")
     with pytest.raises(NotImplementedError, match="fast=False"):
         knn.convert_pair(src, ref, output_path=out)
-    with pytest.raises(NotImplementedError, match="loudness"):
-        knn.convert_pair(src, ref, fast=True, post_opt="post_opt_0.2", tgt_loudness_db=-20.0,
-                         output_path=out)
+    with pytest.raises(NotImplementedError, match="mp3"):
+        knn.convert_pair(src, ref, fast=True, output_path=str(root / "unported.mp3"))
+    orbax = root / "orbax_only"
+    (orbax / "orbax").mkdir(parents=True, exist_ok=True)
+    with pytest.raises(NotImplementedError, match="orbax"):
+        KnnSvc.load(str(orbax), "mix", device="cpu")
     with pytest.raises(NotImplementedError, match="multi-device"):
         knn.convert_pair(src, ref, fast=True, matcher="sharded", output_path=out)
 

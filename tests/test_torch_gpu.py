@@ -18,6 +18,11 @@ on these random inputs, at every tested k (1..32), with its rows in shared
 memory (every k at D = 128, k = 4 at D = 1024) and read from L2 (k = 8 at
 D = 1024); its pre-pass values within 1e-5 relative of the
 plain norms and dots (sums of D fp32 terms in another order).
+The f0 Viterbi kernel's states must equal its plain version's on every
+frame (both do the same fp32 operations in the same order, ties included).
+Device f0 on the card against the CPU: cuFFT and cuBLAS sum in other orders
+than pocketfft and the CPU matmul, so voicing must agree on >= 99.5% of
+frames and f0 within 1 cent on >= 99% of the frames voiced in both.
 """
 
 import numpy as np
@@ -29,6 +34,7 @@ from knnsvc_torch.ops.attention import gated_bias_attention, reference_attention
 from knnsvc_torch.match.concat_cost import scan_inputs
 from knnsvc_torch.ops.concat_scan import (concat_cost_pair, concat_cost_prepass,
                                           concat_cost_single)
+from knnsvc_torch.ops.viterbi import MAX_STATES, f0_viterbi, viterbi_plain
 from knnsvc_torch.precision import get_precision, set_precision
 
 ATTN_ATOL_TF32 = 2.5e-3
@@ -195,3 +201,74 @@ def test_concat_kernel_rejects_bad_inputs():
     with pytest.raises(TypeError):
         concat_cost_pair(idx_u, idx_p, src.double(), tgt.double(), sf0, tf0)
     assert concat_cost_pair.launches == before
+
+
+LAM_S = float(np.float32(0.753) * np.float32(10.0 / 1200.0))
+SWITCH = float(np.float32(0.291))
+
+
+def _viterbi_costs(N, C, seed, ties, device):
+    rng = np.random.default_rng(seed)
+    cost_v = rng.standard_normal((N, C)).astype(np.float32)
+    cost_u = (rng.standard_normal(N) * 0.5).astype(np.float32)
+    if ties:
+        cost_v[::3] = 1e3                                  # silent frames
+        cost_v[1::4, C // 2:] = cost_v[1::4, C // 2:C // 2 + 1]   # flat runs
+        cost_v[2::5] = np.round(cost_v[2::5])              # repeated values
+        cost_u[::7] = 1e3
+    return torch.from_numpy(cost_v).to(device), torch.from_numpy(cost_u).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,C,ties", [
+    *[(N, C, True) for N in (1, 2, 1501) for C in (1, 9, 482)],
+    (1501, 482, False),     # the main path's shape: one 30-s chunk, 482 candidates
+    (300, MAX_STATES - 1, True),
+])
+def test_viterbi_kernel_matches_plain(N, C, ties):
+    cost_v, cost_u = _viterbi_costs(N, C, seed=N + C, ties=ties, device=_cuda())
+    before = f0_viterbi.launches
+    got = f0_viterbi(cost_v, cost_u, LAM_S, SWITCH)
+    torch.cuda.synchronize()
+    assert f0_viterbi.launches == before + 1
+    want = viterbi_plain(cost_v, cost_u, LAM_S, SWITCH)
+    assert got.dtype == torch.int32 and got.shape == (N,)
+    assert torch.equal(got, want)
+    assert torch.equal(want.cpu(), viterbi_plain(cost_v.cpu(), cost_u.cpu(), LAM_S, SWITCH))
+
+
+@pytest.mark.gpu
+def test_viterbi_kernel_rejects_bad_inputs():
+    cost_v, cost_u = _viterbi_costs(20, 9, seed=1, ties=False, device=_cuda())
+    before = f0_viterbi.launches
+    with pytest.raises(TypeError, match="float32"):
+        f0_viterbi(cost_v.double(), cost_u, LAM_S, SWITCH)
+    with pytest.raises(ValueError, match="contiguous"):
+        f0_viterbi(cost_v.t().contiguous().t(), cost_u, LAM_S, SWITCH)
+    with pytest.raises(ValueError, match="states"):
+        f0_viterbi(torch.zeros(4, MAX_STATES, device=cost_v.device), cost_u[:4], LAM_S, SWITCH)
+    with pytest.raises(ValueError, match="is on"):
+        f0_viterbi(cost_v, cost_u.cpu(), LAM_S, SWITCH)
+    assert f0_viterbi.launches == before
+
+
+@pytest.mark.gpu
+def test_device_f0_card_matches_cpu():
+    from knnsvc_torch.dsp.f0_device import device_f0
+
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    t = np.arange(16000 * 8) / 16000
+    phase = 2 * np.pi * np.cumsum(220 * (1 + 0.04 * np.sin(2 * np.pi * 5 * t))) / 16000
+    x = 0.3 * np.sin(phase) + 0.1 * np.sin(2 * phase) + 0.02 * rng.standard_normal(len(t))
+    x = (x * (0.5 + 0.5 * np.abs(np.sin(2 * np.pi * 0.7 * t)))).astype(np.float32)
+    x[:8000] = 0.0
+    before = f0_viterbi.launches
+    card = device_f0(x, 16000, device=dev)
+    assert f0_viterbi.launches == before + 1
+    cpu = device_f0(x, 16000, device="cpu")
+    assert card.shape == cpu.shape == (len(x) // 320 + 1,)
+    assert ((card > 0) == (cpu > 0)).mean() >= 0.995
+    both = (card > 0) & (cpu > 0)
+    assert both.mean() > 0.5
+    assert (np.abs(1200 * np.log2(card[both] / cpu[both])) <= 1.0).mean() >= 0.99
