@@ -41,7 +41,25 @@ Phases (any failure exits non-zero, before the result line):
      uploads (2 Viterbi launches per pair, no host f0), new-pair and repeat
      medians beside the host-f0 ones and a traced new pair; one
      wavlm_only_original conversion, its vocoder against the CPU;
-  5. the card's name and power limit (nvidia-smi).
+  5. the host-pool and bulk paths at full width (the same mix model, random
+     weights from seed 0, "highest"): convert_pair(fast=False) against
+     convert_pair(fast=True) on a 30-s pair with f0 sidecars (12 attention
+     launches each; waveforms within one int16 step plus 2e-5); a seeded
+     dataset of 2 singers x 3 utterances (6, 12 and 35 s, the last across a
+     30-s chunk boundary) through bulk_convert's three loops (host, fast,
+     fast with data_batch=2; 6 conversions each, the same files, finite and
+     non-silent before the quantize, 6 attention launches per chunk
+     encoded, the fast and batched outputs within one int16 step, audio-s
+     per s of each warm pass) and a traced host pass split by the
+     knnsvc.speaker_pool / bulk_match / vocode_batch spans; one post_opt_0.2
+     fast bulk loop (one concat launch per conversion) and the concat
+     kernel's picks against its plain version at a bulk target pool (P >
+     1500) and a bucket-padded query; the int8 kNN card against CPU at
+     (1500, 9000, 1024) (int32 dots and indices equal) and one int8 host
+     pair with post_opt (two single-lane concat launches); knn_topk at
+     (1500, 180000, 1024), an hour of target, against torch.topk on the same
+     distances;
+  6. the card's name and power limit (nvidia-smi).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it fails and prints no result.
@@ -107,6 +125,16 @@ F0_CENTS = 1.0                   # card vs CPU: voiced f0 within this many cents
 F0_CENTS_SHARE_MIN = 0.99        # ... on this share of the frames voiced in both
 DEV_FRESH_RUNS = 5               # device-f0 + int16-upload conversions of new pairs
 DEV_WARM_RUNS = 10               # and of the same pair again
+
+BULK_SINGERS = (("alto", 230.0, 31), ("tenor", 160.0, 41))   # name, f0 in Hz, seed
+BULK_SECONDS = (6.0, 12.0, 35.0)                            # each singer's utterances
+BULK_LOOPS = (("host", {}), ("fast", {"fast": True}),
+              ("fast_batch2", {"fast": True, "data_batch": 2}))
+INT16_STEP = 1 / 32768
+HOST_VS_FAST_ATOL = INT16_STEP + 2e-5   # tests/test_pipeline.py's 2e-5, plus the quantize
+HOST_PAIR_RUNS = 3                      # warm host-pool pair conversions
+INT8_SHAPE = (1500, 9000, 1024)         # (Q, P, D): a 30-s query, a 3-min pool
+KNN_HOUR = (1500, 180_000, 1024)        # (Q, P, D): a 30-s query, an hour of target
 
 
 def fail(msg: str) -> None:
@@ -763,6 +791,295 @@ def phase_original(src: str, ref: str, out: str, run, dev) -> None:
     del oknn, cpu_voc
 
 
+def chunks_of(n_samples: int) -> int:
+    """30-s encoder chunks of a waveform (a last one of <= 320 samples is
+    dropped, ref ddsp_prematch_dataset.py:279)."""
+    return sum(1 for start in range(0, n_samples, 480_000) if n_samples - start > 320)
+
+
+def write_bulk_dataset(root: str):
+    """BULK_SINGERS x BULK_SECONDS sung utterances with f0 sidecars under
+    root/<singer>/. -> (dataset root, chunks per singer, audio seconds)."""
+    from knnsvc_torch.dsp.f0 import save_f0_sidecar
+    from knnsvc_torch.io.audio import save_audio
+
+    data = os.path.join(root, "bulk")
+    chunks = {}
+    for name, hz, seed in BULK_SINGERS:
+        os.makedirs(os.path.join(data, name))
+        chunks[name] = 0
+        for i, seconds in enumerate(BULK_SECONDS):
+            wav, f0 = sung_wav(seconds, hz * (1 + 0.05 * i), seed + i)
+            path = os.path.join(data, name, f"{name}_{i}.wav")
+            save_audio(path, wav, 16000)
+            save_f0_sidecar(path, f0)
+            chunks[name] += chunks_of(len(wav))
+    return data, chunks, len(BULK_SINGERS) * sum(BULK_SECONDS)
+
+
+class PeakSpy:
+    """Records the largest |x| handed to match.serve.quantize_int16 while
+    open: the fast loops' waveforms before their int16 quantize."""
+
+    def __enter__(self):
+        from knnsvc_torch.match import serve
+
+        self.serve, self.real, self.peak = serve, serve.quantize_int16, 0.0
+
+        def spy(wav):
+            self.peak = max(self.peak, float(wav.abs().max()))
+            return self.real(wav)
+
+        serve.quantize_int16 = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.serve.quantize_int16 = self.real
+
+
+def read_tree(out_dir: str) -> dict:
+    import numpy as np
+
+    from knnsvc_torch.io.audio import load_audio
+
+    tree = {}
+    for d, _, files in os.walk(out_dir):
+        for f in files:
+            y, sr = load_audio(os.path.join(d, f))
+            if sr != 16000 or not np.isfinite(y).all():
+                fail(f"bulk output {f}: sr {sr}, finite {bool(np.isfinite(y).all())}")
+            tree[os.path.relpath(os.path.join(d, f), out_dir)] = y[0]
+    return tree
+
+
+def phase_bulk(root: str, knn, records, dev):
+    import numpy as np
+    import torch
+
+    from knnsvc_torch.io.audio import load_audio
+    from knnsvc_torch.match.concat_cost import knn_with_concat_cost_pair
+    from knnsvc_torch.match.distance import cosine_distance
+    from knnsvc_torch.match.f0_logic import (shift_f0_to_target_register,
+                                             sort_by_f0_compatibility)
+    from knnsvc_torch.match.knn import knn_topk
+    from knnsvc_torch.match.quantized_pool import (int8_dot, knn_topk_quantized,
+                                                   quantize_pool, quantize_rows)
+    from knnsvc_torch.ops.attention import gated_bias_attention
+    from knnsvc_torch.ops.concat_scan import concat_cost_pair
+
+    t_phase = time.perf_counter()
+
+    def counted(fn):
+        """fn() with both kernels' counts set to 0 just before and read just
+        after: (wall s, result, (attention, concat) launches)."""
+        gated_bias_attention.launches = 0
+        concat_cost_pair.launches = 0
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0, result,
+                (gated_bias_attention.launches, concat_cost_pair.launches))
+
+    # the host-pool pair against the fast pair, both on the f0 sidecars
+    pair_dir = os.path.join(root, "pair6")
+    os.makedirs(pair_dir)
+    src, ref = write_pair(pair_dir, FULL_SECONDS, sidecars=True)
+    outs = {}
+    for fast in (False, True):
+        times = []
+        for i in range(1 + (HOST_PAIR_RUNS if not fast else 1)):
+            out = os.path.join(pair_dir, f"fast_{fast}.wav")
+            dt, _, launches = counted(lambda: knn.convert_pair(src, ref, fast=fast,
+                                                               output_path=out))
+            if launches != (LAUNCHES_PER_PAIR, 0):
+                fail(f"convert_pair(fast={fast}) launched (attention, concat) {launches}, "
+                     f"expected ({LAUNCHES_PER_PAIR}, 0)")
+            times.append(dt)
+        outs[fast] = load_audio(out)[0][0]
+        log(f"[host_pool] convert_pair(fast={fast}) on a {FULL_SECONDS:.0f}-s pair with f0 "
+            f"sidecars: first {times[0]:.4f} s, warm {', '.join(f'{t:.4f}' for t in times[1:])} s; "
+            f"attention launches {LAUNCHES_PER_PAIR} each")
+    host, fast_out = outs[False], outs[True]
+    diff = float(np.abs(host - fast_out).max()) if host.shape == fast_out.shape else np.inf
+    log(f"[host_pool] host-pool vs fast waveform {host.shape}: max |diff| {diff:.3e} (tol "
+        f"{HOST_VS_FAST_ATOL:.3e}), host peak {float(np.abs(host).max()):.3e}, finite "
+        f"{bool(np.isfinite(host).all())}")
+    if not (diff <= HOST_VS_FAST_ATOL and np.isfinite(host).all() and np.abs(host).max() > 0):
+        fail(f"host-pool and fast pair conversions differ: {diff}")
+
+    # the three bulk loops over the same dataset root (self pairs skipped)
+    data, chunks, audio_s = write_bulk_dataset(root)
+    n_conv = len(BULK_SINGERS) * len(BULK_SECONDS) * (len(BULK_SINGERS) - 1)
+    # host loop: each singer's pool built as a source and as a target; fast
+    # loops: each target pool once, each source utterance once
+    want_attention = 6 * 2 * sum(chunks.values())
+    trees = {}
+    for name, kwargs in BULK_LOOPS:
+        runs = []
+        for p in range(2):
+            out_dir = os.path.join(root, f"bulk_{name}_{p}")
+            with PeakSpy() as spy:
+                dt, written, launches = counted(
+                    lambda: knn.bulk_convert(data, data, out_dir, **kwargs))
+            runs.append(dt)
+        tree = read_tree(out_dir)
+        peak = (max(float(np.abs(y).max()) for y in tree.values()) if name == "host"
+                else spy.peak)
+        log(f"[bulk] {name}: {len(written)} conversions of {audio_s:.0f} s of audio; first pass "
+            f"{runs[0]:.3f} s, warm pass {runs[1]:.3f} s = {audio_s / runs[1]:.2f} audio-s/s; "
+            f"launches (attention, concat) {launches}, expected ({want_attention}, 0); "
+            f"pre-quantize peak {peak:.3e}")
+        if not (len(written) == len(tree) == n_conv and launches == (want_attention, 0)
+                and peak > 0):
+            fail(f"bulk loop {name}: {len(written)} written, {len(tree)} files, launches "
+                 f"{launches}, peak {peak}")
+        trees[name] = tree
+    records["gated_bias_attention"]["bulk_launches"] = want_attention
+    if not (set(trees["host"]) == set(trees["fast"]) == set(trees["fast_batch2"])):
+        fail("the bulk loops wrote different files")
+    diff = max(float(np.abs(trees["fast"][k] - trees["fast_batch2"][k]).max())
+               for k in trees["fast"])
+    host_diff = max(float(np.abs(trees["fast"][k] - trees["host"][k]).max()) for k in trees["fast"])
+    log(f"[bulk] fast vs fast_batch2: max |diff| {diff:.3e} (tol one int16 step "
+        f"{INT16_STEP:.3e}); fast vs host loop (other f0 path and pad handling, not "
+        f"checked): {host_diff:.3e}")
+    if not diff <= INT16_STEP:
+        fail(f"the fast and batched bulk loops differ by {diff}")
+    traced_dir = os.path.join(root, "bulk_traced")
+    phase_bulk_profile(lambda: knn.bulk_convert(data, data, traced_dir, batch_vocode=True),
+                       "host loop, batch_vocode")
+
+    # post_opt_0.2 through the fast bulk loop: one concat launch per conversion
+    dt, written, launches = counted(lambda: knn.bulk_convert(
+        data, data, os.path.join(root, "bulk_po"), fast=True, post_opt=POST_OPT))
+    log(f"[bulk] fast {POST_OPT}: {len(written)} conversions in {dt:.3f} s = "
+        f"{audio_s / dt:.2f} audio-s/s; launches (attention, concat) {launches}")
+    if launches != (want_attention, n_conv) or len(written) != n_conv:
+        fail(f"fast {POST_OPT} bulk loop launched {launches}, expected "
+             f"({want_attention}, {n_conv})")
+    records["concat_cost_pair"]["bulk_launches"] = launches[1]
+
+    # the concat kernel at a bulk target pool, on the longest query (two
+    # chunks) and on a bucket-padded one (edge-replicated frames, zero f0)
+    names = [n for n, _, _ in BULK_SINGERS]
+    pool = knn._device_pool_for_files(
+        sorted(os.path.join(data, names[1], f) for f in os.listdir(os.path.join(data, names[1]))
+               if f.endswith(".wav")))
+    queries = knn._HostQueryCache(knn)
+    for i in (len(BULK_SECONDS) - 1, 1):
+        m, qf0, T = knn._bucket_pad_query(
+            *queries.get(os.path.join(data, names[0], f"{names[0]}_{i}.wav")))
+        q, qf0 = torch.from_numpy(m).to(dev), torch.from_numpy(qf0).to(dev)
+        with torch.no_grad():
+            nearest, _ = knn_topk(q, pool.matching, k=32)
+            shifted = shift_f0_to_target_register(qf0, pool.f0)
+            pitched = sort_by_f0_compatibility(shifted, pool.f0, nearest)[:, :4]
+            args = (nearest[:, :4], pitched, q, pool.matching, shifted, pool.f0)
+            got = concat_cost_pair(*args)
+            want = knn_with_concat_cost_pair(*args)
+        torch.cuda.synchronize()
+        shares = [float((g == w).all(dim=1).float().mean()) for g, w in zip(got, want)]
+        Tb, P, D = q.shape[0], pool.matching.shape[0], q.shape[1]
+        timing = ""
+        if i == len(BULK_SECONDS) - 1:
+            bulk_ms = cuda_ms(lambda: concat_cost_pair(*args), iters=5, warmup=1)
+            bound_ms, bound_by = concat_bound_ms(Tb, P, D, lanes=2, k=4)
+            timing = (f"; kernel {bulk_ms:.4f} ms ({1e3 * bulk_ms / (Tb - 1):.3f} us per "
+                      f"frame), bound {bound_ms:.4f} ms ({bound_by})")
+            records["concat_cost_pair"].update(bulk_shape=[Tb, P, D], bulk_ms=bulk_ms,
+                                               bulk_bound_ms=bound_ms)
+        log(f"[bulk] concat_cost_pair at a bulk target pool ({Tb} query frames of which {T} "
+            f"real, P={P}, D={D}) k=4: frames equal to the plain version, unpitched "
+            f"{shares[0]:.2%}, pitched {shares[1]:.2%}{timing}")
+        if not (P > 1500 and Tb % 250 == 0 and min(shares) == 1.0):
+            fail(f"concat_cost_pair at the bulk shape: P={P}, T={Tb}, equal shares {shares}")
+    if T == Tb:
+        fail("the concat check at the bulk shape saw no bucket-padded query")
+    del pool, q, nearest, args, got, want
+
+    # the int8 kNN, card against CPU; then one int8 host pair with post_opt
+    Q, P, D = INT8_SHAPE
+    rng = np.random.default_rng(8)
+    pool_np = rng.standard_normal((P, D)).astype(np.float32)
+    query = torch.from_numpy(rng.standard_normal((Q, D)).astype(np.float32))
+    cpu_pool, card_pool = quantize_pool(pool_np), quantize_pool(pool_np, dev)
+    q8, _ = quantize_rows(query)
+    q8_card, _ = quantize_rows(query.to(dev))
+    dots_equal = bool(torch.equal(int8_dot(q8_card, card_pool.values).cpu(),
+                                  int8_dot(q8, cpu_pool.values)))
+    got, _ = knn_topk_quantized(query.to(dev), card_pool)
+    want, _ = knn_topk_quantized(query, cpu_pool)
+    idx_equal = bool(torch.equal(got.cpu(), want)) and bool(torch.equal(q8_card.cpu(), q8))
+    qd, pool_d = query.to(dev), torch.from_numpy(pool_np).to(dev)
+    int8_ms = cuda_ms(lambda: knn_topk_quantized(qd, card_pool), iters=5)
+    fp32_ms = cuda_ms(lambda: knn_topk(qd, pool_d), iters=5)
+    log(f"[int8] knn_topk_quantized {INT8_SHAPE} card vs cpu: int32 dots equal {dots_equal}, "
+        f"query bytes and indices equal {idx_equal}; card {int8_ms:.4f} ms (torch._int_mm) "
+        f"against the fp32 knn_topk's {fp32_ms:.4f} ms")
+    if not (dots_equal and idx_equal):
+        fail("the int8 kNN differs between card and cpu")
+    del card_pool, pool_d
+    dt, path, launches = counted(lambda: knn.convert_pair(
+        src, ref, matcher="int8", post_opt=POST_OPT,
+        output_path=os.path.join(pair_dir, "int8.wav")))
+    y = load_audio(path)[0][0]
+    log(f"[int8] convert_pair(fast=False, matcher='int8', post_opt={POST_OPT!r}) in {dt:.3f} s; "
+        f"launches (attention, concat) {launches}; peak {float(np.abs(y).max()):.3e}, finite "
+        f"{bool(np.isfinite(y).all())}")
+    if not (launches == (LAUNCHES_PER_PAIR, 2) and np.isfinite(y).all() and np.abs(y).max() > 0):
+        fail(f"int8 host pair: launches {launches}, peak {float(np.abs(y).max())}")
+
+    # knn_topk at an hour of target: its stable full sort against torch.topk
+    Q, P, D = KNN_HOUR
+    gen = torch.Generator(device=dev).manual_seed(9)
+    hour = torch.randn(P, D, device=dev, generator=gen)
+    qh = torch.randn(Q, D, device=dev, generator=gen)
+    q_chunk = max(1, (64 * 1024 * 1024) // P)
+    dists = cosine_distance(qh[:q_chunk], hour)
+    sort_ms = cuda_ms(lambda: torch.sort(dists, dim=1, stable=True)[1][:, :32], iters=5)
+    topk_ms = cuda_ms(lambda: torch.topk(dists, 32, dim=1, largest=False), iters=5)
+    dist_ms = cuda_ms(lambda: cosine_distance(qh[:q_chunk], hour), iters=5)
+    same = float((torch.sort(dists, dim=1, stable=True)[1][:, :32]
+                  == torch.topk(dists, 32, dim=1, largest=False)[1]).all(dim=1).float().mean())
+    del dists
+    knn_ms = cuda_ms(lambda: knn_topk(qh, hour), iters=3, warmup=1)
+    n_tiles = -(-Q // q_chunk)
+    log(f"[knn] knn_topk {KNN_HOUR} (an hour of target; {n_tiles} tiles of {q_chunk} query "
+        f"rows): {knn_ms:.3f} ms; per tile: distances {dist_ms:.3f} ms, stable sort + cut "
+        f"{sort_ms:.3f} ms, torch.topk {topk_ms:.3f} ms on the same distances (same top-32 on "
+        f"{same:.2%} of rows)")
+    del hour, qh
+    log(f"[bulk] phase 6 in {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_bulk_profile(fn, label: str) -> None:
+    """One bulk pass traced: device busy share and the split by the
+    knnsvc.speaker_pool / bulk_match / vocode_batch spans."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device_events(events))
+    if not spans:
+        log(f"[profile] bulk {label}: the trace holds no device events: busy share not measured")
+        return
+    busy, (lo, hi) = 0.0, spans[0]
+    for s, e in spans:
+        if s > hi:
+            busy, lo = busy + hi - lo, s
+        hi = max(hi, e)
+    busy += hi - lo
+    log(f"[profile] bulk {label}: wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms, "
+        f"idle share {1 - busy / wall_us:.1%}; stages (host ms in span, device kernel ms) "
+        + json.dumps({k: [round(h, 3), round(d, 3)] for k, (h, d) in stage_times(events).items()}))
+
+
 def stage_times(events) -> dict[str, list[float]]:
     """Per stage of convert_pair (the knnsvc.* record_function spans):
     [host ms inside the spans, device ms launched from them]. A device
@@ -873,6 +1190,7 @@ def main() -> int:
     try:
         knn = phase_slice_cpu_vs_cuda(root, dev)
         phase_full(root, knn, records, dev)
+        phase_bulk(root, knn, records, dev)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

@@ -1,22 +1,29 @@
-"""Conversion CLI of the port, pair mode (counterpart of
-knnsvc_tpu/cli/inference.py; the reference's ddsp_inference.py surface):
+"""Conversion CLI of the port (counterpart of knnsvc_tpu/cli/inference.py;
+the reference's ddsp_inference.py surface):
 
-  python -m knnsvc_torch.cli.inference SRC.wav TGT.wav --fast true \
-      --ckpt_dir D --ckpt_type mix --topk 4 --out OUT.wav [--device cuda]
+  python -m knnsvc_torch.cli.inference SRC TGT --ckpt_dir D --ckpt_type mix \
+      --post_opt post_opt_0.2 --topk 4 [--fast true] [--device cuda]
 
-Runs on --device cuda (the default; no card -> error, never a silent CPU
-run) or --device cpu. Ported so far: file -> file (WAV or FLAC) with --fast
-true, every --ckpt_type, matcher exact/approx, with or without --post_opt
-(e.g. post_opt_0.2), --f0_method device, --upload_depth int16, and
---tgt_loudness_db with --apply_loudness true; .pt or .knnsvc.pkl
-checkpoints. Bulk (folder) mode, the host-pool path and the streaming path
-are still to port and exit with a message.
+Both positionals are files (pair mode: WAV or FLAC, written to --out or next
+to the source) or both are dataset roots of speaker folders (folder mode:
+written under <tgt parent>/[duration_limit_N_]<src>_to_<tgt>_<ckpt_type>_
+post_opt_<post_opt>/, ref ddsp_inference.py:79-103). --fast false (the
+default) is the host-pool path, --fast true the device-resident one; every
+--ckpt_type; matcher exact, approx (both exact search here) or int8
+(host-pool path); .pt or .knnsvc.pkl checkpoints. Runs on --device cuda
+(the default; no card -> error, never a silent CPU run) or --device cpu.
+Not ported: the streaming flags (ROADMAP.md Queue 1 item 10) and the
+sharded matchers (item 11), which exit with a message.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+
+STREAM_DEFAULTS = {"stream_chunk_s": None, "stream_context_s": 1.0,
+                   "stream_right_context_s": None, "stream_encoder": "windowed",
+                   "stream_cache_s": 4.0}
 
 
 def str2bool(v: str) -> bool:
@@ -29,9 +36,10 @@ def str2bool(v: str) -> bool:
 
 
 def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(description="kNN-SVC inference (PyTorch/CUDA port), pair mode")
-    parser.add_argument("src", help="content source audio file (WAV or FLAC)")
-    parser.add_argument("tgt", help="style target audio file (WAV or FLAC)")
+    parser = argparse.ArgumentParser(
+        description="kNN-SVC inference (PyTorch/CUDA port): file or folder mode")
+    parser.add_argument("src", help="content source: audio file OR dataset root of speaker folders")
+    parser.add_argument("tgt", help="style target: audio file OR dataset root of speaker folders")
     parser.add_argument("--ckpt_dir", type=str, default=None,
                         help="directory holding the HiFi-GAN checkpoint (g_*.pt or .knnsvc.pkl)")
     parser.add_argument("--wavlm_ckpt", type=str, default=None,
@@ -44,11 +52,23 @@ def build_parser() -> argparse.ArgumentParser:
                         help="no_post_opt, post_opt_<w> (concat weight w + smoothness "
                              "optimizer), post_opt_extra (w = 0.3) or no_post_opt_<w> "
                              "(concat only)")
+    parser.add_argument("--required_subset_file", type=str, default=None,
+                        help="folder mode: CSV of the (source utterance, target speaker) "
+                             "pairs to convert")
     parser.add_argument("--topk", type=int, default=4)
+    parser.add_argument("--prioritize_f0", type=str2bool, default=True,
+                        help="must stay true (the reference asserts it)")
+    parser.add_argument("--dur_limit", type=int, default=None,
+                        help="folder mode: duration limit (s) of each target pool")
+    parser.add_argument("--resume", type=str2bool, default=False,
+                        help="folder mode: skip outputs that already exist")
+    parser.add_argument("--pool_cache_dir", type=str, default=None,
+                        help="folder mode, --fast false: on-disk speaker-pool cache")
     parser.add_argument("--matcher", type=str, default="exact",
                         choices=["exact", "approx", "int8", "sharded", "sharded_int8"],
-                        help="kNN candidate search; exact and approx (both exact on a GPU) "
-                             "are ported")
+                        help="kNN candidate search: exact, approx (exact search on a GPU), "
+                             "int8 (quantized pool, --fast false); the sharded ones are "
+                             "not ported")
     parser.add_argument("--precision", type=str, default="highest",
                         choices=["highest", "fastest"],
                         help="highest = fp32 with TF32 off in cuBLAS and cuDNN; "
@@ -59,28 +79,58 @@ def build_parser() -> argparse.ArgumentParser:
                              "it disabled)")
     parser.add_argument("--f0_method", default="fast",
                         choices=["fast", "harvest", "dio", "yin", "device"],
-                        help="f0 extractor of the --fast path: 'fast' = native budget Harvest "
+                        help="--fast true: f0 extractor. 'fast' = native budget Harvest "
                              "on a background host thread; 'device' = the extractor on the "
-                             "card inside the pool build (no host work)")
+                             "card inside the pool build (no host work). --fast false "
+                             "takes Harvest")
     parser.add_argument("--upload_depth", choices=["float32", "int16"], default="float32",
-                        help="--fast: int16 halves the waveform uploads (lossless for "
-                             "16-bit-sourced audio)")
+                        help="--fast true pair mode: int16 halves the waveform uploads "
+                             "(lossless for 16-bit-sourced audio)")
     parser.add_argument("--fast", type=str2bool, default=False,
-                        help="device-resident serving path (the only one ported so far)")
+                        help="device-resident path (pools, match and vocode on the device, "
+                             "int16 downloads); false = the host-pool path")
     parser.add_argument("--random_init", type=str2bool, default=False,
                         help="random full-size weights (smoke tests; no checkpoints needed)")
     parser.add_argument("--out", type=str, default=None,
-                        help="output path (default: next to the source file, "
+                        help="pair mode: output path (default: next to the source file, "
                              "ref ddsp_matcher.py:1013-1023)")
     parser.add_argument("--device", type=str, default="cuda", help="cuda or cpu")
+    parser.add_argument("--stream_chunk_s", type=float, default=None,
+                        help="streaming: not ported (ROADMAP.md Queue 1 item 10)")
+    parser.add_argument("--stream_context_s", type=float, default=1.0, help="streaming: not ported")
+    parser.add_argument("--stream_right_context_s", type=float, default=None,
+                        help="streaming: not ported")
+    parser.add_argument("--stream_encoder", default="windowed", choices=("windowed", "cached"),
+                        help="streaming: not ported")
+    parser.add_argument("--stream_cache_s", type=float, default=4.0, help="streaming: not ported")
     return parser
+
+
+def _check_args(args) -> str:
+    """Argument checks before the model load. -> 'pair' or 'folder'."""
+    set_stream = [f"--{k}" for k, v in STREAM_DEFAULTS.items() if getattr(args, k) != v]
+    if set_stream:
+        raise SystemExit(f"{', '.join(set_stream)}: the streaming path is still to port "
+                         "(ROADMAP.md, Queue 1 item 10)")
+    if os.path.isfile(args.src) and os.path.isfile(args.tgt):
+        mode = "pair"
+    elif os.path.isdir(args.src) and os.path.isdir(args.tgt):
+        mode = "folder"
+    else:
+        raise SystemExit("Both inputs must be files or both must be folders.")
+    # a flag that the chosen path ignores is an error, not a silent no-op
+    if not args.fast and args.f0_method != "fast":
+        raise SystemExit(f"--f0_method {args.f0_method} applies to --fast true; the host-pool "
+                         "path (--fast false) takes Harvest f0 (or its _f0.npy sidecar)")
+    if args.upload_depth != "float32" and (not args.fast or mode == "folder"):
+        raise SystemExit(f"--upload_depth {args.upload_depth} applies to --fast true pair mode "
+                         "only")
+    return mode
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if not (os.path.isfile(args.src) and os.path.isfile(args.tgt)):
-        raise SystemExit("knnsvc_torch converts file -> file pairs; bulk (folder) mode "
-                         "is still to port")
+    mode = _check_args(args)
 
     from knnsvc_torch.hub import KnnSvc
     from knnsvc_torch.precision import set_precision
@@ -94,11 +144,31 @@ def main(argv=None) -> int:
         knn = KnnSvc.load(args.ckpt_dir, args.ckpt_type, args.wavlm_ckpt, args.config,
                           device=args.device)
     knn.f0_method = args.f0_method
-    out = knn.convert_pair(args.src, args.tgt, topk=args.topk, post_opt=args.post_opt,
-                           tgt_loudness_db=args.tgt_loudness_db if args.apply_loudness else None,
-                           matcher=args.matcher, fast=args.fast, output_path=args.out,
-                           upload_dtype=args.upload_depth)
-    print("->", out)
+    loudness = args.tgt_loudness_db if args.apply_loudness else None
+
+    if mode == "pair":
+        out = knn.convert_pair(args.src, args.tgt, topk=args.topk,
+                               prioritize_f0=args.prioritize_f0, post_opt=args.post_opt,
+                               tgt_loudness_db=loudness, matcher=args.matcher, fast=args.fast,
+                               output_path=args.out, upload_dtype=args.upload_depth)
+        print("->", out)
+        return 0
+
+    tgt_parent = f"{os.path.dirname(os.path.abspath(args.tgt))}/"
+    converted_audio_dir = (f"{tgt_parent}{os.path.basename(args.src)}_to_"
+                           f"{os.path.basename(args.tgt)}_{args.ckpt_type}_post_opt_"
+                           f"{args.post_opt}/")
+    if args.dur_limit is not None:
+        converted_audio_dir = converted_audio_dir.replace(
+            tgt_parent, tgt_parent + f"duration_limit_{args.dur_limit}_")
+    written = knn.bulk_convert(
+        src_dataset_path=args.src, tgt_dataset_path=args.tgt,
+        converted_audio_dir=converted_audio_dir, topk=args.topk,
+        prioritize_f0=args.prioritize_f0, post_opt=args.post_opt,
+        required_subset_file=args.required_subset_file, duration_limit=args.dur_limit,
+        tgt_loudness_db=loudness, resume=args.resume, pool_cache_dir=args.pool_cache_dir,
+        matcher=args.matcher, fast=args.fast)
+    print(f"wrote {len(written)} files under {converted_audio_dir}")
     return 0
 
 

@@ -1,20 +1,30 @@
 """Model wrapper + factory (counterpart of knnsvc_tpu/hub.py::KnnSvc; the
 reference's KNeighborsVC / ddsp_hubconf surface, ref ddsp_matcher.py:303-1156).
 
-Ported so far: the constructor, `random_init`, `load` for `.knnsvc.pkl`
-payloads and the reference's torch `.pt` checkpoints, and
+Ported: the constructor, `random_init`, `load` for `.knnsvc.pkl` payloads
+and the reference's torch `.pt` checkpoints, the `knn_vc` factory;
 `convert_pair(fast=True)` — the single-pair serving path for every model
 family (MIX, F0_ONLY, ORIGINAL), with or without post_opt (concat-cost
 reselection and the smoothness optimizer), host or device f0, float32 or
-int16 uploads, WAV or FLAC files and optional loudness normalization.
-Everything runs on device="cuda" unless the caller passes device="cpu".
+int16 uploads, WAV or FLAC files and optional loudness normalization;
+`convert_pair(fast=False)` — the host-pool path (ref special_match);
+`bulk_convert` — dataset to dataset (ref bulk_match): the host loop and the
+device-resident fast loops, serial or `data_batch` at a time; and the
+legacy knn-vc surface (`get_features`, `get_matching_set`, `get_f0`,
+`vocode`, `vocode_batch`, `match`, `self_match`). Not ported: the streaming
+path (ROADMAP Queue 1 item 10), `mesh` and the sharded matchers (item 11),
+`mel_vocode`. Everything runs on device="cuda" unless the caller passes
+device="cpu".
 """
 
 from __future__ import annotations
 
+import collections
+import csv
 import glob
 import os
 from pathlib import Path
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -22,12 +32,19 @@ from torch.profiler import record_function
 
 from knnsvc_torch import HOP_LENGTH, SPEAKER_INFORMATION_LAYER
 from knnsvc_torch.config import (HiFiGANConfig, PostOpt, WavLMConfig,
-                                 model_family_for_ckpt_type)
-from knnsvc_torch.io.audio import save_audio
+                                 model_family_for_ckpt_type, uses_harmonics)
+from knnsvc_torch.io.audio import load_audio, resample, save_audio, to_mono
 from knnsvc_torch.io.loudness import normalize_loudness
 from knnsvc_torch.io.jax_params import generator_from_numpy, load_params, wavlm_from_numpy
+from knnsvc_torch.match.pipeline import ConversionFeatures, multi_device_error
 from knnsvc_torch.precision import apply_precision
-from knnsvc_torch.utils.layer_weights import generate_matrix_from_index
+from knnsvc_torch.utils.layer_weights import generate_matrix_from_index, one_hot_layer
+
+BUCKET_FRAMES = 250   # frame bucket of the bulk loops' query padding and vocoding
+
+
+def _bucket(n: int, bucket: int = BUCKET_FRAMES) -> int:
+    return -(-n // bucket) * bucket
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -152,9 +169,7 @@ class KnnSvc:
         from knnsvc_torch.match.serve import convert_pools
 
         if matcher in ("sharded", "sharded_int8"):
-            raise NotImplementedError(
-                f"matcher {matcher!r}: the multi-device matchers are still to port "
-                "(ROADMAP.md, Queue 1 item 11)")
+            raise multi_device_error(matcher)
         if matcher not in ("exact", "approx"):
             raise ValueError(f"--fast supports matcher 'exact' or 'approx', not {matcher!r} "
                              "(the dense int8 pool is host-prepared)")
@@ -172,6 +187,185 @@ class KnnSvc:
                                PostOpt.parse(post_opt), topk=topk, matcher=matcher, sr=self.sr)
         return wav
 
+    # ------------------------------------------------------------- features
+
+    @torch.no_grad()
+    def get_features(self, path_or_wave, weights: np.ndarray | None = None,
+                     vad_trigger_level: float = 0.0) -> np.ndarray:
+        """(T, D) features of a waveform or path, with an optional VAD edge
+        trim (ref ddsp_matcher.py:437-517): a one-hot weighting at a layer >=
+        1 runs the early-exit encoder, any other the all-layer weighted sum."""
+        from knnsvc_torch.io.vad import vad_trim
+
+        if isinstance(path_or_wave, (str, Path)):
+            x, sr = load_audio(path_or_wave)
+            x = to_mono(x)[0]
+            if sr != self.sr:
+                x = resample(x, sr, self.sr)
+        else:
+            x = np.asarray(path_or_wave, dtype=np.float32).reshape(-1)
+        if vad_trigger_level > 1e-3:
+            x, _, _ = vad_trim(x, self.sr, vad_trigger_level)
+        w = self.weighting if weights is None else np.asarray(weights)
+        hot = one_hot_layer(w)
+        wav = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(self.device)[None]
+        if hot is not None and hot >= 1:
+            return self.wavlm.extract_layer(wav, output_layer=hot)[0].cpu().numpy()
+        stack = self.wavlm.extract_all_layers(wav)[:, 0]
+        w = torch.from_numpy(np.asarray(w, np.float32).reshape(-1, 1, 1)).to(self.device)
+        return (stack * w).sum(0).cpu().numpy()
+
+    def get_matching_set(self, wavs: Sequence, weights=None,
+                         vad_trigger_level: float = 7.0) -> np.ndarray:
+        """Concatenated features of a list of paths or waveforms
+        (ref ddsp_matcher.py:331-342)."""
+        return np.concatenate([self.get_features(w, weights, vad_trigger_level) for w in wavs])
+
+    def get_f0(self, wav_file: str) -> np.ndarray:
+        """Host f0 of a file at self.sr (its `<stem>_f0.npy` sidecar first)."""
+        from knnsvc_torch.dsp.f0 import get_f0
+
+        x, sr = load_audio(wav_file)
+        if sr != self.sr:
+            raise ValueError(f"{wav_file} is at {sr} Hz; get_f0 takes {self.sr}-Hz audio")
+        return get_f0(to_mono(x)[0], sr, audio_path=wav_file)
+
+    # ------------------------------------------------------------- vocoding
+
+    def _vocode_tensor(self, feats: torch.Tensor, f0: torch.Tensor | None,
+                       harm: torch.Tensor | None) -> torch.Tensor:
+        """(B, T, D)[, (B, T)][, (B, T, 49)] on the device -> (B, T*hop)."""
+        from knnsvc_torch.config import ModelFamily
+
+        with record_function("knnsvc.vocode"):
+            if self.family == ModelFamily.ORIGINAL:
+                return self.vocoder(feats)
+            return self.vocoder(feats, None if f0 is None else f0[..., None], harm)
+
+    @torch.no_grad()
+    def vocode(self, feats, f0=None, harmonics=None) -> np.ndarray:
+        """(T, D)[, (T,)][, (T, 49)] -> waveform (T*hop,) float32
+        (ref ddsp_matcher.py:374-406)."""
+        from knnsvc_torch.config import ModelFamily
+
+        if self.family == ModelFamily.MIX and harmonics is None:
+            raise ValueError("mix-family checkpoints need harmonic amplitudes; use "
+                             "convert_pair/convert_features (which compute them) or pass "
+                             "harmonics=(T, 49); the legacy match() surface fits "
+                             "wavlm_only-family checkpoints")
+        if self.family != ModelFamily.ORIGINAL and f0 is None:
+            raise ValueError(f"{self.family} checkpoints need f0; only "
+                             "wavlm_only_original vocodes features alone")
+        as_dev = lambda a: (None if a is None else torch.as_tensor(a).to(
+            device=self.device, dtype=torch.float32)[None])
+        wav = self._vocode_tensor(as_dev(feats), as_dev(f0), as_dev(harmonics))
+        return wav[0].cpu().numpy()
+
+    @torch.no_grad()
+    def match(self, query_seq: np.ndarray, matching_set: np.ndarray,
+              query_f0: np.ndarray | None = None, synth_set: np.ndarray | None = None,
+              topk: int = 4, tgt_loudness_db: float | None = None,
+              target_duration: float | None = None,
+              without_vocode: bool = False) -> np.ndarray:
+        """Classic knn-vc matcher (ref ddsp_matcher.py:520-644, dead code
+        past a debug sys.exit there; this is its documented semantics): the
+        mean of the top-k `synth_set` rows selected against `matching_set`,
+        then vocode. target_duration linearly resamples the query track."""
+        from knnsvc_torch.match.knn import knn_topk
+
+        query = np.asarray(query_seq, dtype=np.float32)
+        matching = torch.from_numpy(np.asarray(matching_set, dtype=np.float32)).to(self.device)
+        synth = matching if synth_set is None else torch.from_numpy(
+            np.asarray(synth_set, dtype=np.float32)).to(self.device)
+        if target_duration is not None:
+            target_frames = int(target_duration * self.sr / self.hop_length)
+            src_pos = np.linspace(0, len(query) - 1, target_frames)
+            lo = np.floor(src_pos).astype(int)
+            hi = np.minimum(lo + 1, len(query) - 1)
+            frac = (src_pos - lo)[:, None]
+            query = query[lo] * (1 - frac) + query[hi] * frac
+        idx, _ = knn_topk(torch.from_numpy(np.asarray(query, np.float32)).to(self.device),
+                          matching, k=topk)
+        out_feats = synth[idx].mean(dim=1).cpu().numpy()
+        if without_vocode:
+            return out_feats
+        f0 = None
+        if query_f0 is not None:
+            f0 = np.asarray(query_f0, dtype=np.float32).reshape(-1)[: len(out_feats)]
+        pred = self.vocode(out_feats, f0)
+        if tgt_loudness_db is not None:
+            pred = normalize_loudness(pred, self.sr, tgt_loudness_db)
+        return pred
+
+    @torch.no_grad()
+    def self_match(self, query_seq: np.ndarray, query_f0: np.ndarray | None = None,
+                   topk: int = 4, exclude_self: bool = True,
+                   without_vocode: bool = False) -> np.ndarray:
+        """A sequence matched against itself (ref ddsp_matcher.py:645-758);
+        exclude_self keeps frame t from picking itself. Ties keep ascending
+        frame order."""
+        from knnsvc_torch.match.distance import cosine_distance
+
+        q = torch.from_numpy(np.asarray(query_seq, dtype=np.float32)).to(self.device)
+        dists = cosine_distance(q, q)
+        if exclude_self:
+            eye = torch.eye(q.shape[0], dtype=torch.bool, device=self.device)
+            dists = dists.masked_fill(eye, torch.inf)
+        idx = torch.sort(dists, dim=1, stable=True).indices[:, :topk]
+        out_feats = q[idx].mean(dim=1).cpu().numpy()
+        if without_vocode:
+            return out_feats
+        f0 = None if query_f0 is None else np.asarray(query_f0, np.float32)[: len(out_feats)]
+        return self.vocode(out_feats, f0)
+
+    @torch.no_grad()
+    def vocode_batch(self, features: list[ConversionFeatures],
+                     bucket_frames: int = BUCKET_FRAMES) -> list[np.ndarray]:
+        """Vocode utterances together, zero-padded to frame buckets: one
+        vocoder call per bucket, outputs cut to their true lengths. Bucket
+        padding changes only the samples within the generator's receptive
+        field of the pad boundary (the JAX package bounds it at 1e-4 per
+        sample, tests/test_vocode_tail.py); the reference vocodes one by one
+        (ref ddsp_matcher.py:1106)."""
+        with record_function("knnsvc.vocode_batch"):
+            groups: dict[int, list[int]] = {}
+            for i in np.argsort([len(f.out_feats_weighted) for f in features]):
+                groups.setdefault(_bucket(len(features[i].out_feats_weighted), bucket_frames),
+                                  []).append(int(i))
+            results: list[np.ndarray | None] = [None] * len(features)
+            for bucket, idxs in groups.items():
+                def stack(field):
+                    arrs = [getattr(features[i], field) for i in idxs]
+                    if arrs[0] is None:
+                        return None
+                    return torch.from_numpy(np.stack([
+                        np.pad(a, [(0, bucket - len(a))] + [(0, 0)] * (a.ndim - 1))
+                        for a in arrs]).astype(np.float32)).to(self.device)
+                wavs = self._vocode_tensor(stack("out_feats_weighted"),
+                                           stack("shifted_query_f0"),
+                                           stack("harmonics_out_feats_weighted")).cpu().numpy()
+                for row, i in enumerate(idxs):
+                    results[i] = wavs[row, : len(features[i].out_feats_weighted) * self.hop_length]
+        return results  # type: ignore[return-value]
+
+    # ------------------------------------------------------------- conversion
+
+    def convert_features(self, src_path, ref_path, topk: int = 4, prioritize_f0: bool = True,
+                         post_opt: str = "no_post_opt", duration_limit: float | None = None,
+                         required_subset=None, query_pool=None, ref_pool=None,
+                         matcher: str = "exact") -> dict[str, ConversionFeatures]:
+        """Host pools of source and target (built unless passed in) matched
+        on the device: {source utterance path: ConversionFeatures}."""
+        from knnsvc_torch.match.pipeline import match_at_inference_time
+
+        with record_function("knnsvc.bulk_match"):
+            return match_at_inference_time(
+                src_path, ref_path, self.wavlm, self.weighting, self.weighting, topk=topk,
+                prioritize_f0=prioritize_f0, ckpt_type=self.ckpt_type,
+                required_subset=required_subset, post_opt=post_opt,
+                duration_limit=duration_limit, query_pool=query_pool, ref_pool=ref_pool,
+                matcher=matcher)
+
     def convert_pair(self, src_wav_file: str, ref_wav_file: str, topk: int = 4,
                      prioritize_f0: bool = True, post_opt: str = "no_post_opt",
                      tgt_loudness_db: float | None = None,
@@ -180,32 +374,40 @@ class KnnSvc:
         """Single file -> single file (ref special_match :937-1023). Writes
         `<src_dir>/<src>_to_<ref>_knn_<ckpt_type>_<post_opt>.wav` unless
         output_path is given (a `.flac` path writes FLAC); returns the output
-        path.
+        path. post_opt takes 'no_post_opt', 'post_opt_<w>', 'post_opt_extra'
+        or 'no_post_opt_<w>' (concat without the optimizer). tgt_loudness_db,
+        when set, normalizes the output to that integrated loudness (BS.1770;
+        the reference's is commented out, ref :997-1003).
 
-        fast=True is the device-resident serving path: pools, match and
-        vocode stay on the device, f0 comes from `self.f0_method` (a host
-        extractor or its sidecar, or 'device'), and the output is quantized
-        to int16 on the device and downloaded once. post_opt takes
-        'no_post_opt', 'post_opt_<w>', 'post_opt_extra' or 'no_post_opt_<w>'
-        (concat without the optimizer). upload_dtype='int16' quantizes the
-        two waveform uploads to 16 bits (lossless for 16-bit-sourced audio).
-        tgt_loudness_db, when set, normalizes the downloaded waveform to that
-        integrated loudness (BS.1770; the reference's is commented out,
-        ref :997-1003). The host-pool path (fast=False) is still to port and
-        raises."""
-        if not fast:
-            raise NotImplementedError(
-                "convert_pair(fast=False), the host-pool path, is still to port "
-                "(ROADMAP.md, Queue 1 item 9); pass fast=True")
+        fast=False (the reference's path) builds host pools of both files
+        (features on the card, Harvest f0 or its `<stem>_f0.npy` sidecar,
+        the whole-utterance spectrogram's harmonics), matches on the card
+        with matcher 'exact', 'approx' or 'int8', and writes the float
+        waveform. fast=True is the device-resident serving path: pools,
+        match and vocode stay on the device, f0 comes from `self.f0_method`
+        (a host extractor or its sidecar, or 'device'), and the output is
+        quantized to int16 on the device and downloaded once;
+        upload_dtype='int16' quantizes its two waveform uploads to 16 bits
+        (lossless for 16-bit-sourced audio)."""
         if not prioritize_f0:
             raise ValueError("prioritize_f0 is mandatory on the reference live path (ref :1375)")
-        from knnsvc_torch.match.serve import quantize_int16
+        if matcher in ("sharded", "sharded_int8"):
+            raise multi_device_error(matcher)
+        if fast:
+            from knnsvc_torch.match.serve import quantize_int16
 
-        wav = self.convert_waveform(src_wav_file, ref_wav_file, topk=topk,
-                                    post_opt=post_opt, matcher=matcher,
-                                    upload_dtype=upload_dtype)
-        with record_function("knnsvc.quantize_download"):
-            pred = quantize_int16(wav).cpu().numpy().astype(np.float32) / 32768.0
+            wav = self.convert_waveform(src_wav_file, ref_wav_file, topk=topk,
+                                        post_opt=post_opt, matcher=matcher,
+                                        upload_dtype=upload_dtype)
+            with record_function("knnsvc.quantize_download"):
+                pred = quantize_int16(wav).cpu().numpy().astype(np.float32) / 32768.0
+        else:
+            results = self.convert_features(Path(src_wav_file), Path(ref_wav_file), topk=topk,
+                                            post_opt=post_opt, matcher=matcher)
+            # pools key utterances by str(Path(...)): './x.wav' still resolves
+            feats = results[str(Path(src_wav_file))]
+            pred = self.vocode(feats.out_feats_weighted, feats.shifted_query_f0,
+                               feats.harmonics_out_feats_weighted)
         if tgt_loudness_db is not None:
             pred = normalize_loudness(pred, self.sr, tgt_loudness_db)
         if output_path is None:
@@ -213,3 +415,329 @@ class KnnSvc:
         with record_function("knnsvc.write_wav"):
             save_audio(output_path, pred, self.sr)
         return output_path
+
+    # ---------------------------------------------------------- fast bulk
+
+    @torch.no_grad()
+    def _device_pool_for_files(self, files, duration_limit: float | None = None):
+        """One device pool over a speaker's utterances, concatenated
+        (features, spectrogram and f0 on the device; harmonics gathered on
+        first use). Utterances under 0.05 s are skipped; duration_limit cuts
+        the pool at limit * 50 frames (the host builder cuts after the
+        utterance that crosses it, ref :408-411)."""
+        from knnsvc_torch.match.pool import DevicePool, build_device_pool, load_utterance
+
+        parts = []
+        total = 0
+        limit_frames = None if duration_limit is None else int(duration_limit * 50)
+        for f in files:
+            wav = load_utterance(f, self.sr)
+            if len(wav) < 0.05 * self.sr:
+                continue
+            p = build_device_pool(wav, self.wavlm, self.weighting, self.weighting, self.sr,
+                                  f0_method=self.f0_method, audio_path=str(f))
+            parts.append(p)
+            total += p.matching.shape[0]
+            if limit_frames is not None and total >= limit_frames:
+                break
+        if not parts:
+            raise ValueError(f"no usable audio in {list(files)[:3]}...")
+        end = total if limit_frames is None else min(total, limit_frames)
+        cat = lambda xs: torch.cat(xs)[:end]
+        matching = cat([p.matching for p in parts])
+        synth = matching if all(p.synth is p.matching for p in parts) else cat(
+            [p.synth for p in parts])
+        return DevicePool(matching, synth, cat([p.spec for p in parts]),
+                          f0=cat([p.f0 for p in parts]), sr=self.sr)
+
+    def _vocode_device_bucketed(self, feats: ConversionFeatures,
+                                bucket_frames: int = BUCKET_FRAMES) -> np.ndarray:
+        """Vocode device-resident features zero-padded to a frame bucket,
+        quantized to int16 on the device and downloaded."""
+        from knnsvc_torch.match.serve import quantize_int16
+
+        T = feats.out_feats_weighted.shape[0]
+        pad = _bucket(T, bucket_frames) - T
+        harm = feats.harmonics_out_feats_weighted
+        wav = self._vocode_tensor(
+            torch.nn.functional.pad(feats.out_feats_weighted, (0, 0, 0, pad))[None],
+            torch.nn.functional.pad(feats.shifted_query_f0, (0, pad))[None],
+            None if harm is None else torch.nn.functional.pad(harm, (0, 0, 0, pad))[None])
+        q = quantize_int16(wav[0, : T * self.h.hop_size])
+        return q.cpu().numpy().astype(np.float32) / 32768.0
+
+    class _HostQueryCache:
+        """Host-RAM LRU of (matching, f0) query tracks keyed by source file:
+        a conversion's query side reads only those two, so each source
+        utterance is encoded once per cache lifetime and re-uploaded per use
+        (~3 MB per 15 s); `cap` bounds host RAM (2048 entries ~ 6 GB). LRU,
+        not FIFO, so the bulk loops' per-target scans keep the entry they
+        need next."""
+
+        def __init__(self, svc, cap: int = 2048):
+            self._svc = svc
+            self._cap = cap
+            self._d: collections.OrderedDict = collections.OrderedDict()
+
+        def get(self, src_file):
+            key = str(src_file)
+            if key in self._d:
+                self._d.move_to_end(key)
+                return self._d[key]
+            if len(self._d) >= self._cap:
+                self._d.popitem(last=False)
+            p = self._svc._device_pool_for_files([src_file])
+            self._d[key] = (p.matching.cpu().numpy(), p.f0.cpu().numpy())
+            return self._d[key]
+
+    @staticmethod
+    def _bucket_pad_query(m: np.ndarray, f0: np.ndarray, bucket: int = BUCKET_FRAMES):
+        """Pad a (T, D) query and its (T,) f0 to the next frame-bucket
+        multiple: features by edge replication, f0 by zeros (unvoiced, so
+        the voiced-median register shift is unchanged). -> (m, f0, T)."""
+        T = m.shape[0]
+        Tb = _bucket(T, bucket)
+        if Tb != T:
+            m = np.concatenate([m, np.repeat(m[-1:], Tb - T, axis=0)], 0)
+            f0 = np.concatenate([f0, np.zeros(Tb - T, f0.dtype)], 0)
+        return m, f0, T
+
+    @staticmethod
+    def _out_path(converted_audio_dir, spk, src_file, tgt_spk) -> str:
+        """<dir>/<src_spk>/<utt>/<tgt_spk>.wav (ref ddsp_matcher.py:1127-1133)."""
+        return os.path.join(converted_audio_dir, os.path.basename(spk),
+                            os.path.basename(str(src_file)).split(".")[0],
+                            os.path.basename(str(tgt_spk)) + ".wav")
+
+    def _write(self, out: str, pred: np.ndarray, tgt_loudness_db, written: list) -> None:
+        if tgt_loudness_db is not None:
+            pred = normalize_loudness(pred, self.sr, tgt_loudness_db)
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        save_audio(out, pred, self.sr)
+        written.append(out)
+
+    def _bulk_convert_fast(self, src_spks, tgt_spks, same_root, converted_audio_dir, topk,
+                           prioritize_f0, post_opt, required, duration_limit, tgt_loudness_db,
+                           resume, matcher) -> list[str]:
+        """Device-resident bulk loop, target-outer: one target device pool
+        alive at a time, source query tracks in a host LRU, each query
+        bucket-padded, matched on the card and vocoded bucket-padded with the
+        int16 download. As the host loop but: the fast path's f0
+        (`self.f0_method`), no VAD, bucket-padded vocoding (<= 1e-4 per
+        sample plus one int16 step)."""
+        from knnsvc_torch.match.pipeline import match_utterance, subset_key
+        from knnsvc_torch.match.pool import list_speaker_utterances
+
+        if matcher not in ("exact", "approx"):
+            raise ValueError(f"bulk_convert(fast=True) takes matcher 'exact' or 'approx', "
+                             f"not {matcher!r}")
+        popt = PostOpt.parse(post_opt)
+        queries = self._HostQueryCache(self)
+        written: list[str] = []
+        for j, tgt_spk in enumerate(tgt_spks):
+            ref = None     # built on first use: resume and subset runs may skip a target
+            for i, spk in enumerate(src_spks):
+                if same_root and i == j:
+                    continue
+                for src_file in list_speaker_utterances(spk):
+                    out = self._out_path(converted_audio_dir, spk, src_file, tgt_spk)
+                    if resume and os.path.exists(out):
+                        continue
+                    if required is not None and subset_key(str(src_file),
+                                                           str(tgt_spk)) not in required:
+                        continue
+                    if ref is None:
+                        with record_function("knnsvc.speaker_pool"):
+                            ref = self._device_pool_for_files(
+                                list_speaker_utterances(tgt_spk), duration_limit)
+                    with record_function("knnsvc.speaker_pool"):
+                        m, qf0, T = self._bucket_pad_query(*queries.get(src_file))
+                    with record_function("knnsvc.bulk_match"):
+                        feats = match_utterance(
+                            m, qf0, ref.matching, ref.synth, ref.f0,
+                            ref.harmonics if uses_harmonics(self.ckpt_type) else None,
+                            ckpt_type=self.ckpt_type, post_opt=popt, topk=topk,
+                            prioritize_f0=prioritize_f0, matcher=matcher, as_numpy=False)
+                    harm = feats.harmonics_out_feats_weighted
+                    feats = ConversionFeatures(feats.out_feats_weighted[:T],
+                                               feats.shifted_query_f0[:T],
+                                               None if harm is None else harm[:T])
+                    with torch.no_grad():
+                        pred = self._vocode_device_bucketed(feats)
+                    self._write(out, pred, tgt_loudness_db, written)
+        return written
+
+    def _bulk_convert_fast_batched(self, src_spks, tgt_spks, same_root, converted_audio_dir,
+                                   topk, prioritize_f0, post_opt, required, duration_limit,
+                                   tgt_loudness_db, resume, matcher, data_batch) -> list[str]:
+        """Bulk serving `data_batch` conversions at a time: jobs grouped by
+        (target speaker, frame bucket), each group through one batched match
+        (match_utterances_batched) and one batched vocoder call with one
+        int16 download. A short group is filled by repeating its last job,
+        whose rows are computed and dropped. Per utterance as
+        `_bulk_convert_fast` (same padding, same buckets)."""
+        from knnsvc_torch.match.pipeline import match_utterances_batched, subset_key
+        from knnsvc_torch.match.pool import list_speaker_utterances
+        from knnsvc_torch.match.serve import quantize_int16
+
+        if matcher not in ("exact", "approx"):
+            raise ValueError(f"batched bulk serving takes matcher 'exact' or 'approx', "
+                             f"not {matcher!r}")
+        if not prioritize_f0:
+            raise ValueError("prioritize_f0 is mandatory on the reference live path (ref :1375)")
+        popt = PostOpt.parse(post_opt)
+        by_tgt: dict = {}
+        for i, spk in enumerate(src_spks):
+            for src_file in list_speaker_utterances(spk):
+                for j, tgt_spk in enumerate(tgt_spks):
+                    if same_root and i == j:
+                        continue
+                    out = self._out_path(converted_audio_dir, spk, src_file, tgt_spk)
+                    if resume and os.path.exists(out):
+                        continue
+                    if required is not None and subset_key(str(src_file),
+                                                           str(tgt_spk)) not in required:
+                        continue
+                    by_tgt.setdefault(tgt_spk, []).append((src_file, out))
+        queries = self._HostQueryCache(self)
+        use_harm = uses_harmonics(self.ckpt_type)
+        written: list[str] = []
+        for tgt_spk, jobs in by_tgt.items():   # one target pool alive at a time
+            with record_function("knnsvc.speaker_pool"):
+                ref = self._device_pool_for_files(list_speaker_utterances(tgt_spk),
+                                                  duration_limit)
+                by_bucket: dict[int, list] = {}
+                for job in jobs:
+                    by_bucket.setdefault(_bucket(queries.get(job[0])[0].shape[0]),
+                                         []).append(job)
+            for bucket, bucket_jobs in by_bucket.items():
+                for start in range(0, len(bucket_jobs), data_batch):
+                    chunk = bucket_jobs[start:start + data_batch]
+                    padded = chunk + [chunk[-1]] * (data_batch - len(chunk))
+                    with record_function("knnsvc.speaker_pool"):
+                        tracks = [self._bucket_pad_query(*queries.get(job[0])) for job in padded]
+                    with record_function("knnsvc.bulk_match"):
+                        out_b, f0_b, harm_b = match_utterances_batched(
+                            np.stack([t[0] for t in tracks]), np.stack([t[1] for t in tracks]),
+                            ref.matching, ref.synth, ref.f0,
+                            ref.harmonics if use_harm else None, ckpt_type=self.ckpt_type,
+                            post_opt=popt, topk=topk, matcher=matcher)
+                    with torch.no_grad():
+                        q16 = quantize_int16(self._vocode_tensor(out_b, f0_b, harm_b)).cpu().numpy()
+                    for row, ((_, out), track) in enumerate(zip(chunk, tracks)):
+                        pred = q16[row, : track[2] * self.h.hop_size].astype(np.float32) / 32768.0
+                        self._write(out, pred, tgt_loudness_db, written)
+        return written
+
+    def bulk_convert(self, src_dataset_path: str, tgt_dataset_path: str,
+                     converted_audio_dir: str, topk: int = 4, prioritize_f0: bool = True,
+                     post_opt: str = "no_post_opt", required_subset_file: str | None = None,
+                     duration_limit: float | None = None,
+                     tgt_loudness_db: float | None = None, resume: bool = False,
+                     batch_vocode: bool = False, pool_cache_dir: str | None = None,
+                     matcher: str = "exact", max_cached_pools: int = 8, fast: bool = False,
+                     data_batch: int | None = None) -> list[str]:
+        """Dataset -> dataset (ref bulk_match :1027-1156): every (source
+        speaker, target speaker) pair but the same-index self pairs when both
+        roots are one; outputs `<dir>/<src_spk>/<utt>/<tgt_spk>.wav`; returns
+        the paths written. Speaker folders are the roots' subfolders, those
+        named `f0_cache` excepted. resume=True skips outputs that exist;
+        required_subset_file (a CSV) keeps the `row[2]` keys of the rows
+        whose last field is "0" (ref :1178-1181).
+
+        fast=False, the host loop (source-outer): host pools, built once per
+        source speaker and kept for the target speakers in a FIFO of at most
+        `max_cached_pools` (on disk under pool_cache_dir when given),
+        matched on the card; batch_vocode vocodes a pair's utterances in
+        frame buckets. fast=True, the device-resident loop (target-outer):
+        per-utterance device pools, the fast path's f0, bucketed queries and
+        vocoding, int16 downloads; data_batch > 1 converts that many
+        utterances per batched match and vocoder call. The fast loops ignore
+        batch_vocode and pool_cache_dir."""
+        if matcher in ("sharded", "sharded_int8"):
+            raise multi_device_error(matcher)
+        if not (os.path.isdir(src_dataset_path) and os.path.isdir(tgt_dataset_path)):
+            raise ValueError("bulk_convert takes two dataset roots of speaker folders")
+        os.makedirs(converted_audio_dir, exist_ok=True)
+
+        def spk_folders(root):
+            return sorted(p for p in Path(root).iterdir()
+                          if p.is_dir() and "f0_cache" not in os.path.basename(p))
+
+        src_spks, tgt_spks = spk_folders(src_dataset_path), spk_folders(tgt_dataset_path)
+        for root, spks in ((src_dataset_path, src_spks), (tgt_dataset_path, tgt_spks)):
+            if not spks:
+                raise ValueError(f"{root} must be a dataset root of speaker folders")
+        required = None
+        if required_subset_file:
+            with open(required_subset_file) as fp:
+                rows = csv.reader(fp, delimiter=",", quotechar='"')
+                required = {row[2] for i, row in enumerate(rows) if i != 0 and row[-1] == "0"}
+        same_root = src_dataset_path == tgt_dataset_path
+
+        if fast:
+            args = (src_spks, tgt_spks, same_root, converted_audio_dir, topk, prioritize_f0,
+                    post_opt, required, duration_limit, tgt_loudness_db, resume, matcher)
+            if data_batch is not None and data_batch > 1:
+                return self._bulk_convert_fast_batched(*args, data_batch)
+            return self._bulk_convert_fast(*args)
+
+        from knnsvc_torch.match.pipeline import subset_key
+        from knnsvc_torch.match.pool import build_speaker_pool_cached
+
+        written: list[str] = []
+        # each target pool serves every source speaker: built once, kept in
+        # a bounded FIFO (hours-scale host pools are ~10 KB per frame)
+        tgt_pools: dict = {}
+
+        def tgt_pool_for(tgt_spk):
+            if tgt_spk not in tgt_pools:
+                if len(tgt_pools) >= max_cached_pools:
+                    tgt_pools.pop(next(iter(tgt_pools)))
+                with record_function("knnsvc.speaker_pool"):
+                    tgt_pools[tgt_spk] = build_speaker_pool_cached(
+                        tgt_spk, self.wavlm, self.weighting, self.weighting,
+                        cache_dir=pool_cache_dir, duration_limit=duration_limit)
+            return tgt_pools[tgt_spk]
+
+        for i, spk in enumerate(src_spks):
+            with record_function("knnsvc.speaker_pool"):
+                src_pool = build_speaker_pool_cached(spk, self.wavlm, self.weighting,
+                                                     self.weighting, cache_dir=pool_cache_dir)
+            for j, tgt_spk in enumerate(tgt_spks):
+                if same_root and i == j:
+                    continue
+                pair_subset = required
+                if resume:
+                    todo = [u for u in src_pool.utterances
+                            if not os.path.exists(self._out_path(converted_audio_dir, spk, u,
+                                                                 tgt_spk))]
+                    if not todo:
+                        continue
+                    # convert only the missing outputs, through the subset filter
+                    todo_keys = {subset_key(u, str(tgt_spk)) for u in todo}
+                    pair_subset = todo_keys if required is None else todo_keys & required
+                results = self.convert_features(
+                    spk, tgt_spk, topk=topk, prioritize_f0=prioritize_f0, post_opt=post_opt,
+                    duration_limit=duration_limit, required_subset=pair_subset,
+                    query_pool=src_pool, ref_pool=tgt_pool_for(tgt_spk), matcher=matcher)
+                batch_preds: dict[str, np.ndarray] = {}
+                if batch_vocode and results:
+                    keys = list(results)
+                    batch_preds = dict(zip(keys, self.vocode_batch([results[k] for k in keys])))
+                for src_file, feats in results.items():
+                    out = self._out_path(converted_audio_dir, spk, src_file, tgt_spk)
+                    if resume and os.path.exists(out):
+                        continue
+                    pred = batch_preds.get(src_file)
+                    if pred is None:
+                        pred = self.vocode(feats.out_feats_weighted, feats.shifted_query_f0,
+                                           feats.harmonics_out_feats_weighted)
+                    self._write(out, pred, tgt_loudness_db, written)
+        return written
+
+
+def knn_vc(ckpt_dir: str, ckpt_type: str = "mix", wavlm_ckpt: str | None = None,
+           config_path: str | None = None, device: str | torch.device = "cuda") -> KnnSvc:
+    """Factory of the reference's ddsp_hubconf.knn_vc(ckpt_type, local_ckpt_dir)."""
+    return KnnSvc.load(ckpt_dir, ckpt_type, wavlm_ckpt, config_path, device=device)

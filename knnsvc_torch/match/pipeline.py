@@ -1,21 +1,39 @@
-"""The match stage (counterpart of knnsvc_tpu/match/pipeline.py: `_match_core`
-and `_match_core_post_opt`).
+"""The match stage (counterpart of knnsvc_tpu/match/pipeline.py).
+
+`match_core` and `match_core_post_opt` are the JAX package's `_match_core`
+and `_match_core_post_opt`, the serving path's match. The host-pool and
+bulk paths add `match_utterance` (one utterance against a prepared target
+pool: exact/approx through those two, int8 through the step path),
+`match_at_inference_time` (source pool x target pool), and
+`match_utterances_batched` (a batch of equal-length queries against one
+pool, the vmapped `_match_core_batch` there: here the kNN runs as one block
+over the batch and the serial stages, concat cost and smoothness, loop
+over its utterances).
 
 Ordering quirks kept from the reference (ref ddsp_prematch_dataset.py:1074-1459):
 the WavLM feature output uses the unpitched selection (top-k of the raw kNN,
 optionally concat-reselected), while the harmonic amplitudes use the
 f0-prioritized selection, re-sorted from the original 32 candidates
 (optionally pitched-concat-reselected); uniform mean weights when the
-smoothness optimizer is off.
+smoothness optimizer is off; prioritize_f0 is mandatory (ref :1375).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
+from pathlib import Path
+from typing import Iterable
+
+import numpy as np
 import torch
 from torch.profiler import record_function
 
+from knnsvc_torch.config import PostOpt, uses_harmonics
 from knnsvc_torch.match.f0_logic import shift_f0_to_target_register, sort_by_f0_compatibility
 from knnsvc_torch.match.knn import knn_topk
+from knnsvc_torch.match.pool import SpeakerPool, build_speaker_pool
+from knnsvc_torch.match.quantized_pool import QuantizedPool, knn_topk_quantized, quantize_pool
 from knnsvc_torch.match.smoothness import (HARMONICS_LOSS_SCALE, WAVLM_LOSS_SCALE,
                                            optimize_smoothness_weights)
 from knnsvc_torch.ops.concat_scan import concat_cost_pair, concat_cost_single
@@ -80,3 +98,215 @@ def match_core_post_opt(q: torch.Tensor, matching: torch.Tensor, synth: torch.Te
         harm = (_weighted(harmonics, pitched_idx, opt_enabled, HARMONICS_LOSS_SCALE)
                 if use_harmonics else None)
     return out, shifted, harm
+
+
+# ------------------------------------------------------- host-pool / bulk paths
+
+
+def multi_device_error(matcher: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"matcher {matcher!r}: the multi-device matchers are still to port "
+        "(ROADMAP.md, Queue 1 item 11)")
+
+
+@dataclasses.dataclass
+class ConversionFeatures:
+    """Vocoder inputs of one source utterance: numpy arrays, or tensors on
+    the device when a caller asked for them there (as_numpy=False)."""
+
+    out_feats_weighted: np.ndarray | torch.Tensor                   # (T, D)
+    shifted_query_f0: np.ndarray | torch.Tensor                     # (T,)
+    harmonics_out_feats_weighted: np.ndarray | torch.Tensor | None = None  # (T, 49), mix only
+
+
+def subset_key(src_path: str, ref_path: str) -> str:
+    """Membership key of required_subset filtering (ref :1181)."""
+    return os.path.basename(src_path).split(".")[0] + "/" + os.path.basename(ref_path)
+
+
+def _prepare_ref_pool(ref_pool: SpeakerPool, need_fp32_matching: bool, need_harmonics: bool,
+                      need_quantized: bool, device: torch.device) -> dict:
+    """The target pool's device copies, made once and memoized ON the pool
+    object: SpeakerPool's concatenated views re-run np.concatenate on each
+    access and quantize_pool is an O(P D) host pass, and a bulk run shares
+    each target pool across every source speaker. Living on the pool, the
+    copies are freed with it when the bulk loop's FIFO evicts it."""
+    prep = ref_pool.__dict__.setdefault("_device_prep", {})
+    if prep.get("device") != device:
+        prep.clear()
+        prep["device"] = device
+    if "host_matching" not in prep:
+        prep["host_matching"] = ref_pool.matching
+    if "synth" not in prep:
+        prep["synth"] = torch.from_numpy(ref_pool.synth).to(device)
+        prep["f0"] = torch.from_numpy(ref_pool.f0).to(device)
+    if need_fp32_matching and "matching" not in prep:
+        prep["matching"] = torch.from_numpy(prep["host_matching"]).to(device)
+    if need_harmonics and "harmonics" not in prep:
+        prep["harmonics"] = torch.from_numpy(ref_pool.harmonics).to(device)
+    if need_quantized and "quantized" not in prep:
+        prep["quantized"] = quantize_pool(prep["host_matching"], device)
+    return prep
+
+
+def _to_numpy(x: torch.Tensor | None) -> np.ndarray | None:
+    return None if x is None else x.detach().to(torch.float32).cpu().numpy()
+
+
+@torch.no_grad()
+def match_utterance(query_seq, query_f0, matching_list: torch.Tensor | None,
+                    synth_list: torch.Tensor, matching_f0: torch.Tensor,
+                    harmonics_list: torch.Tensor | None, ckpt_type: str, post_opt: PostOpt,
+                    topk: int = 4, prioritize_f0: bool = True, matcher: str = "exact",
+                    quantized: QuantizedPool | None = None, as_numpy: bool = True,
+                    query_f0_log_median: float | None = None) -> ConversionFeatures:
+    """Convert one utterance against a prepared target pool on the pool's
+    device. query_seq (T, D) and query_f0 (T,) are numpy or tensors.
+
+    matcher: 'exact' and 'approx' (both exact search here) run `match_core`
+    or `match_core_post_opt`; 'int8' (pass `quantized`) the step path: the
+    int8 kNN, the register shift, the unpitched lane's concat-cost
+    reselection, then the pitched lane's (one kernel launch each on a card),
+    then the smoothness optimizer. as_numpy=False leaves the outputs on the
+    device. query_f0_log_median overrides the query's own log-median in the
+    register shift (None: the reference semantics)."""
+    if not prioritize_f0:
+        raise ValueError("prioritize_f0 is mandatory on the reference live path (ref :1375)")
+    if matcher in ("sharded", "sharded_int8"):
+        raise multi_device_error(matcher)
+    if matcher not in ("exact", "approx", "int8"):
+        raise ValueError(f"matcher must be 'exact', 'approx' or 'int8', not {matcher!r}")
+    device = synth_list.device
+    q = torch.as_tensor(query_seq).to(device=device, dtype=torch.float32)
+    qf0 = torch.as_tensor(query_f0).to(device=device, dtype=torch.float32)
+    use_harm = uses_harmonics(ckpt_type)
+    if use_harm and harmonics_list is None:
+        raise ValueError(f"{ckpt_type} needs the pool's harmonic amplitudes")
+
+    if matcher in ("exact", "approx"):
+        if matching_list is None:
+            raise ValueError(f"matcher {matcher!r} needs the fp32 matching pool")
+        args = (q, matching_list, synth_list, matching_f0, harmonics_list, qf0,
+                query_f0_log_median)
+        if not post_opt.enabled and post_opt.concat_weight == -1.0:
+            out, shifted, harm = match_core(*args, topk=topk, use_harmonics=use_harm)
+        else:
+            out, shifted, harm = match_core_post_opt(
+                *args, topk=topk, use_harmonics=use_harm,
+                concat_weight=post_opt.concat_weight, opt_enabled=post_opt.enabled)
+    else:
+        if quantized is None:
+            raise ValueError("matcher 'int8' needs the quantized pool")
+        if post_opt.concat_weight != -1.0 and matching_list is None:
+            raise ValueError("the concat cost reads the fp32 matching pool")
+        nearest_nbrs, _ = knn_topk_quantized(q, quantized, k=KNN_CANDIDATES)
+        shifted = shift_f0_to_target_register(qf0, matching_f0, query_f0_log_median)
+        target_idx = nearest_nbrs[:, :topk]
+        pitched_idx = (sort_by_f0_compatibility(shifted, matching_f0, nearest_nbrs)[:, :topk]
+                       if use_harm else None)
+        if post_opt.concat_weight != -1.0:
+            with record_function("knnsvc.concat_cost"):
+                target_idx = concat_cost_single(target_idx, q, matching_list,
+                                                concat_weight=post_opt.concat_weight)
+                if use_harm:
+                    pitched_idx = concat_cost_single(pitched_idx, q, matching_list, shifted,
+                                                     matching_f0,
+                                                     concat_weight=post_opt.concat_weight)
+        with record_function("knnsvc.smoothness"):
+            out = _weighted(synth_list, target_idx, post_opt.enabled, WAVLM_LOSS_SCALE)
+            harm = (_weighted(harmonics_list, pitched_idx, post_opt.enabled,
+                              HARMONICS_LOSS_SCALE) if use_harm else None)
+    if not as_numpy:
+        return ConversionFeatures(out, shifted, harm)
+    return ConversionFeatures(_to_numpy(out), _to_numpy(shifted), _to_numpy(harm))
+
+
+@torch.no_grad()
+def match_at_inference_time(src_path: str | Path, ref_path: str | Path, wavlm,
+                            match_weights: np.ndarray, synth_weights: np.ndarray,
+                            topk: int = 4, prioritize_f0: bool = True,
+                            ckpt_type: str = "wavlm_only",
+                            required_subset: Iterable[str] | None = None,
+                            post_opt: str = "no_post_opt", duration_limit: float | None = None,
+                            query_pool: SpeakerPool | None = None,
+                            ref_pool: SpeakerPool | None = None,
+                            matcher: str = "exact") -> dict[str, ConversionFeatures]:
+    """Every source utterance against the target pool, on the encoder's
+    device: {source utterance path: ConversionFeatures (numpy)}. Pools may
+    be passed in to reuse them across pairs (the reference rebuilds them,
+    its cache force-disabled, ref :1086-1087)."""
+    if matcher in ("sharded", "sharded_int8"):
+        raise multi_device_error(matcher)
+    popt = PostOpt.parse(post_opt)
+    required = set(required_subset) if required_subset is not None else None
+    with record_function("knnsvc.speaker_pool"):
+        if query_pool is None:
+            query_pool = build_speaker_pool(src_path, wavlm, match_weights, synth_weights)
+        if ref_pool is None:
+            ref_pool = build_speaker_pool(ref_path, wavlm, match_weights, synth_weights,
+                                          duration_limit=duration_limit)
+    # the fp32 matching pool goes to the device only when something reads it:
+    # the int8 matcher's search does not, its concat cost does
+    need_fp32 = matcher != "int8" or popt.concat_weight != -1.0
+    prep = _prepare_ref_pool(ref_pool, need_fp32, uses_harmonics(ckpt_type),
+                             matcher == "int8", next(wavlm.parameters()).device)
+    results: dict[str, ConversionFeatures] = {}
+    for item, pools in query_pool.utterances.items():
+        if required is not None and subset_key(item, str(ref_path)) not in required:
+            continue
+        results[item] = match_utterance(
+            pools.matching, pools.f0, prep.get("matching"), prep["synth"], prep["f0"],
+            prep.get("harmonics"), ckpt_type, popt, topk=topk, prioritize_f0=prioritize_f0,
+            matcher=matcher, quantized=prep.get("quantized"))
+    return results
+
+
+@torch.no_grad()
+def match_utterances_batched(qs, qf0s, matching: torch.Tensor, synth: torch.Tensor,
+                             pool_f0: torch.Tensor, harmonics: torch.Tensor | None,
+                             ckpt_type: str, post_opt: PostOpt, topk: int = 4,
+                             matcher: str = "approx"):
+    """A batch of equal-length queries (B, Tb, D) with f0 (B, Tb) against one
+    target pool -> (out (B, Tb, D), shifted f0 (B, Tb), harmonics (B, Tb,
+    49) or None), on the pool's device. The kNN runs as one block over the
+    batch's B * Tb rows (each row's search is independent of the others);
+    the register shift uses each utterance's own median, and the concat
+    cost and smoothness, serial in frames, run per utterance — per
+    utterance the result is `match_utterance`'s. The JAX package vmaps its
+    fused core instead and shards the batch over a mesh's 'data' axis;
+    that multi-device form is Queue 1 item 11."""
+    if matcher in ("sharded", "sharded_int8"):
+        raise multi_device_error(matcher)
+    if matcher not in ("exact", "approx"):
+        raise ValueError(f"the batched match takes matcher 'exact' or 'approx', not {matcher!r}")
+    device = synth.device
+    qs = torch.as_tensor(qs).to(device=device, dtype=torch.float32)
+    qf0s = torch.as_tensor(qf0s).to(device=device, dtype=torch.float32)
+    B, Tb, D = qs.shape
+    use_harm = uses_harmonics(ckpt_type)
+    with record_function("knnsvc.knn"):
+        nearest_all, _ = knn_topk(qs.reshape(B * Tb, D), matching, k=KNN_CANDIDATES)
+    nearest_all = nearest_all.reshape(B, Tb, -1)
+    outs, shifts, harms = [], [], []
+    for b in range(B):
+        nearest_nbrs = nearest_all[b]
+        shifted = shift_f0_to_target_register(qf0s[b], pool_f0)
+        target_idx = nearest_nbrs[:, :topk]
+        pitched_idx = (sort_by_f0_compatibility(shifted, pool_f0, nearest_nbrs)[:, :topk]
+                       if use_harm else None)
+        if post_opt.concat_weight != -1.0:
+            with record_function("knnsvc.concat_cost"):
+                if use_harm:
+                    target_idx, pitched_idx = concat_cost_pair(
+                        target_idx, pitched_idx, qs[b], matching, shifted, pool_f0,
+                        concat_weight=post_opt.concat_weight)
+                else:
+                    target_idx = concat_cost_single(target_idx, qs[b], matching,
+                                                    concat_weight=post_opt.concat_weight)
+        with record_function("knnsvc.smoothness"):
+            outs.append(_weighted(synth, target_idx, post_opt.enabled, WAVLM_LOSS_SCALE))
+            if use_harm:
+                harms.append(_weighted(harmonics, pitched_idx, post_opt.enabled,
+                                       HARMONICS_LOSS_SCALE))
+        shifts.append(shifted)
+    return torch.stack(outs), torch.stack(shifts), (torch.stack(harms) if use_harm else None)

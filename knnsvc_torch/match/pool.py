@@ -1,8 +1,18 @@
-"""Device-resident speaker pools for the serving path (counterpart of
-knnsvc_tpu/match/pool.py: load_utterance, harmonic_amplitudes_jax,
-_encode_and_spec, DevicePool, build_device_pool).
+"""Speaker pools (counterpart of knnsvc_tpu/match/pool.py).
 
-A pool of one utterance holds, on the device: WavLM layer features for
+Host pools (the host-pool and bulk paths: UtterancePools, SpeakerPool,
+list_speaker_utterances, chunked_wavlm_features, host_harmonic_amplitudes
+(the JAX package's numpy `harmonic_amplitudes`), build_speaker_pool, its
+.npz save/load and on-disk cache): the encoder runs on its device, and the
+pool's six aligned arrays per utterance are host numpy, as in the JAX
+package — the bulk loop's memory design (a FIFO of target pools in host
+RAM, uploaded once per use by match/pipeline._prepare_ref_pool) rests on
+it. Unlike the device pool, each utterance takes ONE linear spectrogram of
+the whole waveform, sliced to the feature rows (ref :361-366).
+
+Device pools (the serving path: harmonic_amplitudes (harmonic_amplitudes_jax
+there), DevicePool, build_device_pool). A pool of one utterance holds, on
+the device: WavLM layer features for
 matching and synthesis (T, 1024), the linear spectrogram (T, 200) and f0
 (T,). Kept from the JAX package, frame for frame:
 - WavLM runs on 30-s chunks, each padded to a hop multiple with a FULL
@@ -19,11 +29,15 @@ matching and synthesis (T, 1024), the linear spectrogram (T, 200) and f0
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import hashlib
 import logging
+import os
 import threading
 from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
+from typing import Callable
 
 import numpy as np
 import torch
@@ -36,6 +50,7 @@ from knnsvc_torch.dsp.stft import linear_spectrogram
 from knnsvc_torch.io.audio import load_audio, resample, to_mono
 from knnsvc_torch.utils.layer_weights import one_hot_layer
 
+AUDIO_EXTENSIONS = {".flac", ".wav", ".mp3"}  # ref ddsp_prematch_dataset.py:313
 CHUNK_SECONDS = 30                            # ref :277
 MIN_CHUNK_SECONDS = 0.02                      # ref :279
 N_HARMONICS = 49                              # ref :391 (arange(1, 50))
@@ -50,6 +65,216 @@ def load_utterance(path: str | Path, target_sr: int = SAMPLE_RATE) -> np.ndarray
     if sr != target_sr:
         x = resample(x, sr, target_sr)
     return np.asarray(x[0], dtype=np.float32)
+
+
+@dataclasses.dataclass
+class UtterancePools:
+    """Six frame-aligned host pools of one utterance (ref :343-404)."""
+
+    matching: np.ndarray    # (T, D) layer-weighted WavLM features for the kNN
+    synth: np.ndarray       # (T, D) layer-weighted WavLM features for synthesis
+    audio: np.ndarray       # (T, 320) waveform frames
+    spec: np.ndarray        # (T, 200) linear |STFT| frames
+    f0: np.ndarray          # (T,) Hz, 0 = unvoiced
+    harmonics: np.ndarray   # (T, 49) harmonic amplitudes
+
+
+@dataclasses.dataclass
+class SpeakerPool:
+    """Per-utterance pools plus concatenated views (ref :1143-1168); each
+    view concatenates anew on access."""
+
+    utterances: dict[str, UtterancePools]
+
+    def _cat(self, field: str) -> np.ndarray:
+        return np.concatenate([getattr(u, field) for u in self.utterances.values()], axis=0)
+
+    matching = property(lambda self: self._cat("matching"))
+    synth = property(lambda self: self._cat("synth"))
+    audio = property(lambda self: self._cat("audio"))
+    spec = property(lambda self: self._cat("spec"))
+    f0 = property(lambda self: self._cat("f0"))
+    harmonics = property(lambda self: self._cat("harmonics"))
+
+    @property
+    def utterance_start_indices(self) -> list[int]:
+        starts = [0]
+        for u in self.utterances.values():
+            starts.append(starts[-1] + len(u.matching))
+        return starts
+
+
+def list_speaker_utterances(path: str | Path) -> list[Path]:
+    """A single audio file, or every audio file under a folder, sorted
+    (ref :313-323)."""
+    path = Path(path)
+    if path.is_file() and path.suffix.lower() in AUDIO_EXTENSIONS:
+        return [path]
+    utts = sorted(p for p in path.rglob("**/*") if p.suffix.lower() in AUDIO_EXTENSIONS)
+    if not utts:
+        raise FileNotFoundError(f"directory not containing any audio {path}")
+    return utts
+
+
+@torch.no_grad()
+def chunked_wavlm_features(wav: np.ndarray, wavlm, match_weights: np.ndarray,
+                           synth_weights: np.ndarray, sr: int = SAMPLE_RATE,
+                           encode_mode: str = "exact") -> tuple[np.ndarray, np.ndarray]:
+    """(T_samples,) -> host (matching (T, D), synth (T, D)) over 30-s chunks
+    on the encoder's device (ref get_full_wavlm_features :269-296). Each
+    chunk is padded by the reference's hop quirk. One-hot weightings run the
+    early-exit encoder (`encode_mode='bucketed'`: its masked bucketed form);
+    any other weighting the weighted sum of the all-layer stack."""
+    if encode_mode not in ("exact", "bucketed"):
+        raise ValueError(f"encode_mode must be 'exact' or 'bucketed', not {encode_mode!r}")
+    m_hot, s_hot = one_hot_layer(match_weights), one_hot_layer(synth_weights)
+    device = next(wavlm.parameters()).device
+    extract = wavlm.extract_layer_bucketed if encode_mode == "bucketed" else wavlm.extract_layer
+    matching_chunks, synth_chunks = [], []
+    chunk_len = CHUNK_SECONDS * sr
+    for start in range(0, len(wav), chunk_len):
+        chunk = wav[start:start + chunk_len]
+        if len(chunk) <= MIN_CHUNK_SECONDS * sr:
+            break
+        n_pad = HOP_LENGTH - (len(chunk) % HOP_LENGTH)  # full hop when aligned (ref :284)
+        x = torch.from_numpy(np.pad(chunk, (0, n_pad))).to(device)[None]
+        if m_hot is not None and s_hot is not None:
+            if min(m_hot, s_hot) < 1:
+                raise ValueError("a layer-0 one-hot weighting selects the transformer input: "
+                                 "pass it as a non-one-hot weighting")
+            feats = {l: extract(x, output_layer=l)[0].cpu().numpy()
+                     for l in sorted({m_hot, s_hot}, reverse=True)}
+            matching_chunks.append(feats[m_hot])
+            synth_chunks.append(feats[s_hot])
+        else:
+            stack = wavlm.extract_all_layers(x)[:, 0]                  # (L+1, T, D)
+            for w, out in ((match_weights, matching_chunks), (synth_weights, synth_chunks)):
+                w = torch.from_numpy(np.asarray(w, np.float32).reshape(-1, 1, 1)).to(device)
+                out.append((stack * w).sum(0).cpu().numpy())
+    return np.concatenate(matching_chunks), np.concatenate(synth_chunks)
+
+
+def host_harmonic_amplitudes(spec: np.ndarray, f0: np.ndarray,
+                             sr: int = SAMPLE_RATE) -> np.ndarray:
+    """The JAX package's numpy `harmonic_amplitudes`, copied: (T, 200) linear
+    spec + (T,) f0 -> (T, 49) harmonic magnitudes (ref :391-404), the 8x
+    linearly interpolated spectrum read at the bins of k*f0; unvoiced rows
+    get [max spec bin, 0, ..., 0]; x0.0108. float32 bin math with true
+    division (`harmonics * 2 * L / sr`): an int64 arange would promote to
+    float64 and flip boundary bins."""
+    T, n_bins = spec.shape
+    L = n_bins * SPEC_INTERP_FACTOR
+    harmonics = f0[:, None] * np.arange(1, N_HARMONICS + 1, dtype=np.float32)[None, :]
+    idx = np.round(np.clip(harmonics * 2 * L / sr, a_min=None, a_max=L)).astype(int)
+
+    # torch F.interpolate(mode='linear', align_corners=False) at 8x grid
+    # point g: source position (g + 0.5)/8 - 0.5 between bins
+    in_range = idx < L                                   # == L hit the ref's zero pad column
+    g = np.where(in_range, idx, 0)
+    out_pos = (g + 0.5) / SPEC_INTERP_FACTOR - 0.5
+    lo = np.clip(np.floor(out_pos).astype(int), 0, n_bins - 1)
+    hi = np.clip(lo + 1, 0, n_bins - 1)
+    frac = np.clip(out_pos - np.floor(out_pos), 0.0, 1.0)
+    frac = np.where(out_pos < 0, 0.0, frac)
+    rows = np.arange(T)[:, None]
+    gathered = spec[rows, lo] * (1 - frac) + spec[rows, hi] * frac
+    gathered = np.where(in_range, gathered, 0.0)
+
+    unvoiced = f0 == 0
+    gathered[unvoiced, 1:] = 0.0
+    gathered[unvoiced, 0] = spec[unvoiced].max(axis=1) if unvoiced.any() else 0.0
+    return (HARMONIC_SCALE * gathered).astype(np.float32)
+
+
+def build_speaker_pool(path: str | Path, wavlm, match_weights: np.ndarray,
+                       synth_weights: np.ndarray, duration_limit: float | None = None,
+                       f0_fn: Callable[[np.ndarray, int, str], np.ndarray] | None = None,
+                       sr: int = SAMPLE_RATE, encode_mode: str = "exact") -> SpeakerPool:
+    """Host pools of a speaker's utterances (ref get_complete_spk_pool
+    :301-414): features on the encoder's device, one whole-utterance linear
+    spectrogram there, f0 from `f0_fn(wav, sr, path)` or else the host
+    extractor's default method ('harvest', its `<stem>_f0.npy` sidecar
+    first), everything else on the host. duration_limit (seconds) stops
+    after the utterance that crosses it (ref :408-411)."""
+    device = next(wavlm.parameters()).device
+    utterances: dict[str, UtterancePools] = {}
+    accumulated = 0.0
+    for pth in list_speaker_utterances(path):
+        wav = load_utterance(pth, sr)
+        matching, synth = chunked_wavlm_features(wav, wavlm, match_weights, synth_weights,
+                                                 sr, encode_mode=encode_mode)
+        T = len(matching)
+        if len(wav) < HOP_LENGTH * T:
+            raise ValueError(f"{pth}: {len(wav)} samples for {T} feature frames")
+        audio_frames = wav[: HOP_LENGTH * T].reshape(T, HOP_LENGTH)
+        with torch.no_grad():
+            spec = linear_spectrogram(torch.from_numpy(wav).to(device)).cpu().numpy()
+        if spec.shape[0] < T:
+            raise ValueError(f"{pth}: {spec.shape[0]} spectrogram frames for {T} feature frames")
+        spec = spec[:T]
+        f0 = get_f0(wav, sr, audio_path=str(pth)) if f0_fn is None else f0_fn(wav, sr, str(pth))
+        if not (abs(len(f0) - T) <= 1 and len(f0) >= T):
+            raise ValueError(f"{pth}: f0 has {len(f0)} frames for {T} feature frames "
+                             "(truncated or mismatched sidecar?)")
+        f0 = np.asarray(f0[:T], dtype=np.float32)
+        utterances[str(pth)] = UtterancePools(
+            matching=matching, synth=synth, audio=audio_frames.astype(np.float32),
+            spec=spec.astype(np.float32), f0=f0,
+            harmonics=host_harmonic_amplitudes(spec, f0, sr))
+        accumulated += T * HOP_LENGTH / sr
+        if duration_limit is not None and accumulated >= duration_limit:
+            break
+    return SpeakerPool(utterances)
+
+
+_POOL_FIELDS = ("matching", "synth", "audio", "spec", "f0", "harmonics")
+
+
+def save_speaker_pool(pool: SpeakerPool, path: str | Path) -> None:
+    """One .npz per pool: keys <idx>|<field> and the utterance paths
+    (`__paths__`), the JAX package's layout."""
+    arrays: dict[str, np.ndarray] = {"__paths__": np.array(list(pool.utterances.keys()))}
+    for i, utt in enumerate(pool.utterances.values()):
+        for field in _POOL_FIELDS:
+            arrays[f"{i}|{field}"] = getattr(utt, field)
+    np.savez(path, **arrays)
+
+
+def load_speaker_pool(path: str | Path) -> SpeakerPool:
+    data = np.load(path, allow_pickle=False)
+    return SpeakerPool({
+        str(p): UtterancePools(**{field: data[f"{i}|{field}"] for field in _POOL_FIELDS})
+        for i, p in enumerate(data["__paths__"])})
+
+
+def build_speaker_pool_cached(path: str | Path, wavlm, match_weights: np.ndarray,
+                              synth_weights: np.ndarray, cache_dir: str | Path | None = None,
+                              **kwargs) -> SpeakerPool:
+    """build_speaker_pool with an optional on-disk cache (the reference's
+    force-disabled one, ref ddsp_prematch_dataset.py:1086-1138), keyed by
+    the speaker path, both weightings, duration_limit, encode_mode and a
+    fingerprint of the encoder (its relative-position table and first
+    LayerNorm scale, the parameters the JAX package fingerprints)."""
+    if cache_dir is None:
+        return build_speaker_pool(path, wavlm, match_weights, synth_weights, **kwargs)
+    os.makedirs(cache_dir, exist_ok=True)
+    fp = hashlib.sha1()
+    for probe in (getattr(wavlm.encoder, "rel_attn_bias", None), wavlm.layer_norm.weight):
+        if probe is not None:
+            fp.update(probe.detach().cpu().numpy().tobytes())
+    key_src = (str(Path(path).resolve())
+               + "|" + np.asarray(match_weights).tobytes().hex()
+               + "|" + np.asarray(synth_weights).tobytes().hex()
+               + "|" + str(kwargs.get("duration_limit"))
+               + "|" + kwargs.get("encode_mode", "exact")
+               + "|" + fp.hexdigest())
+    key = hashlib.sha1(key_src.encode()).hexdigest()[:16]
+    cache_file = Path(cache_dir) / f"{Path(path).name}_{key}.pool.npz"
+    if cache_file.is_file():
+        return load_speaker_pool(cache_file)
+    pool = build_speaker_pool(path, wavlm, match_weights, synth_weights, **kwargs)
+    save_speaker_pool(pool, cache_file)
+    return pool
 
 
 def harmonic_amplitudes(spec: torch.Tensor, f0: torch.Tensor,
@@ -96,15 +321,27 @@ class DevicePool:
     joins it and moves the f0 to the pool's device."""
 
     def __init__(self, matching: torch.Tensor, synth: torch.Tensor, spec: torch.Tensor,
-                 f0: torch.Tensor | None = None, f0_future: Future | None = None):
+                 f0: torch.Tensor | None = None, f0_future: Future | None = None,
+                 sr: int = SAMPLE_RATE):
         if (f0 is None) == (f0_future is None):
             raise ValueError("a DevicePool takes exactly one of f0 and f0_future")
         self.matching = matching   # (T, D)
         self.synth = synth         # (T, D)
         self.spec = spec           # (T, 200)
+        self.sr = sr
         self._f0 = f0
         self._f0_future = f0_future
+        self._harmonics = None
         self._lock = threading.Lock()
+
+    @property
+    def harmonics(self) -> torch.Tensor:
+        """(T, 49) harmonic amplitudes of the pool's spectrogram and f0,
+        gathered on first access and kept (the bulk loops' target pools; the
+        serving core gathers them inline instead)."""
+        if self._harmonics is None:
+            self._harmonics = harmonic_amplitudes(self.spec, self.f0, self.sr)
+        return self._harmonics
 
     @property
     def f0(self) -> torch.Tensor:
@@ -205,5 +442,5 @@ def build_device_pool(wav: np.ndarray, wavlm, match_weights: np.ndarray,
     if spec.shape[0] != matching.shape[0]:
         raise AssertionError((spec.shape, matching.shape))
     if on_device_f0:
-        return DevicePool(matching, synth, spec, f0=torch.cat(f0s)[:matching.shape[0]])
-    return DevicePool(matching, synth, spec, f0_future=f0_future)
+        return DevicePool(matching, synth, spec, f0=torch.cat(f0s)[:matching.shape[0]], sr=sr)
+    return DevicePool(matching, synth, spec, f0_future=f0_future, sr=sr)

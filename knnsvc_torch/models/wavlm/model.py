@@ -12,15 +12,22 @@ Architecture (ref wavlm/WavLM.py, wavlm/modules.py), as in the JAX package:
   it per query with gru_rel_pos values computed from the layer's post-LN
   attention input (not from q);
 - early exit: `extract_layer(wav, L)` runs only the first L layers and skips
-  the final encoder LayerNorm (ref WavLM.py:567).
+  the final encoder LayerNorm (ref WavLM.py:567);
+- `extract_all_layers` stacks [transformer input, layer 1, ..., layer L]
+  (ref WavLM.py:589-601), so a one-hot weighting at index L selects layer L;
+- `extract_layer_bucketed` pads the waveform to a fixed sample bucket and
+  masks the padded frames: zeroed before the positional conv (ref
+  WavLM.py:574-577) and -inf logits as keys.
 
-Attention with the position bias goes through
+Unmasked attention with the position bias goes through
 ops.attention.gated_bias_attention, one call per batch row — the CUDA
 kernel on a card, in both precision modes (the JAX package keeps its
 HIGHEST mode off the Pallas kernel only because MXU dots are bf16). The
 bias reaches it as its (H, 2T-1) diagonal table, which the kernel expands
-itself; the (H, T, T) tensor never exists on the card. The
-bucketed/masked encoder is not ported yet.
+itself; the (H, T, T) tensor never exists on the card. A masked call (the
+bucketed encoder) runs `masked_attention` in plain PyTorch, as the JAX
+package sends a masked call to its XLA einsums (`_pallas_attention_ok`):
+the kernel takes no mask.
 """
 
 from __future__ import annotations
@@ -37,6 +44,10 @@ from knnsvc_torch.config import WavLMConfig
 from knnsvc_torch.ops.attention import gated_bias_attention, toeplitz_bias
 
 Params = dict[str, Any]
+
+# sample-length buckets of the bucketed encoder: ~1/2/4/8/16/30 s, aligned to
+# the pool builder's hop + 1 padding (the JAX package's ENCODE_BUCKETS_SAMPLES)
+ENCODE_BUCKETS_SAMPLES = tuple(s * 16000 + 320 for s in (1, 2, 4, 8, 16, 30))
 
 
 def frame_count(cfg: WavLMConfig, n_samples: int) -> int:
@@ -137,8 +148,10 @@ class MultiheadAttention(nn.Module):
         gate_a, gate_b = torch.sigmoid(g.view(B, H, T, 2, 4).sum(-1)).chunk(2, dim=-1)
         return gate_a * (gate_b * self.grep_a.view(1, H, 1, 1) - 1.0) + 2.0
 
-    def forward(self, x: torch.Tensor, pos_diag: torch.Tensor | None) -> torch.Tensor:
-        """pos_diag: the (H, 2T-1) diagonal table of the position bias, or None."""
+    def forward(self, x: torch.Tensor, pos_diag: torch.Tensor | None,
+                padding_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """pos_diag: the (H, 2T-1) diagonal table of the position bias, or
+        None; padding_mask: (B, T) bool, True at padded frames, or None."""
         B, T, C = x.shape
         H = self.num_heads
 
@@ -146,7 +159,10 @@ class MultiheadAttention(nn.Module):
             return t.view(B, T, H, C // H).transpose(1, 2)     # (B, H, T, hd)
 
         q, k, v = heads(self.q(x)), heads(self.k(x)), heads(self.v(x))
-        if pos_diag is None:
+        if padding_mask is not None:
+            gate = None if pos_diag is None else self.gate_values(x)
+            out = masked_attention(q, k, v, pos_diag, gate, padding_mask)
+        elif pos_diag is None:
             out = F.scaled_dot_product_attention(q, k, v)
         else:
             # one launch per batch row: the bias is shared across the batch
@@ -156,6 +172,20 @@ class MultiheadAttention(nn.Module):
                                      pos_diag, gate[b].contiguous())
                 for b in range(B)])
         return self.out(out.transpose(1, 2).reshape(B, T, C))
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pos_diag: torch.Tensor | None, gate: torch.Tensor | None,
+                     padding_mask: torch.Tensor) -> torch.Tensor:
+    """Attention with padded keys masked out, in plain PyTorch (the JAX
+    package's einsum branch of multihead_attention): logits q k^T / sqrt(d)
+    + gate * bias, -inf at padded keys, softmax, times v. q, k, v (B, H, T,
+    d); gate (B, H, T, 1); padding_mask (B, T)."""
+    logits = torch.einsum("bhqd,bhkd->bhqk", q * q.shape[-1] ** -0.5, k)
+    if pos_diag is not None:
+        logits = logits + gate * toeplitz_bias(pos_diag)[None]
+    logits = logits.masked_fill(padding_mask[:, None, None, :], -torch.inf)
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, dim=-1), v)
 
 
 class EncoderLayer(nn.Module):
@@ -171,11 +201,12 @@ class EncoderLayer(nn.Module):
         self.fc2 = nn.Linear(cfg.encoder_ffn_embed_dim, D)
         self.ln2 = nn.LayerNorm(D)
 
-    def forward(self, x: torch.Tensor, pos_diag: torch.Tensor | None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pos_diag: torch.Tensor | None,
+                padding_mask: torch.Tensor | None = None) -> torch.Tensor:
         if self.layer_norm_first:
-            x = x + self.attn(self.ln1(x), pos_diag)
+            x = x + self.attn(self.ln1(x), pos_diag, padding_mask)
             return x + self.fc2(F.gelu(self.fc1(self.ln2(x))))
-        x = self.ln1(x + self.attn(x, pos_diag))
+        x = self.ln1(x + self.attn(x, pos_diag, padding_mask))
         return self.ln2(x + self.fc2(F.gelu(self.fc1(x))))
 
 
@@ -208,11 +239,16 @@ class WavLM(nn.Module):
         self._bias_cache: dict[int, torch.Tensor] = {}
         self._bias_key = None
 
-    def _prelude(self, wav: torch.Tensor) -> torch.Tensor:
-        """wav (B, T_samples) -> transformer input (B, T, C)."""
+    def _prelude(self, wav: torch.Tensor,
+                 padding_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """wav (B, T_samples) -> transformer input (B, T, C). Padded frames
+        are zeroed before the positional conv (ref WavLM.py:574-577), so its
+        128-tap kernel cannot carry them into real frames."""
         feats = self.layer_norm(self.feature_extractor(wav).transpose(1, 2))
         if hasattr(self, "post_extract_proj"):
             feats = self.post_extract_proj(feats)
+        if padding_mask is not None:
+            feats = feats.masked_fill(padding_mask[:, :, None], 0.0)
         h = self.encoder.pos_conv(feats.transpose(1, 2))
         if self.cfg.conv_pos % 2 == 0:
             h = h[:, :, :-1]  # SamePad (ref wavlm/modules.py:72-83)
@@ -238,15 +274,47 @@ class WavLM(nn.Module):
                     table.detach(), seq_len, self.cfg.num_buckets, self.cfg.max_distance)
         return self._bias_cache[seq_len]
 
-    def extract_layer(self, wav: torch.Tensor, output_layer: int) -> torch.Tensor:
+    def extract_layer(self, wav: torch.Tensor, output_layer: int,
+                      padding_mask: torch.Tensor | None = None) -> torch.Tensor:
         """Features at encoder layer `output_layer` (1-based, as the
         reference's extract_features(output_layer=L)). (B, T_samples) ->
-        (B, T, C). Only the first `output_layer` layers run."""
-        x = self._prelude(wav)
+        (B, T, C). Only the first `output_layer` layers run. padding_mask
+        (B, T) marks padded frames (masked attention, no kernel)."""
+        x = self._prelude(wav, padding_mask)
         pos_diag = self.position_bias(x.shape[1])
         for layer in self.encoder.layers[:output_layer]:
-            x = layer(x, pos_diag)
+            x = layer(x, pos_diag, padding_mask)
         return x
+
+    def extract_layer_bucketed(self, wav: torch.Tensor, output_layer: int) -> torch.Tensor:
+        """extract_layer with the waveform zero-padded up to the next of
+        ENCODE_BUCKETS_SAMPLES and the padded frames masked; returns the true
+        frames only. Past the last bucket it is extract_layer. The JAX
+        package buckets to compile one encoder per bucket; the tail numerics
+        differ slightly from the exact path, where the reference's unmasked
+        hop padding is attended to (ref ddsp_prematch_dataset.py:284-289)."""
+        B, n = wav.shape
+        bucket = next((b for b in ENCODE_BUCKETS_SAMPLES if b >= n), None)
+        if bucket is None:
+            return self.extract_layer(wav, output_layer)
+        t_real = frame_count(self.cfg, n)
+        t_bucket = frame_count(self.cfg, bucket)
+        mask = (torch.arange(t_bucket, device=wav.device) >= t_real)[None].expand(B, -1)
+        out = self.extract_layer(F.pad(wav, (0, bucket - n)), output_layer, padding_mask=mask)
+        return out[:, :t_real]
+
+    def extract_all_layers(self, wav: torch.Tensor) -> torch.Tensor:
+        """All layer outputs, (n_layers + 1, B, T, C): entry 0 the
+        transformer input (after the positional conv), entries 1..L the
+        layers' outputs (ref WavLM.py:589-601). Every layer runs; unmasked,
+        so each launches the attention kernel on a card."""
+        x = self._prelude(wav)
+        pos_diag = self.position_bias(x.shape[1])
+        outs = [x]
+        for layer in self.encoder.layers:
+            x = layer(x, pos_diag)
+            outs.append(x)
+        return torch.stack(outs)
 
 
 def init_wavlm_params(cfg: WavLMConfig, generator: torch.Generator) -> Params:

@@ -1,6 +1,7 @@
 """knnsvc_torch's entry points and guards on the CPU: the CLI driven end to
 end from `.knnsvc.pkl` files, no silent CPU fallback, the unported options
-raise, and no file of the port imports JAX or the JAX package."""
+(the multi-device matchers, orbax, mp3) raise, and no file of the port
+imports JAX or the JAX package."""
 
 import ast
 import json
@@ -34,8 +35,12 @@ def test_unported_options_raise(pair):
     knn = KnnSvc(wavlm_params, cfg, gen_params, h, "mix", device="cpu")
     knn.weighting = generate_matrix_from_index(2, size=cfg.encoder_layers + 1)
     out = str(root / "unported.wav")
-    with pytest.raises(NotImplementedError, match="fast=False"):
-        knn.convert_pair(src, ref, output_path=out)
+    # the host-pool path and bulk mode run; their multi-device matchers do not
+    for matcher in ("sharded", "sharded_int8"):
+        with pytest.raises(NotImplementedError, match="multi-device"):
+            knn.convert_pair(src, ref, fast=False, matcher=matcher, output_path=out)
+        with pytest.raises(NotImplementedError, match="multi-device"):
+            knn.bulk_convert(str(root), str(root), str(root / "bulk_out"), matcher=matcher)
     with pytest.raises(NotImplementedError, match="mp3"):
         knn.convert_pair(src, ref, fast=True, output_path=str(root / "unported.mp3"))
     orbax = root / "orbax_only"
@@ -98,6 +103,10 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "knnsvc_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
+    names = {str(p.relative_to(REPO)) for p in files}
+    assert {"knnsvc_torch/io/vad.py", "knnsvc_torch/match/quantized_pool.py",
+            "knnsvc_torch/match/pipeline.py", "knnsvc_torch/match/pool.py",
+            "knnsvc_torch/hub.py", "knnsvc_torch/cli/inference.py"} <= names
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "knnsvc_tpu"}
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"

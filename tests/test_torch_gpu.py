@@ -272,3 +272,101 @@ def test_device_f0_card_matches_cpu():
     both = (card > 0) & (cpu > 0)
     assert both.mean() > 0.5
     assert (np.abs(1200 * np.log2(card[both] / cpu[both])) <= 1.0).mean() >= 0.99
+
+
+# a small encoder with the kernel's head dim (64) and WavLM-Large's 24 layers
+_GPU_WAVLM = dict(extractor_mode="layer_norm", encoder_layers=24, encoder_embed_dim=128,
+                  encoder_ffn_embed_dim=256, encoder_attention_heads=2, layer_norm_first=True,
+                  conv_feature_layers="[(32,10,5)] + [(32,4,4)] + [(32,4,4)] + [(32,4,4)]",
+                  conv_bias=True, conv_pos=16, conv_pos_groups=4,
+                  relative_position_embedding=True, num_buckets=32, max_distance=128,
+                  gru_rel_pos=True)
+
+
+def _gpu_wavlm(device):
+    from knnsvc_torch.config import WavLMConfig
+    from knnsvc_torch.io.jax_params import wavlm_from_numpy
+    from knnsvc_torch.models.wavlm.model import init_wavlm_params
+
+    cfg = WavLMConfig.from_dict(_GPU_WAVLM)
+    params = init_wavlm_params(cfg, torch.Generator().manual_seed(0))
+    return wavlm_from_numpy(params, cfg, device), wavlm_from_numpy(params, cfg, "cpu")
+
+
+def _sung(seconds, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(16000 * seconds)) / 16000
+    phase = 2 * np.pi * np.cumsum(230 * (1 + 0.04 * np.sin(2 * np.pi * 5 * t))) / 16000
+    x = 0.3 * np.sin(phase) + 0.1 * np.sin(2 * phase) + 0.02 * rng.standard_normal(len(t))
+    return torch.from_numpy(x.astype(np.float32))[None]
+
+
+@pytest.mark.gpu
+def test_bucketed_encode_card_matches_cpu_without_the_kernel():
+    """The masked bucketed encoder runs plain attention (no kernel launch),
+    as the JAX package sends masked calls to its einsums; an exact encode of
+    the same samples launches the kernel once per layer."""
+    dev = _cuda()
+    card, cpu = _gpu_wavlm(dev)
+    wav = _sung(1.7, 1)
+    before = gated_bias_attention.launches
+    with torch.no_grad():
+        got = card.extract_layer_bucketed(wav.to(dev), 6)
+        torch.cuda.synchronize()
+        assert gated_bias_attention.launches == before
+        want = cpu.extract_layer_bucketed(wav, 6)
+        card.extract_layer(wav.to(dev), 6)
+        torch.cuda.synchronize()
+    assert gated_bias_attention.launches == before + 6
+    assert got.shape == want.shape
+    assert float((got.cpu() - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_all_layer_encode_launches_the_kernel_per_layer():
+    dev = _cuda()
+    card, cpu = _gpu_wavlm(dev)
+    wav = _sung(1.3, 2)
+    before = gated_bias_attention.launches
+    with torch.no_grad():
+        got = card.extract_all_layers(wav.to(dev))
+        torch.cuda.synchronize()
+        assert gated_bias_attention.launches == before + 24
+        want = cpu.extract_all_layers(wav)
+    assert got.shape == want.shape == (25, 1, want.shape[2], 128)
+    assert float((got.cpu() - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Q,P,D", [(1500, 9000, 1024), (7, 101, 60)])
+def test_int8_knn_card_matches_cpu_exactly(Q, P, D):
+    """torch._int_mm on the card (rows, columns and depth padded to its
+    shape rules) against the CPU's exact float32 product: dots and indices
+    equal."""
+    from knnsvc_torch.match.quantized_pool import (int8_dot, knn_topk_quantized,
+                                                   quantize_pool, quantize_rows)
+
+    dev = _cuda()
+    rng = np.random.default_rng(Q)
+    pool = rng.standard_normal((P, D)).astype(np.float32)
+    query = torch.from_numpy(rng.standard_normal((Q, D)).astype(np.float32))
+    cpu_pool, card_pool = quantize_pool(pool), quantize_pool(pool, dev)
+    q8, _ = quantize_rows(query)
+    q8_card, _ = quantize_rows(query.to(dev))
+    assert torch.equal(q8_card.cpu(), q8)
+    assert torch.equal(int8_dot(q8_card, card_pool.values).cpu(), int8_dot(q8, cpu_pool.values))
+    got, _ = knn_topk_quantized(query.to(dev), card_pool)
+    want, _ = knn_topk_quantized(query, cpu_pool)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_concat_kernel_at_bulk_shapes():
+    """A bulk target pool (P = 3000 > one 30-s chunk) and a bucket-padded
+    query (T = 1750, a multiple of 250): picks equal to the plain version."""
+    idx_u, idx_p, src, tgt, sf0, tf0 = _concat_inputs(1750, 3000, 1024, 11, _cuda())
+    src[1700:] = src[1699]                      # the edge-replicated bucket padding
+    sf0[1700:] = 0.0
+    got = concat_cost_pair(idx_u, idx_p, src, tgt, sf0, tf0, concat_weight=0.2)
+    want = knn_with_concat_cost_pair(idx_u, idx_p, src, tgt, sf0, tf0, concat_weight=0.2)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

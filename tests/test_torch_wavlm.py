@@ -84,3 +84,47 @@ def test_extract_layer_matches_jax(output_layer, batch):
         got = model.extract_layer(torch.from_numpy(wav), output_layer).numpy()
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=2e-4)
+
+
+def test_extract_all_layers_matches_jax():
+    """The (L+1, B, T, C) stack: entry 0 the transformer input, then every
+    layer's output, against wavlm_extract_all_layers."""
+    from knnsvc_tpu.models.wavlm.model import wavlm_extract_all_layers
+
+    cfg, jcfg, params = small_wavlm()
+    model = wavlm_from_numpy(params, cfg)
+    wav = np.pad(_sing(16000, 1.1, 240, seed=8), (0, 320))[None]
+    want = np.asarray(wavlm_extract_all_layers(params, jcfg, jnp.asarray(wav)))
+    with torch.no_grad():
+        got = model.extract_all_layers(torch.from_numpy(wav)).numpy()
+    assert got.shape == want.shape == (cfg.encoder_layers + 1, 1, want.shape[2],
+                                       cfg.encoder_embed_dim)
+    np.testing.assert_allclose(got, want, atol=2e-4)
+
+
+@pytest.mark.parametrize("seconds", [0.7, 1.5, 2.3])
+def test_extract_layer_bucketed_matches_jax(seconds):
+    """Padded to the next sample bucket with the padded frames masked (zeroed
+    before the positional conv, -inf logits as keys): the true frames
+    against wavlm_extract_layer_bucketed; no attention kernel runs."""
+    from knnsvc_tpu.models.wavlm.model import wavlm_extract_layer_bucketed
+    from knnsvc_torch.ops.attention import gated_bias_attention
+
+    cfg, jcfg, params = small_wavlm()
+    model = wavlm_from_numpy(params, cfg)
+    wav = _sing(16000, seconds, 250, seed=4)[None]
+    want = np.asarray(wavlm_extract_layer_bucketed(params, jcfg, jnp.asarray(wav), 2))
+    before = gated_bias_attention.launches
+    with torch.no_grad():
+        got = model.extract_layer_bucketed(torch.from_numpy(wav), 2).numpy()
+    assert gated_bias_attention.launches == before
+    assert got.shape == want.shape == (1, frame_count(cfg, wav.shape[1]), cfg.encoder_embed_dim)
+    np.testing.assert_allclose(got, want, atol=2e-4)
+    # the mask is real: unmasked, the bucket's padded frames change the true ones
+    from knnsvc_torch.models.wavlm.model import ENCODE_BUCKETS_SAMPLES
+
+    bucket = next(b for b in ENCODE_BUCKETS_SAMPLES if b >= wav.shape[1])
+    with torch.no_grad():
+        unmasked = model.extract_layer(
+            torch.from_numpy(np.pad(wav, ((0, 0), (0, bucket - wav.shape[1])))), 2).numpy()
+    assert np.abs(unmasked[:, :got.shape[1]] - got).max() > 1e-3
