@@ -18,17 +18,27 @@ Phases (any failure exits non-zero, before the result line):
      and k in CONCAT_KS, and at (300, 400, 1024) with k = 8 (its rows read
      from L2), the share of equal frames per lane (all of them) at the
      main path's (1500, 1500, 1024) with k = 4 and k = 8, and the time of
-     its pre-pass alone; the f0 Viterbi kernel equal on every frame at
+     its pre-pass alone; its carried (streaming) entry against the plain
+     carried cores, picks and the weight after each frame, at (37, 53,
+     128) for k in CARRIED_KS with a carried weight of 0.2 and 0, and at a
+     streaming chunk (150 + 1 carried frames, 1500, 1024) with k = 4 and 8,
+     10 chained chunks against the whole-utterance kernel, and its time;
+     the f0 Viterbi kernel equal on every frame at
      (1501, 482) on random costs, costs with injected ties and the real
      costs of a sung 30-s wav, timed against its plain version; device f0
      on the card against the CPU on that wav, and the time of one 30-s
-     device_f0_tensor with its Viterbi share;
+     device_f0_tensor with its Viterbi share; the attention kernel and the
+     Viterbi also at a streaming window's shape (T = 200);
   3. the slice on the card against the slice on the CPU: one full-width
      KnnSvc.random_init("mix") (WavLM-Large, HiFi-GAN v1 config), the same
      weights on both, "highest" precision, a seeded 4-s synthetic singing
      pair with f0 sidecars: layer-6 features, top-32 kNN sets, pre-quantize
      waveforms without post_opt and with post_opt_0.2 (the concat-cost
      picks of both lanes and both optimizers' step counts on each side);
+     then streaming on a 4-s pair: one chunk covering it is
+     convert_pair(fast=True) bit for bit, and 1-s chunks with post_opt_0.2
+     (windowed and cached encoders) on the card against the CPU
+     (pre-quantize waveforms, the carried concat picks);
   4. the main path at full size: KnnSvc.convert_pair(fast=True) on a seeded
      30-s pair, without post_opt (once cold, then warm on new pairs, host
      f0 extracted, and repeated, f0 read from its cache) and with
@@ -59,7 +69,18 @@ Phases (any failure exits non-zero, before the result line):
      pair with post_opt (two single-lane concat launches); knn_topk at
      (1500, 180000, 1024), an hour of target, against torch.topk on the same
      distances;
-  6. the card's name and power limit (nvidia-smi).
+  6. streaming at full size: a 30-s source against a 30-s target through
+     stream_convert_chunks at the CLI's defaults (2-s chunks, 1 s of
+     context), windowed and cached, without and with post_opt_0.2, and
+     windowed with device f0, each once cold and once warm: 15 chunks, the
+     length within 2 hops, per chunk 6 attention launches (windowed) or 0
+     (cached), 1 concat launch with post_opt, 1 Viterbi with device f0;
+     per-chunk times, audio-s per s, peak memory; the cached encoder's step
+     and its plain attention; the live settings (0.5-s chunks, 1 s before,
+     0.1 s after) through stream_session pushed 20 ms at a time, the wall
+     time of each push that emits, its output bit-identical to the file
+     stream (cached and windowed); one traced live session by span;
+  7. the card's name and power limit (nvidia-smi).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it fails and prints no result.
@@ -82,6 +103,7 @@ PEAK_BYTES_PER_S = 3.35e12       # HBM3
 
 KERNELS = ("gated_bias_attention", "concat_cost_pair", "f0_viterbi")
 ATTN_MAIN = (16, 1500, 64)       # one WavLM-Large layer on a 30-s chunk
+ATTN_STREAM = (16, 200, 64)      # one layer on a streaming window (2 s + 1 s each side)
 ATTN_RAGGED = [(4, 200, 64, 1.0), (4, 200, 64, 0.0), (4, 200, 64, -0.5)]
 # kernel vs plain: fp32 sums of 1500 terms per score and per output, in
 # another order than cuBLAS and torch.softmax, the products in 3 TF32
@@ -119,6 +141,7 @@ PO_WARM_RUNS = 10                # post_opt repeat conversions
 TOPK_WIDE = 8                    # a --topk beside the reference's 4
 
 VITERBI_MAIN = (1501, 482)       # frames of a 30-s chunk, f0 candidates 65-1047 Hz
+VITERBI_STREAM = 200             # frames of a streaming window at the CLI defaults
 VITERBI_FLOPS_PER_STATE = 10     # fp32 adds, subtracts and compares per state and frame
 F0_VOICING_SHARE_MIN = 0.995     # card vs CPU: frames of equal voicing
 F0_CENTS = 1.0                   # card vs CPU: voiced f0 within this many cents ...
@@ -135,6 +158,22 @@ HOST_VS_FAST_ATOL = INT16_STEP + 2e-5   # tests/test_pipeline.py's 2e-5, plus th
 HOST_PAIR_RUNS = 3                      # warm host-pool pair conversions
 INT8_SHAPE = (1500, 9000, 1024)         # (Q, P, D): a 30-s query, a 3-min pool
 KNN_HOUR = (1500, 180_000, 1024)        # (Q, P, D): a 30-s query, an hour of target
+
+# the carried (streaming) concat-cost entry
+CARRIED_KS = (2, 4, 8, 32)              # at CONCAT_SMALL, random ids and ids at P-1
+CARRIED_STREAM = (150, 1500, 1024)      # (T, P, D): a 2-s chunk + 1-s lookahead
+CHAIN_CHUNKS = 10                       # chunks of CONCAT_MAIN[0] / 10 frames, k = 4
+# streaming conversion (KnnSvc.stream_convert_chunks / stream_session)
+STREAM_SLICE = dict(chunk_s=1.0, context_s=0.5, post_opt=POST_OPT, matcher="exact")
+STREAM_CLI = dict(chunk_s=2.0, context_s=1.0, matcher="exact")   # the CLI's defaults
+STREAM_RUNS = (("a", "windowed, no_post_opt, host f0", {}, "fast"),
+               ("b", f"windowed, {POST_OPT}, host f0", {"post_opt": POST_OPT}, "fast"),
+               ("c", "cached, no_post_opt", {"encoder": "cached"}, "fast"),
+               ("d", f"cached, {POST_OPT}", {"encoder": "cached", "post_opt": POST_OPT}, "fast"),
+               ("e", "windowed, no_post_opt, device f0", {}, "device"))
+STREAM_CHUNKS = 15                      # 30 s in 2-s chunks
+LIVE = dict(chunk_s=0.5, context_s=1.0, right_context_s=0.1, matcher="exact")
+PUSH_SAMPLES = 320                      # 20 ms, a mic callback
 
 
 def fail(msg: str) -> None:
@@ -271,12 +310,33 @@ def phase_kernels(dev):
         f"{tf32_bound_ms:.4f} ms; roofline share {tf32_bound_ms / tf32_ms:.1%}")
     if not (tf32_err <= ATTN_ATOL_TF32 and bool(torch.isfinite(tf32_out).all())):
         fail(f"gated_bias_attention's TF32 instance disagrees at the main shape: {tf32_err}")
+    # a streaming window's shape (encoder='windowed' at the CLI defaults)
+    H, T, d = ATTN_STREAM
+    sargs = inputs(H, T, d)
+    s_err = float((gated_bias_attention(*sargs) - reference_attention(*sargs)).abs().max())
+    torch.cuda.synchronize()
+    q, k, v, diag, gate = sargs
+    s_bias = toeplitz_bias(diag).contiguous()
+    s_ms = cuda_ms(lambda: gated_bias_attention(*sargs), iters=50)
+    s_plain_ms = cuda_ms(lambda: reference_attention(*sargs), iters=50)
+    s_library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q[None], k[None], v[None], attn_mask=(gate[..., None] * s_bias)[None]), iters=50)
+    s_bound_ms, s_bound_by = attention_bound_ms(H, T, d)
+    log(f"[kernel] gated_bias_attention {ATTN_STREAM} (a streaming window), 3xTF32: "
+        f"max_abs_err={s_err:.3e} (atol {ATTN_ATOL_RAGGED}); kernel {s_ms:.4f} ms, plain "
+        f"{s_plain_ms:.4f} ms, library (sdpa + mask product) {s_library_ms:.4f} ms, bound "
+        f"{s_bound_ms:.4f} ms ({s_bound_by}); roofline share {s_bound_ms / s_ms:.1%}")
+    if not s_err <= ATTN_ATOL_RAGGED:
+        fail(f"gated_bias_attention disagrees at the streaming shape: {s_err}")
     return {"name": "gated_bias_attention", "route": "cuda",
             "source": "knnsvc_torch/csrc/gated_bias_attention.cu",
             "replaces": "knnsvc_tpu/ops/attention.py:82",
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            "tf32_ms": tf32_ms, "tf32_max_abs_err": tf32_err, "tf32_bound_ms": tf32_bound_ms}
+            "tf32_ms": tf32_ms, "tf32_max_abs_err": tf32_err, "tf32_bound_ms": tf32_bound_ms,
+            "stream_shape": list(ATTN_STREAM), "stream_max_abs_err": s_err, "stream_ms": s_ms,
+            "stream_plain_ms": s_plain_ms, "stream_library_ms": s_library_ms,
+            "stream_bound_ms": s_bound_ms, "stream_bound_by": s_bound_by}
 
 
 def concat_bound_ms(T: int, P: int, D: int, lanes: int, k: int) -> tuple[float, str]:
@@ -372,13 +432,108 @@ def phase_concat_kernel(dev):
     log(f"[kernel] concat_cost_pair {CONCAT_MAIN} k={TOPK_WIDE} (rows in L2): kernel "
         f"{wide_ms:.4f} ms ({1e3 * wide_ms / (T - 1):.3f} us per frame), bound "
         f"{wide_bound_ms:.4f} ms ({wide_by})")
-    return {"name": "concat_cost_pair", "route": "cuda",
-            "source": "knnsvc_torch/csrc/concat_cost_pair.cu",
-            "replaces": "knnsvc_tpu/ops/concat_scan.py:182",
-            "launches": None, "max_abs_err": float(max_err), "equal_share": share,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "us_per_frame": 1e3 * ms / (T - 1), "prepass_ms": prepass_ms,
-            "launch_note": "one launch per call: the pre-pass kernel, then the chain kernel"}
+    record = {"name": "concat_cost_pair", "route": "cuda",
+              "source": "knnsvc_torch/csrc/concat_cost_pair.cu",
+              "replaces": "knnsvc_tpu/ops/concat_scan.py:182",
+              "launches": None, "max_abs_err": float(max_err), "equal_share": share,
+              "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+              "library_ms": None, "us_per_frame": 1e3 * ms / (T - 1), "prepass_ms": prepass_ms,
+              "launch_note": "one launch per call: the pre-pass kernel, then the chain kernel"}
+    record.update(phase_concat_carried(dev, args))
+    return record
+
+
+def carried_args(T: int, P: int, D: int, seed: int, dev, k: int, weight: float,
+                 clamp_and_duplicates=False):
+    """Inputs of the carried entry, T frames through the kernel with the
+    carry: T - 1 frames of concat_inputs from frame 13, inside its smooth
+    stretch (baselines under 0.08 until frame 20, so a carried weight of
+    0.2 holds a few frames, then latches), the previous frame's source row
+    and a random carry (2, k) with `weight`."""
+    import torch
+
+    s = 13
+    idx_u, idx_p, src, tgt, sf0, tf0 = concat_inputs(T + s - 1, P, D, seed, dev,
+                                                     clamp_and_duplicates, k)
+    carry = torch.randint(0, P, (2, k), generator=torch.Generator().manual_seed(seed)).to(dev)
+    if clamp_and_duplicates:
+        carry[0, 0] = P - 1
+    return (idx_u[s:], idx_p[s:], src[s - 1], src[s:], tgt, sf0[s:], tf0, carry,
+            torch.tensor(weight, device=dev))
+
+
+def phase_concat_carried(dev, main_args) -> dict:
+    """The kernel's carried entry (a streaming chunk: the carry as frame 0,
+    the pitched lanes from the carried weight) against the plain carried
+    cores, picks and the weight after each frame; chunks chained through it
+    against the whole-utterance kernel; its time at a streaming chunk."""
+    import torch
+
+    from knnsvc_torch.match.concat_cost import (concat_cost_pair_stream_core,
+                                                concat_cost_stream_core)
+    from knnsvc_torch.ops.concat_scan import (concat_cost_pair, concat_cost_pair_stream,
+                                              concat_cost_single_stream)
+
+    def check(args, label):
+        got = concat_cost_pair_stream(*args)
+        got_s = concat_cost_single_stream(args[0], *args[2:5], args[7][0], args[8])
+        want = concat_cost_pair_stream_core(*args)
+        want_s = concat_cost_stream_core(args[0], *args[2:5], args[7][0], args[8])
+        torch.cuda.synchronize()
+        picks = [float((g == w).all(dim=1).float().mean()) for g, w in
+                 ((got[0], want[0]), (got[1], want[1]), (got_s[0], want_s[0]))]
+        weights = torch.equal(got[2], want[2]) and torch.equal(got_s[1], want_s[1])
+        log(f"[kernel] concat_cost_pair carried {label}: frames with equal picks, pair "
+            f"unpitched {picks[0]:.2%}, pitched {picks[1]:.2%}, single {picks[2]:.2%}; weights "
+            f"after each frame equal {weights} (pitched latched to 0 from frame "
+            f"{int((got[2] == 0).float().argmax()) if bool((got[2] == 0).any()) else None})")
+        if min(picks) != 1.0 or not weights:
+            fail(f"the carried concat entry disagrees with its plain version at {label}")
+
+    for k in CARRIED_KS:
+        for weight in (0.2, 0.0):
+            for dup in (False, True):
+                check(carried_args(*CONCAT_SMALL, 23, dev, k, weight, dup),
+                      f"{CONCAT_SMALL} k={k} weight={weight} "
+                      f"{'ids at P-1, duplicates' if dup else 'random ids'}")
+    T, P, D = CARRIED_STREAM
+    for k in (4, TOPK_WIDE):
+        check(carried_args(T + 1, P, D, 24, dev, k, 0.2), f"({T}+1, {P}, {D}) k={k}")
+
+    # chaining: chunk 0 through the whole-utterance entry, the rest carried
+    idx_u, idx_p, src, tgt, sf0, tf0 = main_args
+    whole = concat_cost_pair(*main_args)
+    n = CONCAT_MAIN[0] // CHAIN_CHUNKS
+    u, p = concat_cost_pair(idx_u[:n], idx_p[:n], src[:n], tgt, sf0[:n], tf0)
+    us, ps = [u], [p]
+    svn = src[:n] / torch.linalg.norm(src[:n], dim=1, keepdim=True)
+    weight = 0.2 * float(torch.prod(((2 * (1 - (svn[:-1] * svn[1:]).sum(1))) < 0.08).float()))
+    for a in range(n, CONCAT_MAIN[0], n):
+        u, p, w = concat_cost_pair_stream(idx_u[a:a + n], idx_p[a:a + n], src[a - 1],
+                                          src[a:a + n], tgt, sf0[a:a + n], tf0,
+                                          torch.stack([us[-1][-1], ps[-1][-1]]), weight)
+        us.append(u)
+        ps.append(p)
+        weight = w[-1]
+    torch.cuda.synchronize()
+    chained = [float((torch.cat(x) == w).all(dim=1).float().mean()) for x, w in
+               ((us, whole[0]), (ps, whole[1]))]
+    log(f"[kernel] concat_cost_pair: {CHAIN_CHUNKS} chunks of {n} frames chained through the "
+        f"carried entry against the whole-utterance kernel at {CONCAT_MAIN} k=4: frames equal, "
+        f"unpitched {chained[0]:.2%}, pitched {chained[1]:.2%}")
+    if min(chained) != 1.0:
+        fail(f"chained carried chunks differ from the whole-utterance kernel: {chained}")
+
+    args = carried_args(T + 1, P, D, 25, dev, 4, 0.2)
+    c_ms = cuda_ms(lambda: concat_cost_pair_stream(*args), iters=50)
+    c_plain_ms = cuda_ms(lambda: concat_cost_pair_stream_core(*args), iters=3, warmup=1)
+    c_bound_ms, c_bound_by = concat_bound_ms(T + 1, P, D, lanes=2, k=4)
+    log(f"[kernel] concat_cost_pair carried ({T}+1, {P}, {D}) k=4 (a streaming chunk): kernel "
+        f"{c_ms:.4f} ms ({1e3 * c_ms / T:.3f} us per frame, the weights' torch ops included), "
+        f"plain {c_plain_ms:.4f} ms, library none, bound {c_bound_ms:.4f} ms ({c_bound_by})")
+    return {"carried_shape": [T + 1, P, D], "carried_ms": c_ms, "carried_plain_ms": c_plain_ms,
+            "carried_bound_ms": c_bound_ms, "carried_bound_by": c_bound_by,
+            "chained_equal_share": min(chained)}
 
 
 def viterbi_bound_ms(N: int, C: int) -> tuple[float, str]:
@@ -394,6 +549,7 @@ def viterbi_bound_ms(N: int, C: int) -> tuple[float, str]:
 def phase_viterbi_kernel(dev):
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     from knnsvc_torch.dsp.f0_device import device_f0, device_f0_tensor, viterbi_inputs
     from knnsvc_torch.ops.viterbi import f0_viterbi, viterbi_plain
@@ -452,12 +608,28 @@ def phase_viterbi_kernel(dev):
     tensor_ms = cuda_ms(lambda: device_f0_tensor(x, 16000, N), iters=10)
     log(f"[f0] one {FULL_SECONDS:.0f}-s device_f0_tensor on the card: {tensor_ms:.4f} ms, of which "
         f"the Viterbi kernel {ms:.4f} ms ({ms / tensor_ms:.1%})")
+    # a streaming window's Viterbi (encoder='windowed', f0_method='device')
+    n_win = VITERBI_STREAM
+    # the window's 200 frames of audio and build_device_pool's hop of padding
+    win = viterbi_inputs(F.pad(x[:n_win * 320], (0, 320)), 16000, n_win)
+    got = f0_viterbi(*win)
+    torch.cuda.synchronize()
+    if not torch.equal(got, viterbi_plain(*win)):
+        fail(f"f0_viterbi disagrees with its plain version at ({n_win}, {C})")
+    w_ms = cuda_ms(lambda: f0_viterbi(*win), iters=50)
+    w_plain_ms = cuda_ms(lambda: viterbi_plain(*win), iters=1, warmup=0)
+    w_bound_ms, w_bound_by = viterbi_bound_ms(n_win, C)
+    log(f"[kernel] f0_viterbi ({n_win}, {C}) (a streaming window): states equal to the plain "
+        f"version; kernel {w_ms:.4f} ms ({1e3 * w_ms / (n_win - 1):.3f} us per frame), plain "
+        f"{w_plain_ms:.1f} ms, bound {w_bound_ms:.4f} ms ({w_bound_by})")
     return {"name": "f0_viterbi", "route": "cuda", "source": "knnsvc_torch/csrc/f0_viterbi.cu",
             "replaces": "knnsvc_tpu/dsp/f0_device.py:204 (_viterbi, an XLA lax.scan, not a "
                         "Pallas kernel)",
             "launches": None, "max_abs_err": float(max_err), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "us_per_frame": 1e3 * ms / (N - 1), "device_f0_ms": tensor_ms}
+            "us_per_frame": 1e3 * ms / (N - 1), "device_f0_ms": tensor_ms,
+            "stream_shape": [n_win, C], "stream_ms": w_ms, "stream_plain_ms": w_plain_ms,
+            "stream_bound_ms": w_bound_ms, "stream_bound_by": w_bound_by}
 
 
 def write_pair(root: str, seconds: float, sidecars: bool):
@@ -583,8 +755,7 @@ def phase_slice_cpu_vs_cuda(root: str, dev):
     if not (wa.shape == wb.shape and np.isfinite(wb).all() and rel <= WAV_REL_TOL
             and len(gpu_steps.steps) == 2):
         fail(f"{POST_OPT} waveforms differ between cuda and cpu: rel {rel}")
-    del cpu
-    return gpu
+    return gpu, cpu
 
 
 def phase_full(root: str, knn, records, dev):
@@ -819,7 +990,12 @@ def write_bulk_dataset(root: str):
 
 class PeakSpy:
     """Records the largest |x| handed to match.serve.quantize_int16 while
-    open: the fast loops' waveforms before their int16 quantize."""
+    open: the fast loops' waveforms before their int16 quantize; with
+    keep=True, the waveforms themselves (on the host)."""
+
+    def __init__(self, keep: bool = False):
+        self.keep = keep
+        self.waves = []
 
     def __enter__(self):
         from knnsvc_torch.match import serve
@@ -828,6 +1004,8 @@ class PeakSpy:
 
         def spy(wav):
             self.peak = max(self.peak, float(wav.abs().max()))
+            if self.keep:
+                self.waves.append(wav.detach().float().cpu().numpy())
             return self.real(wav)
 
         serve.quantize_int16 = spy
@@ -1052,6 +1230,283 @@ def phase_bulk(root: str, knn, records, dev):
     log(f"[bulk] phase 6 in {time.perf_counter() - t_phase:.1f} s")
 
 
+class PickSpy:
+    """Records, while open, the concat-cost picks of the streaming match:
+    the (Ts, 2, k) output of both entries as match/pipeline calls them."""
+
+    NAMES = ("concat_cost_pair", "concat_cost_pair_stream")
+
+    def __enter__(self):
+        import torch
+
+        from knnsvc_torch.match import pipeline
+
+        self.pipeline, self.picks = pipeline, []
+        self.real = {name: getattr(pipeline, name) for name in self.NAMES}
+        for name, fn in self.real.items():
+            def spy(*args, _fn=fn, **kwargs):
+                out = _fn(*args, **kwargs)
+                self.picks.append(torch.stack([out[0], out[1]], dim=1).cpu())
+                return out
+            setattr(pipeline, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.pipeline, name, fn)
+
+
+def int16_codes(x):
+    import numpy as np
+
+    return np.round(np.asarray(x, np.float64) * 32768).astype(np.int64)
+
+
+def phase_stream_slice(root: str, gpu, cpu) -> None:
+    """Streaming on a 4-s pair: one chunk covering the input is the fast
+    pair path on the card bit for bit; and the stream on the card against
+    the stream on the CPU (the same weights), windowed and cached, with
+    post_opt: pre-quantize waveforms within WAV_REL_TOL of the peak, the
+    concat-cost picks equal on PICK_SHARE_MIN of the frames."""
+    import numpy as np
+    import torch
+
+    from knnsvc_torch.io.audio import load_audio
+
+    t0 = time.perf_counter()
+    sdir = os.path.join(root, "stream_slice")
+    os.makedirs(sdir)
+    src, ref = write_pair(sdir, SLICE_SECONDS, sidecars=False)
+    for post_opt in ("no_post_opt", POST_OPT):
+        out = gpu.convert_pair(src, ref, fast=True, post_opt=post_opt,
+                               output_path=os.path.join(sdir, "pair.wav"))
+        want = int16_codes(load_audio(out)[0][0])
+        chunks = list(gpu.stream_convert_chunks(src, ref, chunk_s=5.0, context_s=1.0,
+                                                matcher="exact", post_opt=post_opt))
+        equal = len(chunks) == 1 and np.array_equal(int16_codes(chunks[0]), want)
+        log(f"[stream] one chunk (chunk_s=5.0) over the {SLICE_SECONDS:.0f}-s source, {post_opt}: "
+            f"{len(chunks)} chunk, bit-identical to convert_pair(fast=True) on the card: {equal} "
+            f"({int((want != 0).sum())} non-zero int16 codes)")
+        if not equal:
+            fail(f"a single-chunk stream differs from convert_pair(fast=True), {post_opt}")
+    for encoder in ("windowed", "cached"):
+        sides = []
+        for model in (cpu, gpu):
+            with PeakSpy(keep=True) as waves, PickSpy() as picks:
+                chunks = list(model.stream_convert_chunks(src, ref, encoder=encoder,
+                                                          **STREAM_SLICE))
+            sides.append((np.concatenate(waves.waves), torch.cat(picks.picks), len(chunks)))
+        (wa, pa, na), (wb, pb, nb) = sides
+        peak = float(np.abs(wa).max())
+        rel = (float(np.abs(wa - wb).max()) / max(peak, 1e-30) if wa.shape == wb.shape
+               else np.inf)
+        shares = ([float((pa[:, lane] == pb[:, lane]).all(dim=1).float().mean()) for lane in (0, 1)]
+                  if pa.shape == pb.shape else [0.0, 0.0])
+        log(f"[stream] {encoder} {STREAM_SLICE} card vs cpu: {nb} and {na} chunks; pre-quantize "
+            f"waveform {wa.shape}: max |cpu| {peak:.3e}, max |cuda - cpu| / max |cpu| = "
+            f"{rel:.3e} (tol {WAV_REL_TOL}); concat-cost picks equal on unpitched {shares[0]:.1%}, "
+            f"pitched {shares[1]:.1%} of {pa.shape[0]} window frames (min {PICK_SHARE_MIN:.0%})")
+        if not (na == nb and rel <= WAV_REL_TOL and min(shares) >= PICK_SHARE_MIN
+                and np.isfinite(wb).all() and peak > 0):
+            fail(f"the {encoder} stream differs between card and cpu: rel {rel}, picks {shares}")
+    log(f"[stream] card vs cpu and single-chunk checks in {time.perf_counter() - t0:.1f} s")
+
+
+def stream_counted(knn, src: str, ref: str, kw: dict):
+    """stream_convert_chunks with the kernels' counts set to 0 before each
+    chunk and read after it: (chunks, host seconds per chunk, (attention,
+    concat, viterbi) launches per chunk). Chunk 0 includes the target pool's
+    build; each chunk ends with its int16 download, a sync."""
+    from knnsvc_torch.ops.attention import gated_bias_attention
+    from knnsvc_torch.ops.concat_scan import concat_cost_pair
+    from knnsvc_torch.ops.viterbi import f0_viterbi
+
+    gen = knn.stream_convert_chunks(src, ref, **kw)
+    chunks, times, launches = [], [], []
+    while True:
+        gated_bias_attention.launches = concat_cost_pair.launches = f0_viterbi.launches = 0
+        t0 = time.perf_counter()
+        chunk = next(gen, None)
+        if chunk is None:
+            return chunks, times, launches
+        times.append(time.perf_counter() - t0)
+        launches.append((gated_bias_attention.launches, concat_cost_pair.launches,
+                         f0_viterbi.launches))
+        chunks.append(chunk)
+
+
+def spread(times) -> str:
+    import numpy as np
+
+    return (f"median {1e3 * float(np.median(times)):.2f} ms, p90 "
+            f"{1e3 * float(np.percentile(times, 90)):.2f} ms, max {1e3 * max(times):.2f} ms")
+
+
+def phase_stream(root: str, knn, records, dev) -> None:
+    """Streaming at full size: a 30-s source against a 30-s target at the
+    CLI's defaults (2-s chunks, 1 s of context), STREAM_RUNS each once cold
+    and once warm, with the launches of every chunk checked; the cached
+    encoder's step and its attention; the live settings through
+    stream_session, pushed 20 ms at a time, against the file stream; one
+    traced live session split by the knnsvc.* spans."""
+    import numpy as np
+    import torch
+
+    from knnsvc_torch import HOP_LENGTH
+    from knnsvc_torch.match.pool import load_utterance
+
+    t_phase = time.perf_counter()
+    sdir = os.path.join(root, "stream")
+    os.makedirs(sdir)
+    src, ref = write_pair(sdir, FULL_SECONDS, sidecars=False)
+    n_src = len(load_utterance(src))
+    for tag, label, kw, f0_method in STREAM_RUNS:
+        kw = {**STREAM_CLI, **kw}
+        knn.f0_method = f0_method
+        try:
+            cold = stream_counted(knn, src, ref, kw)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            warm = stream_counted(knn, src, ref, kw)
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            knn.f0_method = "fast"
+        per_chunk = (0 if kw.get("encoder") == "cached" else 6,
+                     0 if kw.get("post_opt", "no_post_opt") == "no_post_opt" else 1,
+                     1 if f0_method == "device" else 0)
+        # chunk 0 also builds the target pool: 6 attention launches, device f0's Viterbi
+        first = (per_chunk[0] + 6, per_chunk[1], per_chunk[2] * 2)
+        for name, (chunks, times, launches) in (("cold", cold), ("warm", warm)):
+            total = sum(len(c) for c in chunks)
+            ok = (len(chunks) == STREAM_CHUNKS and abs(total - n_src) <= 2 * HOP_LENGTH
+                  and launches[0] == first and all(n == per_chunk for n in launches[1:])
+                  and all(np.isfinite(c).all() for c in chunks))
+            if not ok:
+                fail(f"stream ({tag}) {label}, {name}: {len(chunks)} chunks, {total} samples for "
+                     f"{n_src}, launches (attention, concat, viterbi) per chunk {launches}, "
+                     f"expected {first} then {per_chunk}")
+        _, times, launches = warm
+        log(f"[stream] ({tag}) {label}, {FULL_SECONDS:.0f} s at {STREAM_CLI}: {len(times)} "
+            f"chunks; warm chunks 1-{len(times) - 1}: {spread(times[1:])} per 2-s chunk; first "
+            f"chunk (target pool built) cold {1e3 * cold[1][0]:.2f} ms, warm "
+            f"{1e3 * times[0]:.2f} ms; warm stream {wall:.3f} s = {FULL_SECONDS / wall:.2f} "
+            f"audio-s/s; peak device memory {peak / 2 ** 30:.3f} GiB; launches (attention, "
+            f"concat, viterbi) chunk 0 {launches[0]}, then {launches[1]} per chunk")
+        rec = {"a": "gated_bias_attention", "b": "concat_cost_pair", "e": "f0_viterbi"}.get(tag)
+        if rec is not None:
+            records[rec]["stream_launches_per_chunk"] = launches[1][KERNELS.index(rec)]
+
+    phase_cached_step(knn, src, dev)
+
+    wav = load_utterance(src)
+    for encoder in ("cached", "windowed"):
+        kw = dict(LIVE, encoder=encoder)
+        want = np.concatenate(list(knn.stream_convert_chunks(src, ref, **kw)))
+        sess = knn.stream_session(ref, **kw)
+        outs, emits = [], []
+        for i in range(0, len(wav), PUSH_SAMPLES):
+            t0 = time.perf_counter()
+            out = sess.push(wav[i:i + PUSH_SAMPLES])
+            if len(out):
+                emits.append(time.perf_counter() - t0)
+            outs.append(out)
+        outs.append(sess.flush())
+        live = np.concatenate(outs)
+        equal = live.shape == want.shape and np.array_equal(live, want)
+        latency = LIVE["chunk_s"] + LIVE["right_context_s"]
+        log(f"[live] stream_session({encoder}, {LIVE}) pushed {PUSH_SAMPLES} samples at a time: "
+            f"{len(emits)} pushes emitted a chunk, their wall time {spread(emits)} (algorithmic "
+            f"latency {latency:.2f} s before it); output bit-identical to "
+            f"stream_convert_chunks: {equal}")
+        if not (equal and len(emits) > 0):
+            fail(f"the {encoder} live session differs from the file stream")
+    phase_stream_profile(knn, ref, wav, dict(LIVE, encoder="cached"))
+    log(f"[stream] streaming phase in {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_cached_step(knn, src: str, dev) -> None:
+    """One step of the cached encoder at the live settings (25 new frames,
+    5 of lookahead, a 200-frame cache filled) and its cached attention
+    alone, in plain PyTorch: CUDA-event times and the attention's share."""
+    import torch
+
+    from knnsvc_torch.match.pool import load_utterance
+    from knnsvc_torch.models.wavlm.streaming import (WavLMStreamEncoder, _cached_attention,
+                                                     stream_position_bias)
+
+    F_, CR = int(LIVE["chunk_s"] * 50), int(LIVE["right_context_s"] * 50)
+    enc = WavLMStreamEncoder(knn.wavlm, 6, chunk_frames=F_, lookahead_frames=CR,
+                             cache_frames=200)
+    wav = load_utterance(src)
+    steps = [wav[g * 320: g * 320 + enc.sample_len] for g in range(0, 300, F_)]
+    with torch.no_grad():
+        for x in steps:                          # fill the cache
+            enc.step(x)
+        step_ms = cuda_ms(lambda: enc.step(steps[-1]), iters=20)
+        layer = knn.wavlm.encoder.layers[0]
+        x = torch.randn(F_ + CR, knn.wavlm_cfg.encoder_embed_dim, device=dev)
+        bias = stream_position_bias(knn.wavlm, 200, F_ + CR)
+        invalid = torch.zeros(200 + F_ + CR, dtype=torch.bool, device=dev)
+        kc, vc = enc.state.k_cache[0], enc.state.v_cache[0]
+        attn_ms = cuda_ms(lambda: _cached_attention(x, layer.attn, bias, kc, vc, invalid),
+                          iters=50)
+        # the conv frontend alone, on the step's samples and on a 200-frame
+        # window (the windowed encoder's at the CLI defaults), beside the
+        # window's whole 6-layer encode
+        step_x = torch.from_numpy(steps[-1]).to(dev)[None]
+        win_x = torch.from_numpy(wav[:200 * 320 + 320]).to(dev)[None]
+        front_step_ms = cuda_ms(lambda: knn.wavlm.feature_extractor(step_x), iters=20)
+        front_win_ms = cuda_ms(lambda: knn.wavlm.feature_extractor(win_x), iters=20)
+        win_ms = cuda_ms(lambda: knn.wavlm.extract_layer(win_x, 6), iters=20)
+    log(f"[stream] cached encoder step ({F_}+{CR} frames over a 200-frame cache, 6 layers, "
+        f"plain PyTorch attention): {step_ms:.4f} ms per step; one layer's cached attention "
+        f"(q/k/v/out projections, gate, masked softmax) {attn_ms:.4f} ms, x6 = "
+        f"{6 * attn_ms / step_ms:.1%} of the step; the conv frontend alone {front_step_ms:.4f} "
+        f"ms on the step's {step_x.shape[1]} samples, {front_win_ms:.4f} ms on a 200-frame "
+        f"window's {win_x.shape[1]}, whose whole 6-layer encode takes {win_ms:.4f} ms")
+
+
+def phase_stream_profile(knn, ref: str, wav, kw: dict) -> None:
+    """One warm live session traced: wall, device busy and idle share, and
+    the split by the knnsvc.* spans (stream_chunk, stream_encode,
+    cached_attention, stream_f0, match, concat_cost, smoothness, vocode,
+    quantize_download)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sess = knn.stream_session(ref, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(0, len(wav), PUSH_SAMPLES):
+            sess.push(wav[i:i + PUSH_SAMPLES])
+        sess.flush()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in device_events(events))
+    if not spans:
+        log("[profile] live session: the trace holds no device events: busy share not measured")
+        return
+    busy, (lo, hi) = 0.0, spans[0][:2]
+    by_name: dict[str, list] = {}
+    for s, e, name in spans:
+        if s > hi:
+            busy, lo = busy + hi - lo, s
+        hi = max(hi, e)
+        acc = by_name.setdefault(name, [0.0, 0])
+        acc[0] += e - s
+        acc[1] += 1
+    busy += hi - lo
+    log(f"[profile] live session {kw}: wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} "
+        f"ms, idle share {1 - busy / wall_us:.1%}; stages (host ms in span, device kernel ms; "
+        f"the others nest in stream_chunk, cached_attention in stream_encode) "
+        + json.dumps({k: [round(h, 3), round(d, 3)] for k, (h, d) in stage_times(events).items()}))
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"[profile]   {us / 1e3:8.3f} ms x{n:<5d} {name[:100]}")
+
+
 def phase_bulk_profile(fn, label: str) -> None:
     """One bulk pass traced: device busy share and the split by the
     knnsvc.speaker_pool / bulk_match / vocode_batch spans."""
@@ -1188,9 +1643,12 @@ def main() -> int:
                "f0_viterbi": phase_viterbi_kernel(dev)}
     root = tempfile.mkdtemp(prefix="knnsvc_smoke_")
     try:
-        knn = phase_slice_cpu_vs_cuda(root, dev)
+        knn, cpu = phase_slice_cpu_vs_cuda(root, dev)
+        phase_stream_slice(root, knn, cpu)
+        del cpu
         phase_full(root, knn, records, dev)
         phase_bulk(root, knn, records, dev)
+        phase_stream(root, knn, records, dev)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

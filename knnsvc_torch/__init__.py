@@ -14,11 +14,13 @@ ops/concat_scan.py and ops/viterbi.py).
              (sidecars, native Harvest over ctypes, YIN, the device
              extractor)
   ops/       CUDA kernels, their nvcc build step, their plain PyTorch versions
-  models/    WavLM encoder and HiFi-GAN vocoder as nn.Modules
+  models/    WavLM encoder (and its streaming K/V-cache form) and HiFi-GAN
+             vocoder as nn.Modules
   match/     cosine kNN, f0 register shift and re-rank, concat-cost
              reselection and smoothness optimizer (post_opt), pools,
              serving core
-  cli/       ddsp_inference-compatible CLI (pair mode, --fast)
+  cli/       ddsp_inference-compatible CLI (pair and folder mode, --fast,
+             --stream_chunk_s)
 
 Entry points (KnnSvc, KnnSvc.random_init, the CLI) run on device="cuda"
 unless the caller passes device="cpu".

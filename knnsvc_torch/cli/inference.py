@@ -8,12 +8,14 @@ Both positionals are files (pair mode: WAV or FLAC, written to --out or next
 to the source) or both are dataset roots of speaker folders (folder mode:
 written under <tgt parent>/[duration_limit_N_]<src>_to_<tgt>_<ckpt_type>_
 post_opt_<post_opt>/, ref ddsp_inference.py:79-103). --fast false (the
-default) is the host-pool path, --fast true the device-resident one; every
---ckpt_type; matcher exact, approx (both exact search here) or int8
-(host-pool path); .pt or .knnsvc.pkl checkpoints. Runs on --device cuda
-(the default; no card -> error, never a silent CPU run) or --device cpu.
-Not ported: the streaming flags (ROADMAP.md Queue 1 item 10) and the
-sharded matchers (item 11), which exit with a message.
+default) is the host-pool path, --fast true the device-resident one, and
+--stream_chunk_s S (pair mode) the streaming path (KnnSvc.stream_convert:
+--stream_context_s, --stream_right_context_s, --stream_encoder
+windowed|cached, --stream_cache_s, --f0_method); every --ckpt_type; matcher
+exact, approx (both exact search here) or int8 (host-pool path); .pt or
+.knnsvc.pkl checkpoints. Runs on --device cuda (the default; no card ->
+error, never a silent CPU run) or --device cpu. Not ported: the sharded
+matchers (ROADMAP.md Queue 1 item 11), which raise.
 """
 
 from __future__ import annotations
@@ -67,8 +69,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--matcher", type=str, default="exact",
                         choices=["exact", "approx", "int8", "sharded", "sharded_int8"],
                         help="kNN candidate search: exact, approx (exact search on a GPU), "
-                             "int8 (quantized pool, --fast false); the sharded ones are "
-                             "not ported")
+                             "int8 (quantized pool, --fast false, no streaming); the sharded "
+                             "ones are not ported")
     parser.add_argument("--precision", type=str, default="highest",
                         choices=["highest", "fastest"],
                         help="highest = fp32 with TF32 off in cuBLAS and cuDNN; "
@@ -79,10 +81,11 @@ def build_parser() -> argparse.ArgumentParser:
                              "it disabled)")
     parser.add_argument("--f0_method", default="fast",
                         choices=["fast", "harvest", "dio", "yin", "device"],
-                        help="--fast true: f0 extractor. 'fast' = native budget Harvest "
-                             "on a background host thread; 'device' = the extractor on the "
-                             "card inside the pool build (no host work). --fast false "
-                             "takes Harvest")
+                        help="--fast true and --stream_chunk_s: f0 extractor. 'fast' = "
+                             "native budget Harvest on a background host thread; 'device' = "
+                             "the extractor on the card inside the pool build (no host "
+                             "work; the cached stream encoder takes 'fast' per window). "
+                             "--fast false takes Harvest")
     parser.add_argument("--upload_depth", choices=["float32", "int16"], default="float32",
                         help="--fast true pair mode: int16 halves the waveform uploads "
                              "(lossless for 16-bit-sourced audio)")
@@ -96,33 +99,53 @@ def build_parser() -> argparse.ArgumentParser:
                              "ref ddsp_matcher.py:1013-1023)")
     parser.add_argument("--device", type=str, default="cuda", help="cuda or cpu")
     parser.add_argument("--stream_chunk_s", type=float, default=None,
-                        help="streaming: not ported (ROADMAP.md Queue 1 item 10)")
-    parser.add_argument("--stream_context_s", type=float, default=1.0, help="streaming: not ported")
+                        help="pair mode only: convert through the streaming path in chunks of "
+                             "this many seconds (KnnSvc.stream_convert)")
+    parser.add_argument("--stream_context_s", type=float, default=1.0,
+                        help="streaming: context before (and, by default, after) each chunk")
     parser.add_argument("--stream_right_context_s", type=float, default=None,
-                        help="streaming: not ported")
+                        help="streaming: lookahead after each chunk, the only context that "
+                             "adds latency (default: --stream_context_s)")
     parser.add_argument("--stream_encoder", default="windowed", choices=("windowed", "cached"),
-                        help="streaming: not ported")
-    parser.add_argument("--stream_cache_s", type=float, default=4.0, help="streaming: not ported")
+                        help="streaming: 'windowed' encodes each context window, 'cached' only "
+                             "each chunk's new frames over a K/V cache")
+    parser.add_argument("--stream_cache_s", type=float, default=4.0,
+                        help="streaming, cached encoder: seconds of final frames kept as "
+                             "attention context")
     return parser
 
 
 def _check_args(args) -> str:
-    """Argument checks before the model load. -> 'pair' or 'folder'."""
-    set_stream = [f"--{k}" for k, v in STREAM_DEFAULTS.items() if getattr(args, k) != v]
-    if set_stream:
-        raise SystemExit(f"{', '.join(set_stream)}: the streaming path is still to port "
-                         "(ROADMAP.md, Queue 1 item 10)")
+    """Argument checks before the model load. -> 'pair', 'stream' or
+    'folder'."""
+    streaming = args.stream_chunk_s is not None
+    if streaming:
+        # the JAX CLI's own checks (knnsvc_tpu/cli/inference.py:121-133)
+        if args.matcher not in ("exact", "approx", "sharded", "sharded_int8"):
+            raise SystemExit(f"--stream_chunk_s supports --matcher "
+                             f"exact|approx|sharded|sharded_int8, not {args.matcher!r}")
+        if args.matcher == "sharded_int8" and args.post_opt != "no_post_opt":
+            raise SystemExit("--matcher sharded_int8 streams no_post_opt configs only "
+                             "(concat/smoothness read fp32 matching rows; use --matcher "
+                             "sharded)")
+        if os.path.isdir(args.src) or os.path.isdir(args.tgt):
+            raise SystemExit("--stream_chunk_s applies to pair (file-file) mode only; bulk "
+                             "mode converts whole utterances")
     if os.path.isfile(args.src) and os.path.isfile(args.tgt):
-        mode = "pair"
+        mode = "stream" if streaming else "pair"
     elif os.path.isdir(args.src) and os.path.isdir(args.tgt):
         mode = "folder"
     else:
         raise SystemExit("Both inputs must be files or both must be folders.")
     # a flag that the chosen path ignores is an error, not a silent no-op
-    if not args.fast and args.f0_method != "fast":
-        raise SystemExit(f"--f0_method {args.f0_method} applies to --fast true; the host-pool "
-                         "path (--fast false) takes Harvest f0 (or its _f0.npy sidecar)")
-    if args.upload_depth != "float32" and (not args.fast or mode == "folder"):
+    set_stream = [f"--{k}" for k, v in STREAM_DEFAULTS.items() if getattr(args, k) != v]
+    if set_stream and not streaming:
+        raise SystemExit(f"{', '.join(set_stream)} applies with --stream_chunk_s only")
+    if not (args.fast or streaming) and args.f0_method != "fast":
+        raise SystemExit(f"--f0_method {args.f0_method} applies to --fast true and "
+                         "--stream_chunk_s; the host-pool path (--fast false) takes Harvest f0 "
+                         "(or its _f0.npy sidecar)")
+    if args.upload_depth != "float32" and (not args.fast or mode != "pair"):
         raise SystemExit(f"--upload_depth {args.upload_depth} applies to --fast true pair mode "
                          "only")
     return mode
@@ -146,6 +169,15 @@ def main(argv=None) -> int:
     knn.f0_method = args.f0_method
     loudness = args.tgt_loudness_db if args.apply_loudness else None
 
+    if mode == "stream":
+        out = knn.stream_convert(
+            args.src, args.tgt, output_path=args.out, tgt_loudness_db=loudness,
+            chunk_s=args.stream_chunk_s, context_s=args.stream_context_s, topk=args.topk,
+            prioritize_f0=args.prioritize_f0, post_opt=args.post_opt, matcher=args.matcher,
+            right_context_s=args.stream_right_context_s, encoder=args.stream_encoder,
+            cache_s=args.stream_cache_s)
+        print("->", out)
+        return 0
     if mode == "pair":
         out = knn.convert_pair(args.src, args.tgt, topk=args.topk,
                                prioritize_f0=args.prioritize_f0, post_opt=args.post_opt,

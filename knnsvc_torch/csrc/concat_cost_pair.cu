@@ -12,7 +12,8 @@
 //   match_c = 1 - cand_c . svn_t / |cand_c|
 //   cc_jc   = 1 - prev_j . cand_c / (|prev_j| |cand_c|)
 //   unpitched: cc > b -> 1.5 cc - b;   pitched: b < 0.08 and cc < 5 b -> 0,
-//              weight latched to 0 for good once b >= 0.08
+//              weight latched to 0 for good once b >= 0.08 (it starts at
+//              init_weight: concat_weight, or a streaming carry's weight)
 //   total_c = weight * median_j(cc_jc) + match_c [+ |tlf0[cand_c] - slf0_t|]
 //   picks   = the k smallest totals, ties to the lowest candidate position,
 //             NaN after everything (torch.sort's order)
@@ -234,7 +235,7 @@ concat_cost_chain_kernel(const int* __restrict__ idx, const float* __restrict__ 
                          const float* __restrict__ src_lf0, const float* __restrict__ tgt_lf0,
                          const float* __restrict__ pnorm, const float* __restrict__ osd,
                          int* __restrict__ out, int T, int P, int D, int L, int k,
-                         int pitched_mask, float concat_weight) {
+                         int pitched_mask, float concat_weight, float init_weight) {
   constexpr int NC = (2 * KM + 31) / 32;     // candidates per selector lane
   constexpr bool SPLIT = KM <= 4;            // cross dots split over D
   // when the rows fit: own rows [3][k][D], then prev+1 rows [3][2k][D]
@@ -326,7 +327,8 @@ concat_cost_chain_kernel(const int* __restrict__ idx, const float* __restrict__ 
     if (pt >= C && pt < 3 * k) own_next = idx[((size_t)L + lane) * k + pt - C];
     stage(1, [&](int q) { return clamp_id(idx0[q % k], P); });
   }
-  float weight = concat_weight;  // carried by the selector (warp 0)
+  // carried by the selector (warp 0); unpitched lanes keep concat_weight
+  float weight = pitched ? init_weight : concat_weight;
   __syncthreads();
 
   for (int t = 1; t < T; ++t) {
@@ -537,7 +539,8 @@ template <int KM>
 int launch_chain(const int* idx, const float* svn, const float* tgt, const float* baselines,
                  const float* src_lf0, const float* tgt_lf0, const float* pnorm,
                  const float* osd, int* out, int T, int P, int D, int L, int k,
-                 int pitched_mask, float concat_weight, cudaStream_t stream) {
+                 int pitched_mask, float concat_weight, float init_weight,
+                 cudaStream_t stream) {
   const long bytes = dyn_bytes<KM>(k, D);
   if (bytes < 0) return (int)cudaGetLastError();
   auto kernel = bytes ? concat_cost_chain_kernel<KM, true> : concat_cost_chain_kernel<KM, false>;
@@ -545,7 +548,8 @@ int launch_chain(const int* idx, const float* svn, const float* tgt, const float
                                          (int)bytes);
   if (err != cudaSuccess) return (int)err;
   kernel<<<L, THREADS, bytes, stream>>>(idx, svn, tgt, baselines, src_lf0, tgt_lf0, pnorm, osd,
-                                        out, T, P, D, L, k, pitched_mask, concat_weight);
+                                        out, T, P, D, L, k, pitched_mask, concat_weight,
+                                        init_weight);
   return (int)cudaGetLastError();
 }
 
@@ -574,11 +578,14 @@ int concat_cost_prepass_f32(const int* idx, const float* svn, const float* tgt, 
 // are (T, L, k) int32, svn (T, D), tgt (P, D), baselines (T-1,), src_lf0
 // (T,) and tgt_lf0 (P,) fp32; pnorm (P,) and osd (2, T, L, k) fp32 scratch; all
 // contiguous and 16-byte aligned (checked by the Python wrapper); the f0
-// tracks may be null when no lane is pitched.
+// tracks may be null when no lane is pitched. The pitched lanes' weight
+// starts at init_weight (concat_weight for a whole utterance, the carried
+// weight for a streaming chunk whose frame 0 is the carry).
 int concat_cost_pair_f32(const int* idx, const float* svn, const float* tgt,
                          const float* baselines, const float* src_lf0, const float* tgt_lf0,
                          float* pnorm, float* osd, int* out, int T, int P, int D, int L, int k,
-                         int pitched_mask, float concat_weight, void* stream) {
+                         int pitched_mask, float concat_weight, float init_weight,
+                         void* stream) {
   if (bad_shape(T, P, D, L, k)) return (int)cudaErrorInvalidValue;
   if (pitched_mask && (src_lf0 == nullptr || tgt_lf0 == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -587,12 +594,12 @@ int concat_cost_pair_f32(const int* idx, const float* svn, const float* tgt,
   cudaStream_t s = (cudaStream_t)stream;
   if (k <= 4)
     return launch_chain<4>(idx, svn, tgt, baselines, src_lf0, tgt_lf0, pnorm, osd, out, T, P, D,
-                           L, k, pitched_mask, concat_weight, s);
+                           L, k, pitched_mask, concat_weight, init_weight, s);
   if (k <= 8)
     return launch_chain<8>(idx, svn, tgt, baselines, src_lf0, tgt_lf0, pnorm, osd, out, T, P, D,
-                           L, k, pitched_mask, concat_weight, s);
+                           L, k, pitched_mask, concat_weight, init_weight, s);
   return launch_chain<32>(idx, svn, tgt, baselines, src_lf0, tgt_lf0, pnorm, osd, out, T, P, D,
-                          L, k, pitched_mask, concat_weight, s);
+                          L, k, pitched_mask, concat_weight, init_weight, s);
 }
 
 const char* knnsvc_cuda_error_string(int code) {

@@ -11,8 +11,10 @@ int16 uploads, WAV or FLAC files and optional loudness normalization;
 `bulk_convert` — dataset to dataset (ref bulk_match): the host loop and the
 device-resident fast loops, serial or `data_batch` at a time; and the
 legacy knn-vc surface (`get_features`, `get_matching_set`, `get_f0`,
-`vocode`, `vocode_batch`, `match`, `self_match`). Not ported: the streaming
-path (ROADMAP Queue 1 item 10), `mesh` and the sharded matchers (item 11),
+`vocode`, `vocode_batch`, `match`, `self_match`); streaming conversion
+(`stream_convert_chunks`, `stream_convert`, `stream_session` and its
+`StreamSession`), with the windowed or the cached (K/V-cache) encoder. Not
+ported: `mesh` and the sharded matchers (ROADMAP Queue 1 item 11),
 `mel_vocode`. Everything runs on device="cuda" unless the caller passes
 device="cpu".
 """
@@ -58,6 +60,268 @@ def resolve_device(device: str | torch.device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"knnsvc_torch runs on 'cuda' or 'cpu', not {dev}")
     return dev
+
+
+class _StreamRunner:
+    """The chunk-conversion loop of stream_convert_chunks (the whole
+    waveform known up front) and StreamSession (samples arriving live). It
+    holds all cross-chunk state on the device: the cached encoder's K/V
+    ring, the last C final frames' features (`feat_buf`), the concat-cost
+    carry (the previous emitted frame's picks and the sticky weight, ref
+    lib_ongaku_test.py:294-336) and the vocoder tail's features; and on the
+    device too, the voiced f0 seen so far, whose log-median anchors every
+    chunk's register shift. It converts every chunk that is final given the
+    samples received: with eof all of them; without, only those whose whole
+    lookahead (plus the conv receptive field's margin) has arrived, so a
+    chunk's output never depends on when its samples were pushed."""
+
+    def __init__(self, svc: "KnnSvc", ref_wav_file, *, F: int, C: int, CR: int, topk: int,
+                 prioritize_f0: bool, po: PostOpt, matcher: str, vm: int, encoder: str,
+                 cache_s: float):
+        from knnsvc_torch.match.pool import build_device_pool, load_utterance
+
+        self.svc, self.F, self.C, self.CR, self.vm = svc, F, C, CR, vm
+        self.topk, self.prioritize_f0, self.po, self.matcher = topk, prioritize_f0, po, matcher
+        self.use_harm = uses_harmonics(svc.ckpt_type)
+        self.enc_stream = None
+        # samples past (g_lo + F + CR) * hop that a live chunk waits for
+        self.finality_slack = 1
+        if encoder == "cached":
+            from knnsvc_torch.models.wavlm.streaming import (WavLMStreamEncoder,
+                                                             conv_receptive_field)
+
+            hot = one_hot_layer(svc.weighting)
+            if hot is None:
+                raise ValueError("encoder='cached' needs a one-hot layer weighting "
+                                 "(the serving path's case)")
+            cache_frames = max(1, int(round(cache_s * svc.sr)) // HOP_LENGTH)
+            self.enc_stream = WavLMStreamEncoder(svc.wavlm, hot, chunk_frames=F,
+                                                 lookahead_frames=CR, cache_frames=cache_frames)
+            self.finality_slack = max(1, conv_receptive_field(svc.wavlm_cfg) - HOP_LENGTH)
+        with record_function("knnsvc.pool_build"):
+            self.ref = build_device_pool(load_utterance(ref_wav_file, svc.sr), svc.wavlm,
+                                         svc.weighting, svc.weighting, svc.sr,
+                                         f0_method=svc.f0_method, audio_path=str(ref_wav_file))
+        # the sticky-weight carry threads through the concat-cost reselection
+        self.continuity = po.concat_weight != -1.0
+        self.feat_buf = None     # (<= C, D): the last C final frames' features
+        self.carry = None        # (picks (L, k), weight) after the last emitted frame
+        self.tail = None         # (features, harmonics, first global frame) of the last chunk
+        self.voiced = None       # voiced f0 of the emitted frames
+        self.chunk_idx = 0
+        self.done = False
+
+    def required_samples(self) -> int:
+        """Absolute sample count the next chunk needs before it converts
+        mid-stream (its whole lookahead and the encoder's margin)."""
+        return (self.chunk_idx * self.F + self.F + self.CR) * HOP_LENGTH + self.finality_slack
+
+    def history_start(self) -> int:
+        """The earliest absolute sample the next chunk reads: a live session
+        may drop everything before it."""
+        return max(0, (self.chunk_idx * self.F - self.C) * HOP_LENGTH)
+
+    def emit(self, buf: np.ndarray, start: int, eof: bool):
+        """Convert every chunk that is final now. buf[i] is absolute sample
+        start + i (earlier samples may be dropped, never past
+        history_start()); eof marks the waveform complete, which lets the
+        trailing partial chunks through. Yields float32 chunks."""
+        L = start + len(buf)          # absolute samples seen so far
+        while not self.done:
+            g_lo = self.chunk_idx * self.F
+            if eof:
+                if g_lo * HOP_LENGTH >= L:
+                    self.done = True
+                    return
+            elif L < self.required_samples():
+                return
+            with record_function("knnsvc.stream_chunk"):
+                chunk = self._convert(buf, start, L, g_lo, eof)
+            if chunk is None:
+                return
+            yield chunk
+
+    def _window_features(self, seg, L: int, g_lo: int, window: np.ndarray, eof: bool):
+        """The window's features and f0 on the device: (features (T, D),
+        f0 (T,), c_lo, the window-local index of the chunk's first frame),
+        or None at the end of the input."""
+        from knnsvc_torch.dsp.f0 import get_f0
+        from knnsvc_torch.match.pool import build_device_pool
+        from knnsvc_torch.models.wavlm.model import frame_count
+
+        svc, hop, F, C, CR = self.svc, HOP_LENGTH, self.F, self.C, self.CR
+        if self.enc_stream is None:
+            with record_function("knnsvc.pool_build"):
+                wpool = build_device_pool(window, svc.wavlm, svc.weighting, svc.weighting,
+                                          svc.sr, f0_method=svc.f0_method)
+            with record_function("knnsvc.f0_join"):
+                q_f0 = wpool.f0
+            return wpool.matching, q_f0, g_lo - max(0, g_lo - C)
+        if eof:
+            # the frame budget of the whole input under the reference's pad
+            # quirk (ref ddsp_prematch_dataset.py:284), as a window derives it
+            total_frames = frame_count(svc.wavlm_cfg, L + hop - L % hop)
+            frames_this = min(F + CR, total_frames - g_lo)
+            if frames_this <= 0:
+                return None
+        else:
+            frames_this = F + CR
+        s0 = g_lo * hop
+        raw = seg(s0, s0 + self.enc_stream.sample_len)
+        feats_new = self.enc_stream.step(
+            np.pad(raw, (0, self.enc_stream.sample_len - len(raw))))[:frames_this]
+        c_lo = min(C, g_lo)
+        q_match = feats_new if c_lo == 0 else torch.cat([self.feat_buf[-c_lo:], feats_new])
+        # host f0 over the window's audio and framing, as the windowed mode's
+        with record_function("knnsvc.stream_f0"):
+            f0 = get_f0(np.pad(window, (0, hop - len(window) % hop)), svc.sr,
+                        use_sidecar=False, write_sidecar=False, method="fast")
+        q_f0 = torch.from_numpy(np.asarray(f0[:c_lo + frames_this], np.float32)).to(svc.device)
+        n_fin = min(F, frames_this)
+        self.feat_buf = (feats_new[:n_fin] if self.feat_buf is None else
+                         torch.cat([self.feat_buf, feats_new[:n_fin]])[-max(C, 1):])
+        return q_match, q_f0, c_lo
+
+    def _download(self, wav: torch.Tensor) -> np.ndarray:
+        from knnsvc_torch.match.serve import quantize_int16
+
+        with record_function("knnsvc.quantize_download"):
+            return quantize_int16(wav).cpu().numpy().astype(np.float32) / 32768.0
+
+    @torch.no_grad()
+    def _convert(self, buf: np.ndarray, start: int, L: int, g_lo: int, eof: bool):
+        """The chunk starting at global frame g_lo, or None (and done) when
+        the input has run out."""
+        from knnsvc_torch.match.f0_logic import masked_log_median
+        from knnsvc_torch.match.pipeline import match_utterance, match_utterance_stream
+
+        svc, hop, F, vm, ref = self.svc, HOP_LENGTH, self.F, self.vm, self.ref
+
+        def seg(a, b):                 # absolute slice (b may run past L)
+            if a < start:
+                raise AssertionError((a, start))
+            return buf[a - start: max(b - start, 0)]
+
+        w0 = max(0, g_lo - self.C) * hop
+        window = seg(w0, min(L, (g_lo + F + self.CR) * hop))
+        # build_device_pool drops a chunk of <= MIN_CHUNK_SECONDS * sr (one hop)
+        found = None if len(window) <= hop else self._window_features(seg, L, g_lo, window, eof)
+        if found is None:
+            self.done = True
+            return None
+        q_match, q_f0, c_lo = found
+        t_local = q_match.shape[0]
+        if c_lo >= t_local:
+            self.done = True
+            return None
+        c_hi = min(c_lo + F, t_local)
+        # the end of the input comes from the sample position: the conv
+        # frontend trims edge frames, so a short encode is no end of input
+        last = eof and (g_lo + F) * hop >= L
+        if not last and c_hi < c_lo + F:
+            raise ValueError(
+                f"streaming window encoded to {t_local} frames, fewer than the {c_lo + F} "
+                f"needed for a full mid-stream chunk: increase context_s (>= "
+                f"{2 * hop / svc.sr:.3f}s) so the encoder's edge trim eats context, not output")
+        new_v = q_f0[c_lo:c_hi]
+        new_v = new_v[new_v > 0]
+        self.voiced = new_v if self.voiced is None else torch.cat([self.voiced, new_v])
+        anchor = float(masked_log_median(self.voiced)) if len(self.voiced) else None
+        harmonics = ref.harmonics if self.use_harm else None
+        if self.continuity:
+            with record_function("knnsvc.match"):
+                out_s, shifted, harm_s, carry_at = match_utterance_stream(
+                    q_match, q_f0, ref.matching, ref.synth, ref.f0, harmonics,
+                    ckpt_type=svc.ckpt_type, post_opt=self.po, scan_from=c_lo,
+                    carry=self.carry, topk=self.topk, matcher=self.matcher,
+                    query_f0_log_median=anchor)
+            if not last:
+                self.carry = carry_at(c_hi)
+            # vocoder margins: on the left the previous chunk's emitted
+            # features, on the right this window's
+            v_hi = min(t_local, c_hi + vm)
+            tail = self.tail
+            lm = 0 if tail is None else min(vm, c_lo, g_lo - tail[2])
+            feats_v = out_s[: v_hi - c_lo]
+            harm_v = None if harm_s is None else harm_s[: v_hi - c_lo]
+            if lm > 0:
+                off = g_lo - lm - tail[2]
+                feats_v = torch.cat([tail[0][off:off + lm], feats_v])
+                if harm_v is not None:
+                    harm_v = torch.cat([tail[1][off:off + lm], harm_v])
+            wav = svc._vocode_tensor(feats_v[None], shifted[None, c_lo - lm: v_hi],
+                                     None if harm_v is None else harm_v[None])
+            a = lm * hop
+            self.tail = (out_s, harm_s, g_lo)
+        else:
+            with record_function("knnsvc.match"):
+                feats = match_utterance(
+                    q_match, q_f0, ref.matching, ref.synth, ref.f0, harmonics, svc.ckpt_type,
+                    post_opt=self.po, topk=self.topk, prioritize_f0=self.prioritize_f0,
+                    matcher=self.matcher, as_numpy=False, query_f0_log_median=anchor)
+            v_lo, v_hi = max(0, c_lo - vm), min(t_local, c_hi + vm)
+            harm = feats.harmonics_out_feats_weighted
+            wav = svc._vocode_tensor(feats.out_feats_weighted[None, v_lo:v_hi],
+                                     feats.shifted_query_f0[None, v_lo:v_hi],
+                                     None if harm is None else harm[None, v_lo:v_hi])
+            a = (c_lo - v_lo) * hop
+        chunk = self._download(wav[0, a: a + (c_hi - c_lo) * hop])
+        if last:
+            self.done = True
+        else:
+            self.chunk_idx += 1
+        return chunk
+
+
+class StreamSession:
+    """Push-based live conversion, made by KnnSvc.stream_session(): feed
+    samples of any size as they arrive (a mic callback, a socket) and get
+    back the converted audio of each chunk_s block the moment it is final.
+    All cross-chunk state lives in the session, on the device, and consumed
+    history is dropped: memory stays O(chunk + context) however long the
+    stream runs.
+
+        sess = knn.stream_session("target.wav", chunk_s=2.0)
+        out = sess.push(samples)    # float32 audio, possibly empty
+        ...
+        out = sess.flush()          # the trailing partial chunks
+
+    A whole utterance pushed in any pieces and flushed gives audio
+    bit-identical to stream_convert_chunks on the same settings."""
+
+    def __init__(self, runner: _StreamRunner, sr: int):
+        self._runner = runner
+        self.sr = sr
+        self._buf = np.zeros(0, np.float32)
+        self._start = 0            # absolute sample index of _buf[0]
+        self._flushed = False
+
+    @property
+    def pending_s(self) -> float:
+        """Seconds received but not yet emitted as converted audio."""
+        emitted = self._runner.chunk_idx * self._runner.F * HOP_LENGTH
+        return max(0.0, (self._start + len(self._buf) - emitted) / self.sr)
+
+    def push(self, samples) -> np.ndarray:
+        """Append samples; convert and return every chunk they made final."""
+        if self._flushed:
+            raise RuntimeError("stream session already flushed")
+        self._buf = np.concatenate([self._buf, np.asarray(samples, np.float32).reshape(-1)])
+        out = list(self._runner.emit(self._buf, self._start, eof=False))
+        keep = self._runner.history_start()
+        if keep > self._start:
+            self._buf = self._buf[keep - self._start:]
+            self._start = keep
+        return np.concatenate(out) if out else np.zeros(0, np.float32)
+
+    def flush(self) -> np.ndarray:
+        """End of stream: convert the remaining (partial) chunks."""
+        if self._flushed:
+            raise RuntimeError("stream session already flushed")
+        self._flushed = True
+        out = list(self._runner.emit(self._buf, self._start, eof=True))
+        self._buf = np.zeros(0, np.float32)
+        return np.concatenate(out) if out else np.zeros(0, np.float32)
 
 
 class KnnSvc:
@@ -415,6 +679,113 @@ class KnnSvc:
         with record_function("knnsvc.write_wav"):
             save_audio(output_path, pred, self.sr)
         return output_path
+
+    # ---------------------------------------------------------- streaming
+
+    def _stream_runner(self, ref_wav_file, chunk_s: float, context_s: float,
+                       right_context_s: float | None, min_context: int, topk: int,
+                       prioritize_f0: bool, post_opt: str, matcher: str,
+                       vocode_margin_frames: int, encoder: str, cache_s: float,
+                       n_samples: int | None = None) -> _StreamRunner:
+        """Checks and frame counts of the streaming entry points: chunk F,
+        left context C and right context CR in frames. The contexts are
+        clamped to min_context, and to one frame when the input (n_samples,
+        when known) spans several chunks: the conv frontend trims about a
+        frame at each window edge, so a mid-stream window needs a hop of
+        real context on each side."""
+        if matcher not in ("exact", "approx", "sharded", "sharded_int8"):
+            raise ValueError(f"streaming supports matcher 'exact', 'approx', 'sharded' or "
+                             f"'sharded_int8', not {matcher!r}")
+        if matcher in ("sharded", "sharded_int8"):
+            raise multi_device_error(matcher)
+        if encoder not in ("windowed", "cached"):
+            raise ValueError(f"encoder must be 'windowed' or 'cached', not {encoder!r}")
+        hop = HOP_LENGTH
+        F = max(1, int(round(chunk_s * self.sr)) // hop)
+        C = max(min_context, int(round(context_s * self.sr)) // hop)
+        CR = C if right_context_s is None else max(
+            min_context, int(round(right_context_s * self.sr)) // hop)
+        if n_samples is not None and n_samples > F * hop:
+            C, CR = max(C, 1), max(CR, 1)
+        return _StreamRunner(self, ref_wav_file, F=F, C=C, CR=CR, topk=topk,
+                             prioritize_f0=prioritize_f0, po=PostOpt.parse(post_opt),
+                             matcher=matcher, vm=max(0, int(vocode_margin_frames)),
+                             encoder=encoder, cache_s=cache_s)
+
+    def stream_convert_chunks(self, src, ref_wav_file: str, chunk_s: float = 2.0,
+                              context_s: float = 1.0, topk: int = 4, prioritize_f0: bool = True,
+                              post_opt: str = "no_post_opt", matcher: str = "approx",
+                              vocode_margin_frames: int = 16,
+                              right_context_s: float | None = None,
+                              encoder: str = "windowed", cache_s: float = 4.0):
+        """Streaming conversion (no reference analogue; the reference
+        converts whole utterances, ref ddsp_matcher.py:937-1023): yields the
+        converted waveform in chunks of chunk_s seconds, each computed from
+        a window with context_s of context before it and right_context_s
+        (default context_s) after it. The algorithmic latency is chunk_s +
+        right_context_s; live input wants e.g. context_s=1.0,
+        right_context_s=0.1. Mid-stream contexts are at least one hop.
+
+        Per chunk, encoder='windowed' encodes the window [chunk - context,
+        chunk + lookahead] (6 attention-kernel launches on a card; with
+        f0_method='device' one Viterbi launch); encoder='cached' encodes
+        only the chunk's new frames and its lookahead over a K/V cache of
+        the last cache_s seconds of final frames (models/wavlm/streaming.py;
+        host f0 of the window, method 'fast'; needs a one-hot layer
+        weighting). The window's frames are matched against the target pool
+        (with post_opt, the concat-cost reselection of the chunk's frames
+        continues from the previous chunk's last emitted frame: one kernel
+        launch on a card), the chunk is vocoded with vocode_margin_frames
+        of margin on each side and trimmed, quantized to int16 on the
+        device and downloaded once. The register shift is anchored at the
+        log-median of all voiced f0 emitted so far, so chunks do not
+        re-pitch independently.
+
+        src: a path or a 1-D float waveform at self.sr. Yields float32
+        arrays of chunk_s * sr samples (the last may be shorter)."""
+        from knnsvc_torch.match.pool import load_utterance
+
+        wav = (load_utterance(src, self.sr) if isinstance(src, (str, Path))
+               else np.asarray(src, dtype=np.float32))
+        # C = 0 stays honoured for an input of one chunk: no boundary to protect
+        runner = self._stream_runner(
+            ref_wav_file, chunk_s, context_s, right_context_s, 0, topk, prioritize_f0,
+            post_opt, matcher, vocode_margin_frames, encoder, cache_s, n_samples=len(wav))
+        yield from runner.emit(wav, 0, eof=True)
+
+    def stream_convert(self, src_wav_file: str, ref_wav_file: str,
+                       output_path: str | None = None, tgt_loudness_db: float | None = None,
+                       **stream_kwargs) -> str:
+        """The whole file through stream_convert_chunks, the chunks written
+        as one file (the CLI's streaming surface). Returns the output path:
+        `<src_dir>/<src>_to_<ref>_knn_<ckpt_type>_stream.wav` by default."""
+        chunks = list(self.stream_convert_chunks(src_wav_file, ref_wav_file, **stream_kwargs))
+        pred = np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
+        if tgt_loudness_db is not None:
+            pred = normalize_loudness(pred, self.sr, tgt_loudness_db)
+        if output_path is None:
+            output_path = self._default_output_path(src_wav_file, ref_wav_file, "stream")
+        with record_function("knnsvc.write_wav"):
+            save_audio(output_path, pred, self.sr)
+        return output_path
+
+    def stream_session(self, ref_wav_file: str, chunk_s: float = 2.0, context_s: float = 1.0,
+                       topk: int = 4, prioritize_f0: bool = True,
+                       post_opt: str = "no_post_opt", matcher: str = "approx",
+                       vocode_margin_frames: int = 16, right_context_s: float | None = None,
+                       encoder: str = "windowed", cache_s: float = 4.0) -> StreamSession:
+        """A push-based live session against ref_wav_file (the target pool
+        is built now): StreamSession.push(samples) converts every chunk
+        whose lookahead has arrived, .flush() the trailing partial ones,
+        with stream_convert_chunks' per-chunk semantics: an utterance pushed
+        in any pieces and flushed gives the file stream's audio bit for bit.
+        Both contexts are at least one frame (a session cannot know that
+        its input is a single chunk). encoder='cached' suits live input: a
+        session never hears old audio again. Memory is O(context + chunk)."""
+        runner = self._stream_runner(
+            ref_wav_file, chunk_s, context_s, right_context_s, 1, topk, prioritize_f0,
+            post_opt, matcher, vocode_margin_frames, encoder, cache_s)
+        return StreamSession(runner, self.sr)
 
     # ---------------------------------------------------------- fast bulk
 

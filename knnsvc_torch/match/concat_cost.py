@@ -21,8 +21,16 @@ Lanes are independent and run stacked: (T, L, k) selections, lane l
 pitched or not. This is a Python loop over frames, a few dozen small ops
 each; on the card the serving path runs the same recurrence as one kernel
 (ops/concat_scan.py, csrc/concat_cost_pair.cu), and this loop is the plain
-version it is held to. The streaming variants (`*_stream_core`) are not
-ported yet.
+version it is held to.
+
+Streaming (`concat_cost_stream_core`, `concat_cost_pair_stream_core`):
+a chunk continues the recurrence from a carry, the previous frame's picks
+and the pitched lane's weight after it. The carry goes in as frame 0 (its
+ids the carried picks, its source row the previous frame's), which passes
+through, so frame 1 sees the carried picks in their order and takes its
+baseline against the previous source row, and the pitched lanes start
+from the carried weight. Chaining chunks so gives the whole-utterance
+pass frame for frame, the sticky latch included.
 """
 
 from __future__ import annotations
@@ -52,16 +60,22 @@ def scan_inputs(src: torch.Tensor, shifted_src_f0: torch.Tensor | None,
 def concat_cost_scan(idx: torch.Tensor, svn: torch.Tensor, tgt: torch.Tensor,
                      baselines: torch.Tensor, src_lf0: torch.Tensor | None,
                      tgt_lf0: torch.Tensor | None, pitched: tuple[bool, ...],
-                     concat_weight: float) -> torch.Tensor:
+                     concat_weight: float,
+                     pitched_weight: float | torch.Tensor | None = None) -> torch.Tensor:
     """The serial reselection over T frames for L stacked lanes.
     idx (T, L, k) integer ids into tgt (P, D); pitched[l] says whether lane
-    l is pitched (then src_lf0 (T,) and tgt_lf0 (P,) are needed).
-    -> (T, L, k) int64 selections."""
+    l is pitched (then src_lf0 (T,) and tgt_lf0 (P,) are needed). The
+    pitched lanes' weight starts at `pitched_weight` (default
+    concat_weight; a carry may bring 0), the unpitched lanes' is
+    concat_weight throughout. -> (T, L, k) int64 selections."""
     T, L, k = idx.shape
     P = tgt.shape[0]
     idx = idx.long()
     lane_pitched = torch.tensor(pitched, device=idx.device)                   # (L,)
     weight = torch.full((L,), concat_weight, dtype=torch.float32, device=idx.device)
+    if pitched_weight is not None:
+        weight = torch.where(lane_pitched, torch.as_tensor(
+            pitched_weight, dtype=torch.float32, device=idx.device), weight)
     prev = idx[0]                                                             # (L, k)
     prev_feats = tgt[prev]                                                    # (L, k, D)
     pn = _norm(prev_feats)
@@ -116,3 +130,71 @@ def knn_with_concat_cost_pair(idx_unpitched: torch.Tensor, idx_pitched: torch.Te
     out = concat_cost_scan(torch.stack([idx_unpitched, idx_pitched], dim=1), svn, tgt,
                            baselines, src_lf0, tgt_lf0, (False, True), concat_weight)
     return out[:, 0], out[:, 1]
+
+
+def sticky_weights(baselines: torch.Tensor, init_weight: float | torch.Tensor,
+                   pitched: bool) -> torch.Tensor:
+    """The weight after each of the frames whose baselines are given (T,),
+    from `init_weight` before them: a pitched lane's latches to 0 at the
+    first baseline that is not under 0.08 (NaN included), an unpitched
+    lane's stays as it came."""
+    w = torch.as_tensor(init_weight, dtype=torch.float32, device=baselines.device)
+    if not pitched:
+        return w.expand(baselines.shape[0]).clone()
+    return w * torch.cumprod((baselines < 0.08).to(torch.float32), dim=0)
+
+
+def carried_inputs(lanes: list[torch.Tensor], prev_idx: torch.Tensor, prev_src: torch.Tensor,
+                   src: torch.Tensor, shifted_src_f0: torch.Tensor | None):
+    """The carry prepended as frame 0: each lane's (T, k) ids under its row
+    of prev_idx (L, k), prev_src (D,) over src (T, D), and a copy of frame
+    0's f0 (frame 0 passes through and reads no f0). -> (lanes (T+1, k),
+    src (T+1, D), f0 (T+1,) or None)."""
+    prev_idx = prev_idx.reshape(len(lanes), -1)
+    lanes = [torch.cat([p[None].to(device=x.device, dtype=x.dtype), x])
+             for p, x in zip(prev_idx, lanes)]
+    src = torch.cat([prev_src[None].to(src), src])
+    f0 = None if shifted_src_f0 is None else torch.cat([shifted_src_f0[:1], shifted_src_f0])
+    return lanes, src, f0
+
+
+def _stream_scan(lanes, pitched, prev_idx, prev_src, src, tgt, shifted_src_f0, tgt_f0,
+                 prev_weight, concat_weight):
+    lanes, src, f0 = carried_inputs(lanes, prev_idx, prev_src, src, shifted_src_f0)
+    svn, baselines, src_lf0, tgt_lf0 = scan_inputs(src, f0, tgt_f0)
+    out = concat_cost_scan(torch.stack(lanes, dim=1), svn, tgt, baselines, src_lf0, tgt_lf0,
+                           pitched, concat_weight, pitched_weight=prev_weight)
+    return out[1:], sticky_weights(baselines, prev_weight, any(pitched))
+
+
+def concat_cost_stream_core(idx: torch.Tensor, prev_src: torch.Tensor, src: torch.Tensor,
+                            tgt: torch.Tensor, prev_idx: torch.Tensor,
+                            prev_weight: float | torch.Tensor,
+                            shifted_src_f0: torch.Tensor | None = None,
+                            tgt_f0: torch.Tensor | None = None,
+                            concat_weight: float = 0.2):
+    """One lane continuing from a carry: every frame of idx (T, k) is
+    reselected, frame 0 against prev_idx (k,) and prev_src (D,), the
+    previous frame's picks and source row; pitched when both f0 tracks (Hz)
+    are given, then starting from weight prev_weight. -> (selections (T, k)
+    int64, the weight after each frame (T,)). The JAX package's
+    concat_cost_stream_core, with the pool tgt (P, D) for its gather and
+    the target f0 in Hz."""
+    pitched = shifted_src_f0 is not None
+    out, w = _stream_scan([idx], (pitched,), prev_idx, prev_src, src, tgt, shifted_src_f0,
+                          tgt_f0 if pitched else None, prev_weight, concat_weight)
+    return out[:, 0], w
+
+
+def concat_cost_pair_stream_core(idx_unpitched: torch.Tensor, idx_pitched: torch.Tensor,
+                                 prev_src: torch.Tensor, src: torch.Tensor, tgt: torch.Tensor,
+                                 shifted_src_f0: torch.Tensor, tgt_f0: torch.Tensor,
+                                 prev_idx: torch.Tensor, prev_weight: float | torch.Tensor,
+                                 concat_weight: float = 0.2):
+    """Both lanes continuing from a carry (prev_idx (2, k): the unpitched
+    lane's picks, then the pitched lane's; prev_weight: the pitched lane's
+    weight). -> (unpitched (T, k), pitched (T, k), the pitched lane's
+    weight after each frame (T,))."""
+    out, w = _stream_scan([idx_unpitched, idx_pitched], (False, True), prev_idx, prev_src, src,
+                          tgt, shifted_src_f0, tgt_f0, prev_weight, concat_weight)
+    return out[:, 0], out[:, 1], w

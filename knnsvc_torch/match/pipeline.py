@@ -1,7 +1,10 @@
 """The match stage (counterpart of knnsvc_tpu/match/pipeline.py).
 
 `match_core` and `match_core_post_opt` are the JAX package's `_match_core`
-and `_match_core_post_opt`, the serving path's match. The host-pool and
+and `_match_core_post_opt`, the serving path's match;
+`match_core_post_opt_stream` and `match_utterance_stream` its streaming
+form, the concat-cost reselection continuing from a cross-chunk carry
+(`_match_core_post_opt_stream` there). The host-pool and
 bulk paths add `match_utterance` (one utterance against a prepared target
 pool: exact/approx through those two, int8 through the step path),
 `match_at_inference_time` (source pool x target pool), and
@@ -36,7 +39,8 @@ from knnsvc_torch.match.pool import SpeakerPool, build_speaker_pool
 from knnsvc_torch.match.quantized_pool import QuantizedPool, knn_topk_quantized, quantize_pool
 from knnsvc_torch.match.smoothness import (HARMONICS_LOSS_SCALE, WAVLM_LOSS_SCALE,
                                            optimize_smoothness_weights)
-from knnsvc_torch.ops.concat_scan import concat_cost_pair, concat_cost_single
+from knnsvc_torch.ops.concat_scan import (concat_cost_pair, concat_cost_pair_stream,
+                                          concat_cost_single, concat_cost_single_stream)
 
 KNN_CANDIDATES = 32  # ref :1203
 
@@ -66,6 +70,27 @@ def _weighted(pool: torch.Tensor, idx: torch.Tensor, opt_enabled: bool,
     return (pool[idx] * w[..., None]).sum(dim=1)
 
 
+def _candidates(q, matching, pool_f0, qf0, qmed, topk: int, use_harmonics: bool):
+    """kNN top-32, register shift, and the top-k of each lane: (shifted f0
+    (T,), unpitched ids (T, k), pitched ids (T, k) or None)."""
+    nearest_nbrs, _ = knn_topk(q, matching, k=KNN_CANDIDATES)
+    shifted = shift_f0_to_target_register(qf0, pool_f0, qmed)
+    pitched_idx = None
+    if use_harmonics:
+        pitched_idx = sort_by_f0_compatibility(shifted, pool_f0, nearest_nbrs)[:, :topk]
+    return shifted, nearest_nbrs[:, :topk], pitched_idx
+
+
+def _smoothed(synth, harmonics, target_idx, pitched_idx, opt_enabled: bool):
+    """Both smoothness optimizations (or uniform means) and the weighted
+    gathers: (out (T, D), harm (T, 49) or None)."""
+    with record_function("knnsvc.smoothness"):
+        out = _weighted(synth, target_idx, opt_enabled, WAVLM_LOSS_SCALE)
+        harm = (None if pitched_idx is None
+                else _weighted(harmonics, pitched_idx, opt_enabled, HARMONICS_LOSS_SCALE))
+    return out, harm
+
+
 def match_core_post_opt(q: torch.Tensor, matching: torch.Tensor, synth: torch.Tensor,
                         pool_f0: torch.Tensor, harmonics: torch.Tensor | None,
                         qf0: torch.Tensor, qmed: float | None, topk: int,
@@ -76,13 +101,8 @@ def match_core_post_opt(q: torch.Tensor, matching: torch.Tensor, synth: torch.Te
     when concat_weight == -1); then the two smoothness optimizations (or
     uniform means when opt_enabled is False) and the weighted gathers.
     Returns (out (T, D), shifted f0 (T,), harm (T, 49) or None)."""
-    nearest_nbrs, _ = knn_topk(q, matching, k=KNN_CANDIDATES)
-    shifted = shift_f0_to_target_register(qf0, pool_f0, qmed)
-    target_idx = nearest_nbrs[:, :topk]
-    pitched_idx = None
-    if use_harmonics:
-        pitched_idx = sort_by_f0_compatibility(shifted, pool_f0, nearest_nbrs)[:, :topk]
-
+    shifted, target_idx, pitched_idx = _candidates(q, matching, pool_f0, qf0, qmed, topk,
+                                                   use_harmonics)
     if concat_weight != -1.0:
         with record_function("knnsvc.concat_cost"):
             if use_harmonics:
@@ -92,12 +112,103 @@ def match_core_post_opt(q: torch.Tensor, matching: torch.Tensor, synth: torch.Te
             else:
                 target_idx = concat_cost_single(target_idx, q, matching,
                                                 concat_weight=concat_weight)
-
-    with record_function("knnsvc.smoothness"):
-        out = _weighted(synth, target_idx, opt_enabled, WAVLM_LOSS_SCALE)
-        harm = (_weighted(harmonics, pitched_idx, opt_enabled, HARMONICS_LOSS_SCALE)
-                if use_harmonics else None)
+    out, harm = _smoothed(synth, harmonics, target_idx, pitched_idx, opt_enabled)
     return out, shifted, harm
+
+
+def match_core_post_opt_stream(q: torch.Tensor, matching: torch.Tensor, synth: torch.Tensor,
+                               pool_f0: torch.Tensor, harmonics: torch.Tensor | None,
+                               qf0: torch.Tensor, qmed: float | None, carry, topk: int,
+                               use_harmonics: bool, concat_weight: float, opt_enabled: bool,
+                               scan_from: int):
+    """The post_opt match of one streaming window. The kNN, register shift
+    and pitched re-rank run over all T window frames (the vocoder margins
+    need the shifted f0); the concat-cost reselection runs over [scan_from,
+    T), the frames this chunk owns, from `carry` = (picks (L, k), pitched
+    weight) of the previous chunk's last emitted frame, or (carry None, the
+    first chunk) from frame scan_from's own top-k. Chaining chunks so gives
+    the whole-utterance pass frame for frame (ref lib_ongaku_test.py:294-336).
+    The smoothness weights are solved per window slice. concat_weight -1
+    keeps frame-local selections, with weights -1.
+    Returns (out (Ts, D), shifted (T,), harm (Ts, 49) or None, picks (Ts,
+    L, k), the weight after each frame (Ts,)), Ts = T - scan_from."""
+    shifted, target_idx, pitched_idx = _candidates(q, matching, pool_f0, qf0, qmed, topk,
+                                                   use_harmonics)
+    s = scan_from
+    sel_u, sel_p = target_idx[s:], None if pitched_idx is None else pitched_idx[s:]
+    if concat_weight == -1.0:
+        weights = torch.full((q.shape[0] - s,), -1.0, device=q.device)
+    else:
+        lead = 0
+        if carry is None:
+            # the first chunk: frame s passes through as its own top-k and is
+            # the carry into [s + 1, T), as the whole-utterance pass starts
+            lead = 1
+            carry = (sel_u[:1] if sel_p is None else torch.stack([sel_u[0], sel_p[0]]),
+                     concat_weight)
+        elif s < 1:
+            raise ValueError("a carried chunk needs the previous frame in its window "
+                             f"(scan_from >= 1, got {s})")
+        a = s + lead
+        with record_function("knnsvc.concat_cost"):
+            if use_harmonics:
+                u, p, weights = concat_cost_pair_stream(
+                    target_idx[a:], pitched_idx[a:], q[a - 1], q[a:], matching, shifted[a:],
+                    pool_f0, carry[0], carry[1], concat_weight=concat_weight)
+                sel_p = torch.cat([sel_p[:lead], p])
+            else:
+                u, weights = concat_cost_single_stream(target_idx[a:], q[a - 1], q[a:], matching,
+                                                       carry[0][0], carry[1],
+                                                       concat_weight=concat_weight)
+        sel_u = torch.cat([sel_u[:lead], u])
+        weights = torch.cat([torch.full((lead,), concat_weight, device=q.device), weights])
+    out, harm = _smoothed(synth, harmonics, sel_u, sel_p, opt_enabled)
+    sel = sel_u[:, None] if sel_p is None else torch.stack([sel_u, sel_p], dim=1)
+    return out, shifted, harm, sel, weights
+
+
+@torch.no_grad()
+def match_utterance_stream(query_seq, query_f0, matching_list: torch.Tensor,
+                           synth_list: torch.Tensor, matching_f0: torch.Tensor,
+                           harmonics_list: torch.Tensor | None, ckpt_type: str,
+                           post_opt: PostOpt, scan_from: int, carry: tuple | None,
+                           topk: int = 4, matcher: str = "approx",
+                           query_f0_log_median: float | None = None):
+    """One streaming window of the post_opt match with cross-chunk concat
+    continuity, on the pool's device. `carry` is (picks (L, k), weight) of
+    the previous chunk's last emitted frame, None for the first chunk;
+    `scan_from` is the window-local index of the first frame this chunk
+    owns. Returns (out (Ts, D), shifted (T,), harm (Ts, 49) or None,
+    carry_at), where carry_at(emit_end) is the carry after window-local
+    frame emit_end - 1, for the next chunk. Everything stays on the device."""
+    if matcher in ("sharded", "sharded_int8"):
+        raise multi_device_error(matcher)
+    if matcher not in ("exact", "approx"):
+        raise ValueError(f"streaming takes matcher 'exact' or 'approx', not {matcher!r}")
+    device = synth_list.device
+    q = torch.as_tensor(query_seq).to(device=device, dtype=torch.float32)
+    qf0 = torch.as_tensor(query_f0).to(device=device, dtype=torch.float32)
+    use_harm = uses_harmonics(ckpt_type)
+    if use_harm and harmonics_list is None:
+        raise ValueError(f"{ckpt_type} needs the pool's harmonic amplitudes")
+    if carry is not None:
+        lanes = 2 if use_harm else 1
+        if carry[0].numel() != lanes * topk:
+            raise ValueError(f"the carry holds {tuple(carry[0].shape)} picks, expected "
+                             f"({lanes}, {topk})")
+        carry = (carry[0].reshape(lanes, topk), carry[1])
+    out, shifted, harm, sel, weights = match_core_post_opt_stream(
+        q, matching_list, synth_list, matching_f0, harmonics_list, qf0, query_f0_log_median,
+        carry, topk=topk, use_harmonics=use_harm, concat_weight=post_opt.concat_weight,
+        opt_enabled=post_opt.enabled, scan_from=scan_from)
+
+    def carry_at(emit_end: int):
+        """The carry after window-local frame emit_end - 1, the last frame
+        this chunk emitted."""
+        pos = emit_end - 1 - scan_from
+        return sel[pos], weights[pos]
+
+    return out, shifted, harm, carry_at
 
 
 # ------------------------------------------------------- host-pool / bulk paths
@@ -212,10 +323,8 @@ def match_utterance(query_seq, query_f0, matching_list: torch.Tensor | None,
                     pitched_idx = concat_cost_single(pitched_idx, q, matching_list, shifted,
                                                      matching_f0,
                                                      concat_weight=post_opt.concat_weight)
-        with record_function("knnsvc.smoothness"):
-            out = _weighted(synth_list, target_idx, post_opt.enabled, WAVLM_LOSS_SCALE)
-            harm = (_weighted(harmonics_list, pitched_idx, post_opt.enabled,
-                              HARMONICS_LOSS_SCALE) if use_harm else None)
+        out, harm = _smoothed(synth_list, harmonics_list, target_idx, pitched_idx,
+                              post_opt.enabled)
     if not as_numpy:
         return ConversionFeatures(out, shifted, harm)
     return ConversionFeatures(_to_numpy(out), _to_numpy(shifted), _to_numpy(harm))
@@ -303,10 +412,8 @@ def match_utterances_batched(qs, qf0s, matching: torch.Tensor, synth: torch.Tens
                 else:
                     target_idx = concat_cost_single(target_idx, qs[b], matching,
                                                     concat_weight=post_opt.concat_weight)
-        with record_function("knnsvc.smoothness"):
-            outs.append(_weighted(synth, target_idx, post_opt.enabled, WAVLM_LOSS_SCALE))
-            if use_harm:
-                harms.append(_weighted(harmonics, pitched_idx, post_opt.enabled,
-                                       HARMONICS_LOSS_SCALE))
+        out, harm = _smoothed(synth, harmonics, target_idx, pitched_idx, post_opt.enabled)
+        outs.append(out)
+        harms.append(harm)
         shifts.append(shifted)
     return torch.stack(outs), torch.stack(shifts), (torch.stack(harms) if use_harm else None)

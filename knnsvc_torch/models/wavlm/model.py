@@ -236,7 +236,7 @@ class WavLM(nn.Module):
         if c0 != cfg.encoder_embed_dim:
             self.post_extract_proj = nn.Linear(c0, cfg.encoder_embed_dim)
         self.encoder = Encoder(cfg)
-        self._bias_cache: dict[int, torch.Tensor] = {}
+        self._bias_cache: dict = {}
         self._bias_key = None
 
     def _prelude(self, wav: torch.Tensor,
@@ -261,18 +261,23 @@ class WavLM(nn.Module):
         """The position bias as its (H, 2T-1) diagonal table, which depends
         only on (table, T): cached per T (both pools and every 30-s chunk
         share it), dropped when the table changes or moves."""
+        return self._cached_bias(seq_len, lambda table: compute_position_diag(
+            table, seq_len, self.cfg.num_buckets, self.cfg.max_distance))
+
+    def _cached_bias(self, key, make) -> torch.Tensor | None:
+        """make(table) memoized under `key`; the memo is dropped when the
+        table changes or moves. None without a relative position table."""
         if not self.cfg.relative_position_embedding:
             return None
         table = self.encoder.rel_attn_bias
-        key = (table.device, table.data_ptr(), table._version)
-        if key != self._bias_key or len(self._bias_cache) > 16:
+        table_key = (table.device, table.data_ptr(), table._version)
+        if table_key != self._bias_key or len(self._bias_cache) > 16:
             self._bias_cache = {}
-            self._bias_key = key
-        if seq_len not in self._bias_cache:
+            self._bias_key = table_key
+        if key not in self._bias_cache:
             with torch.no_grad():
-                self._bias_cache[seq_len] = compute_position_diag(
-                    table.detach(), seq_len, self.cfg.num_buckets, self.cfg.max_distance)
-        return self._bias_cache[seq_len]
+                self._bias_cache[key] = make(table.detach())
+        return self._bias_cache[key]
 
     def extract_layer(self, wav: torch.Tensor, output_layer: int,
                       padding_mask: torch.Tensor | None = None) -> torch.Tensor:

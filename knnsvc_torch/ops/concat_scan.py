@@ -15,6 +15,13 @@ and the log2 f0 tracks with the same torch ops as the plain version
 the order of their dot-product sums. CPU tensors take the plain version
 (match/concat_cost.concat_cost_scan). A CUDA tensor launches the kernel or
 raises; nothing falls back.
+
+The streaming entries (`concat_cost_pair_stream`, `concat_cost_single_stream`)
+continue the recurrence from a cross-chunk carry in the same single launch:
+the carry goes in as frame 0 (the kernel passes frame 0 through and stages
+its rows as frame 1's previous picks), and the pitched lanes start from the
+carried weight, the kernel's one extra argument. The weight after each
+frame is the plain version's torch ops on the baselines, not the kernel's.
 """
 
 from __future__ import annotations
@@ -23,7 +30,8 @@ import ctypes
 
 import torch
 
-from knnsvc_torch.match.concat_cost import concat_cost_scan, scan_inputs
+from knnsvc_torch.match.concat_cost import (carried_inputs, concat_cost_scan, scan_inputs,
+                                            sticky_weights)
 
 KERNEL = "concat_cost_pair"
 MAX_K = 32   # picks per lane the kernel takes: the kNN sets' width (match/pipeline.py)
@@ -63,7 +71,8 @@ def _library():
 
     lib = load_kernel(KERNEL)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn, args in ((lib.concat_cost_pair_f32, [ptr] * 9 + [i32] * 6 + [ctypes.c_float, ptr]),
+    f32 = ctypes.c_float
+    for fn, args in ((lib.concat_cost_pair_f32, [ptr] * 9 + [i32] * 6 + [f32, f32, ptr]),
                      (lib.concat_cost_prepass_f32, [ptr] * 5 + [i32] * 5 + [ptr])):
         fn.restype, fn.argtypes = i32, args
     return lib
@@ -111,13 +120,16 @@ def _check_kernel_tensors(**tensors) -> None:
 def _concat_cost_lanes(lanes: list[torch.Tensor], pitched: tuple[bool, ...],
                        src: torch.Tensor, tgt: torch.Tensor,
                        shifted_src_f0: torch.Tensor | None, tgt_f0: torch.Tensor | None,
-                       concat_weight: float) -> torch.Tensor:
-    """Stacked lanes of (T, k) ids -> (T, L, k) int64 selections."""
+                       concat_weight: float, pitched_weight: float | None = None):
+    """Stacked lanes of (T, k) ids -> ((T, L, k) int64 selections, the
+    continuity baselines (T-1,)). The pitched lanes' weight starts at
+    pitched_weight (default concat_weight)."""
     _check_inputs(lanes, src, tgt, shifted_src_f0, tgt_f0)
+    init_weight = concat_weight if pitched_weight is None else pitched_weight
     if src.device.type == "cpu":
         svn, baselines, src_lf0, tgt_lf0 = scan_inputs(src, shifted_src_f0, tgt_f0)
-        return concat_cost_scan(torch.stack(lanes, dim=1), svn, tgt, baselines,
-                                src_lf0, tgt_lf0, pitched, concat_weight)
+        return concat_cost_scan(torch.stack(lanes, dim=1), svn, tgt, baselines, src_lf0,
+                                tgt_lf0, pitched, concat_weight, init_weight), baselines
     if src.device.type != "cuda":
         raise ValueError(f"the concat-cost reselection runs on cpu or cuda, not {src.device}")
     T, D = src.shape
@@ -144,10 +156,10 @@ def _concat_cost_lanes(lanes: list[torch.Tensor], pitched: tuple[bool, ...],
             None if src_lf0 is None else src_lf0.data_ptr(),
             None if tgt_lf0 is None else tgt_lf0.data_ptr(), pnorm.data_ptr(),
             osd.data_ptr(), out.data_ptr(), T, P, D, len(lanes), k, pitched_mask,
-            concat_weight, stream)
+            concat_weight, init_weight, stream)
     check_launch(lib, KERNEL, code)
     concat_cost_pair.launches += 1
-    return out.long()
+    return out.long(), baselines
 
 
 def concat_cost_pair(idx_unpitched: torch.Tensor, idx_pitched: torch.Tensor,
@@ -157,8 +169,8 @@ def concat_cost_pair(idx_unpitched: torch.Tensor, idx_pitched: torch.Tensor,
     one launch (one chain block per lane). idx (T, k) each; src (T, D);
     tgt (P, D); f0 (T,) and (P,) in Hz. -> (unpitched (T, k), pitched
     (T, k)) int64. CUDA tensors add one to `concat_cost_pair.launches`."""
-    out = _concat_cost_lanes([idx_unpitched, idx_pitched], (False, True), src, tgt,
-                             shifted_src_f0, tgt_f0, concat_weight)
+    out, _ = _concat_cost_lanes([idx_unpitched, idx_pitched], (False, True), src, tgt,
+                                shifted_src_f0, tgt_f0, concat_weight)
     return out[:, 0], out[:, 1]
 
 
@@ -171,7 +183,56 @@ def concat_cost_single(idx: torch.Tensor, src: torch.Tensor, tgt: torch.Tensor,
     add one to `concat_cost_pair.launches`."""
     pitched = shifted_src_f0 is not None
     return _concat_cost_lanes([idx], (pitched,), src, tgt, shifted_src_f0,
-                              tgt_f0 if pitched else None, concat_weight)[:, 0]
+                              tgt_f0 if pitched else None, concat_weight)[0][:, 0]
+
+
+def _stream_lanes(lanes, pitched, prev_idx, prev_src, src, tgt, shifted_src_f0, tgt_f0,
+                  prev_weight, concat_weight):
+    """One launch over [carry | T frames] -> ((T, L, k) picks, the weight
+    after each frame (T,)). The carried weight is read to the host once (a
+    4-byte copy) for the kernel's argument."""
+    if prev_src.device != src.device or prev_idx.device != src.device:
+        raise ValueError(f"the carry is on {prev_idx.device} and {prev_src.device}, "
+                         f"src on {src.device}")
+    lanes, src_all, f0_all = carried_inputs(lanes, prev_idx, prev_src, src, shifted_src_f0)
+    w0 = float(prev_weight)
+    out, baselines = _concat_cost_lanes(lanes, pitched, src_all, tgt, f0_all, tgt_f0,
+                                        concat_weight, pitched_weight=w0)
+    return out[1:], sticky_weights(baselines, w0, any(pitched))
+
+
+def concat_cost_pair_stream(idx_unpitched: torch.Tensor, idx_pitched: torch.Tensor,
+                            prev_src: torch.Tensor, src: torch.Tensor, tgt: torch.Tensor,
+                            shifted_src_f0: torch.Tensor, tgt_f0: torch.Tensor,
+                            prev_idx: torch.Tensor, prev_weight: float | torch.Tensor,
+                            concat_weight: float = 0.2):
+    """Both post_opt reselections of a streaming chunk, continuing from the
+    carry (prev_idx (2, k): the previous frame's unpitched and pitched
+    picks, in the order they were emitted; prev_src (D,): its source row;
+    prev_weight: the pitched lane's weight after it), in one launch.
+    -> (unpitched (T, k), pitched (T, k), the pitched weight after each
+    frame (T,)); the plain version is match/concat_cost.concat_cost_pair_stream_core.
+    CUDA tensors add one to `concat_cost_pair.launches`."""
+    out, w = _stream_lanes([idx_unpitched, idx_pitched], (False, True), prev_idx, prev_src,
+                           src, tgt, shifted_src_f0, tgt_f0, prev_weight, concat_weight)
+    return out[:, 0], out[:, 1], w
+
+
+def concat_cost_single_stream(idx: torch.Tensor, prev_src: torch.Tensor, src: torch.Tensor,
+                              tgt: torch.Tensor, prev_idx: torch.Tensor,
+                              prev_weight: float | torch.Tensor,
+                              shifted_src_f0: torch.Tensor | None = None,
+                              tgt_f0: torch.Tensor | None = None,
+                              concat_weight: float = 0.2):
+    """One lane of a streaming chunk (the `wavlm_only` reselection),
+    continuing from the carry prev_idx (k,), prev_src (D,) and prev_weight;
+    pitched when both f0 tracks are given. -> (selections (T, k), the
+    weight after each frame (T,)). CUDA tensors add one to
+    `concat_cost_pair.launches`."""
+    pitched = shifted_src_f0 is not None
+    out, w = _stream_lanes([idx], (pitched,), prev_idx, prev_src, src, tgt, shifted_src_f0,
+                           tgt_f0 if pitched else None, prev_weight, concat_weight)
+    return out[:, 0], w
 
 
 concat_cost_pair.launches = 0

@@ -17,7 +17,10 @@ The concat-cost kernel's selections must equal its plain version's exactly
 on these random inputs, at every tested k (1..32), with its rows in shared
 memory (every k at D = 128, k = 4 at D = 1024) and read from L2 (k = 8 at
 D = 1024); its pre-pass values within 1e-5 relative of the
-plain norms and dots (sums of D fp32 terms in another order).
+plain norms and dots (sums of D fp32 terms in another order). Its carried
+(streaming) entry equals the plain carried cores in picks and in the
+weight after each frame, and chunks chained through it give the
+whole-utterance kernel's picks.
 The f0 Viterbi kernel's states must equal its plain version's on every
 frame (both do the same fp32 operations in the same order, ties included).
 Device f0 on the card against the CPU: cuFFT and cuBLAS sum in other orders
@@ -29,11 +32,13 @@ import numpy as np
 import pytest
 import torch
 
-from knnsvc_torch.match.concat_cost import knn_with_concat_cost, knn_with_concat_cost_pair
+from knnsvc_torch.match.concat_cost import (concat_cost_pair_stream_core,
+                                            concat_cost_stream_core, knn_with_concat_cost,
+                                            knn_with_concat_cost_pair, scan_inputs)
 from knnsvc_torch.ops.attention import gated_bias_attention, reference_attention
-from knnsvc_torch.match.concat_cost import scan_inputs
-from knnsvc_torch.ops.concat_scan import (concat_cost_pair, concat_cost_prepass,
-                                          concat_cost_single)
+from knnsvc_torch.ops.concat_scan import (concat_cost_pair, concat_cost_pair_stream,
+                                          concat_cost_prepass, concat_cost_single,
+                                          concat_cost_single_stream)
 from knnsvc_torch.ops.viterbi import MAX_STATES, f0_viterbi, viterbi_plain
 from knnsvc_torch.precision import get_precision, set_precision
 
@@ -370,3 +375,56 @@ def test_concat_kernel_at_bulk_shapes():
     got = concat_cost_pair(idx_u, idx_p, src, tgt, sf0, tf0, concat_weight=0.2)
     want = knn_with_concat_cost_pair(idx_u, idx_p, src, tgt, sf0, tf0, concat_weight=0.2)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 4, 8, 32])
+@pytest.mark.parametrize("carry_weight", [0.2, 0.0])
+def test_concat_carried_entry_matches_plain(k, carry_weight):
+    """The carried entry (carry as frame 0, the pitched lanes from the
+    carried weight) against the plain carried cores, both lanes and each
+    single lane, one launch each."""
+    idx_u, idx_p, src, tgt, sf0, tf0 = _concat_inputs(37, 53, 128, 13, _cuda(), True, k)
+    s = 9
+    carry = torch.randint(0, 53, (2, k), generator=torch.Generator().manual_seed(k)).to(src.device)
+    args = (idx_u[s:], idx_p[s:], src[s - 1], src[s:], tgt, sf0[s:], tf0, carry,
+            torch.tensor(carry_weight, device=src.device))
+    before = concat_cost_pair.launches
+    got = concat_cost_pair_stream(*args, concat_weight=0.2)
+    got_s = concat_cost_single_stream(idx_u[s:], src[s - 1], src[s:], tgt, carry[0],
+                                      carry_weight, concat_weight=0.2)
+    got_sp = concat_cost_single_stream(idx_p[s:], src[s - 1], src[s:], tgt, carry[1],
+                                       carry_weight, sf0[s:], tf0, concat_weight=0.2)
+    torch.cuda.synchronize()
+    assert concat_cost_pair.launches == before + 3
+    want = concat_cost_pair_stream_core(*args, concat_weight=0.2)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    want_s = concat_cost_stream_core(idx_u[s:], src[s - 1], src[s:], tgt, carry[0],
+                                     carry_weight, concat_weight=0.2)
+    want_sp = concat_cost_stream_core(idx_p[s:], src[s - 1], src[s:], tgt, carry[1],
+                                      carry_weight, sf0[s:], tf0, concat_weight=0.2)
+    for g, w in (*zip(got_s, want_s), *zip(got_sp, want_sp)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_concat_chained_chunks_equal_the_whole_utterance_kernel():
+    """Three chunks (the first through the whole-utterance entry, the
+    others carried) give the whole-utterance kernel's picks on every frame."""
+    idx_u, idx_p, src, tgt, sf0, tf0 = _concat_inputs(300, 400, 1024, 17, _cuda(), k=4)
+    whole = concat_cost_pair(idx_u, idx_p, src, tgt, sf0, tf0, concat_weight=0.2)
+    bounds = (0, 120, 121, 300)
+    u, p = concat_cost_pair(idx_u[:120], idx_p[:120], src[:120], tgt, sf0[:120], tf0,
+                            concat_weight=0.2)
+    us, ps = [u], [p]
+    s = scan_inputs(src[:120], None, None)[1]
+    w = 0.2 * float(torch.prod((s < 0.08).float()))
+    for a, b in zip(bounds[1:-1], bounds[2:]):
+        u, p, ws = concat_cost_pair_stream(idx_u[a:b], idx_p[a:b], src[a - 1], src[a:b], tgt,
+                                           sf0[a:b], tf0, torch.stack([us[-1][-1], ps[-1][-1]]),
+                                           w, concat_weight=0.2)
+        us.append(u)
+        ps.append(p)
+        w = ws[-1]
+    assert torch.equal(torch.cat(us), whole[0]) and torch.equal(torch.cat(ps), whole[1])
