@@ -80,7 +80,21 @@ Phases (any failure exits non-zero, before the result line):
      0.1 s after) through stream_session pushed 20 ms at a time, the wall
      time of each push that emits, its output bit-identical to the file
      stream (cached and windowed); one traced live session by span;
-  7. the card's name and power limit (nvidia-smi).
+  7. vocoder training (knnsvc_torch.train) at full width: a seeded sung
+     dataset (train: 2 singers x 3 utterances of ~6 s; valid: 1 x 2)
+     prematched through cli.prematch with the random-init WavLM-Large (6
+     attention launches per 30-s chunk; wall time per utterance, smoothness
+     steps), one singer prematched on the CPU against the card (equal
+     nearest-neighbour rows, weight difference); one train step
+     (HiFiGANConfig(), full MPD and MSD) on the card against the CPU from
+     the same state and batch of 2; 20 warm steps at the real config
+     (batch 16, segment 7040) under "highest", "fastest" (TF32) and
+     compute_dtype=bfloat16: median and p90 step ms, steps/s, audio-s per
+     s, peak memory; one warm step traced per precision, split by the
+     knnsvc.d_step / g_step spans; train() for 11 steps with validation every 5 (best-val
+     retention), resume_from continuing the step count, and the trained g_
+     served by KnnSvc.load(ckpt_dir, "mix") with convert_pair(fast=True);
+  8. the card's name and power limit (nvidia-smi).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it fails and prints no result.
@@ -174,6 +188,23 @@ STREAM_RUNS = (("a", "windowed, no_post_opt, host f0", {}, "fast"),
 STREAM_CHUNKS = 15                      # 30 s in 2-s chunks
 LIVE = dict(chunk_s=0.5, context_s=1.0, right_context_s=0.1, matcher="exact")
 PUSH_SAMPLES = 320                      # 20 ms, a mic callback
+# vocoder training (knnsvc_torch.train)
+TRAIN_SINGERS = (("soprano", 262.0, 61), ("baritone", 131.0, 71))  # the train split
+VALID_SINGERS = (("mezzo", 196.0, 81),)                            # the valid split
+TRAIN_SECONDS = (5.6, 6.0, 6.4)         # each train singer's utterances (~6 s)
+VALID_SECONDS = (5.8, 6.2)
+PREMATCH_SEED = 123                     # cli.prematch's default --seed: its random WavLM
+CPU_BATCH = 2                           # (b): one full-width step, card vs CPU
+# card vs CPU metrics after one step: fp32 sums of the same terms in other
+# orders (cuDNN, cuFFT), ~1e-6 relative per op through G, MPD and MSD
+TRAIN_METRIC_RTOL = 1e-3
+STEP_RUNS = (("highest", "highest", None), ("fastest (TF32)", "fastest", None),
+             ("bf16", "highest", "bfloat16"))      # (label, precision, compute dtype)
+TRAIN_WARMUP = 3
+TRAIN_WARM_STEPS = 20
+LOOP_BATCH = 2                          # 6 train utterances: 3 steps an epoch
+LOOP_STEPS = 10                         # steps 0..10
+LOOP_VALIDATION = 5                     # validations at steps 0, 5, 10
 
 
 def fail(msg: str) -> None:
@@ -1535,6 +1566,338 @@ def phase_bulk_profile(fn, label: str) -> None:
         + json.dumps({k: [round(h, 3), round(d, 3)] for k, (h, d) in stage_times(events).items()}))
 
 
+# ------------------------------------------------------------ vocoder training
+
+
+def write_train_dataset(root: str) -> dict[str, str]:
+    """TRAIN_SINGERS x TRAIN_SECONDS (the train split) and VALID_SINGERS x
+    VALID_SECONDS (the valid split) sung utterances, no f0 sidecars (the
+    prematch extracts f0). -> {split: dataset root}."""
+    from knnsvc_torch.io.audio import save_audio
+
+    roots = {}
+    for split, singers, seconds in (("train", TRAIN_SINGERS, TRAIN_SECONDS),
+                                    ("valid", VALID_SINGERS, VALID_SECONDS)):
+        roots[split] = os.path.join(root, "train_data", split)
+        for name, hz, seed in singers:
+            os.makedirs(os.path.join(roots[split], name))
+            for i, s in enumerate(seconds):
+                wav, _ = sung_wav(s, hz * (1 + 0.04 * i), seed + i)
+                save_audio(os.path.join(roots[split], name, f"{name}_{i}.wav"), wav, 16000)
+    return roots
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_train(root: str, records, dev) -> None:
+    """Vocoder training on the card (knnsvc_torch.train):
+    (a) prematch of a seeded sung dataset through cli.prematch.main with the
+        random-init WavLM-Large (6 attention launches per 30-s chunk), its
+        wall time per utterance and smoothness steps, and one singer
+        prematched on the CPU against the card;
+    (b) one full-width train step (HiFiGANConfig(), full MPD and MSD) on the
+        card against the CPU from the same state and batch of 2;
+    (c) TRAIN_WARM_STEPS warm steps at the real config (batch 16, segment
+        7040) under "highest", "fastest" and compute_dtype=bfloat16;
+    (d) train() end to end with validation every LOOP_VALIDATION steps,
+        best-val retention, resume_from, and the trained g_ served by
+        KnnSvc.load(ckpt_dir, "mix") on the card;
+    (e) one warm full-width step traced per precision, split by the
+        knnsvc.d_step / knnsvc.g_step spans."""
+    import dataclasses
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from knnsvc_torch.cli import prematch as prematch_cli
+    from knnsvc_torch.config import HiFiGANConfig, ModelFamily, WavLMConfig
+    from knnsvc_torch.hub import KnnSvc
+    from knnsvc_torch.io.checkpoints import save_params
+    from knnsvc_torch.io.jax_params import tree_from_module
+    from knnsvc_torch.models.wavlm.model import init_wavlm_params
+    from knnsvc_torch.ops.attention import gated_bias_attention
+    from knnsvc_torch.precision import set_precision
+    from knnsvc_torch.train import prematch as prematch_mod
+    from knnsvc_torch.train.dataset import BATCH_KEYS, MelDataset
+    from knnsvc_torch.train.loop import train
+    from knnsvc_torch.train.trainer import init_train_state, make_train_step
+    from knnsvc_torch.utils.layer_weights import generate_matrix_from_index
+
+    t_phase = time.perf_counter()
+    roots = write_train_dataset(root)
+    feats = {split: os.path.join(root, "train_data", f"cached_{split}") for split in roots}
+    n_utts = {"train": len(TRAIN_SINGERS) * len(TRAIN_SECONDS),
+              "valid": len(VALID_SINGERS) * len(VALID_SECONDS)}
+
+    # (a) prematch through the CLI, each speaker's extraction timed
+    speaker_s = []
+    real_extract = prematch_mod._extract_speaker
+
+    def timed_extract(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_extract(*args, **kwargs)
+        torch.cuda.synchronize()
+        speaker_s.append(time.perf_counter() - t0)
+
+    prematch_mod._extract_speaker = timed_extract
+    try:
+        for split in ("train", "valid"):
+            speaker_s.clear()
+            gated_bias_attention.launches = 0
+            with OptimizerSteps() as opt:
+                t0 = time.perf_counter()
+                rc = prematch_cli.main(["--librispeech_path", roots[split], "--out_path",
+                                        feats[split], "--prematch", "--seed", str(PREMATCH_SEED),
+                                        "--device", dev.type])
+                wall = time.perf_counter() - t0
+            launches, want = gated_bias_attention.launches, 6 * n_utts[split]
+            per_utt = [s / len(TRAIN_SECONDS if split == "train" else VALID_SECONDS)
+                       for s in speaker_s]
+            log(f"[train] (a) prematch {split}: {n_utts[split]} utterances of "
+                f"{TRAIN_SECONDS if split == 'train' else VALID_SECONDS} s through cli.prematch "
+                f"(random-init WavLM-Large, layer 6) in {wall:.3f} s with the WavLM init; per "
+                f"speaker {', '.join(f'{s:.3f}' for s in speaker_s)} s = per utterance "
+                f"{', '.join(f'{s:.3f}' for s in per_utt)} s; attention launches {launches} "
+                f"(want {want}: 6 per 30-s chunk); smoothness steps {opt.steps}")
+            if not (rc == 0 and launches == want and len(opt.steps) == n_utts[split]):
+                fail(f"prematch {split}: rc {rc}, {launches} attention launches (want {want}), "
+                     f"{len(opt.steps)} optimizations")
+            if split == "train":
+                records["gated_bias_attention"]["prematch_launches"] = launches
+    finally:
+        prematch_mod._extract_speaker = real_extract
+
+    # one singer on the CPU (its f0 sidecars copied: the same host f0)
+    singer = TRAIN_SINGERS[0][0]
+    cpu_root = os.path.join(root, "train_data", "cpu_one")
+    shutil.copytree(os.path.join(roots["train"], singer), os.path.join(cpu_root, singer))
+    wcfg = WavLMConfig()
+    wparams = init_wavlm_params(wcfg, torch.Generator().manual_seed(PREMATCH_SEED))
+    w6 = generate_matrix_from_index(6)
+    t0 = time.perf_counter()
+    prematch_mod.per_spk_extract(cpu_root, os.path.join(root, "train_data", "cached_cpu"),
+                                 wparams, wcfg, w6, w6, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    rows = same_rows = same_prio = 0
+    w_diff = 0.0
+    for i in range(len(TRAIN_SECONDS)):
+        fds = []
+        for base in (feats["train"], os.path.join(root, "train_data", "cached_cpu")):
+            with open(os.path.join(base, singer, f"{singer}_{i}.pt"), "rb") as fh:
+                fds.append(pickle.load(fh))
+        a, b = fds
+        rows += len(a["nearest_nbrs"])
+        same_rows += int(np.all(a["nearest_nbrs"] == b["nearest_nbrs"], axis=1).sum())
+        same_prio += int(np.all(a["nearest_nbrs_f0_priority"][:, :4]
+                                == b["nearest_nbrs_f0_priority"][:, :4], axis=1).sum())
+        w_diff = max(w_diff, float(np.abs(a["harmonics_best_weight_para"]
+                                          - b["harmonics_best_weight_para"]).max()))
+        if not (np.isfinite(a["harmonics_best_weight_para"]).all()
+                and np.allclose(a["harmonics_best_weight_para"].sum(1), 1, atol=1e-5)):
+            fail(f"prematch weights of {singer}_{i} are not convex")
+    log(f"[train] (a) prematch card vs CPU, {singer} ({len(TRAIN_SECONDS)} utterances, CPU "
+        f"{cpu_s:.2f} s): nearest_nbrs rows equal {same_rows}/{rows} = {same_rows / rows:.1%}, "
+        f"top-4 f0-priority rows equal {same_prio / rows:.1%}, max |weight diff| {w_diff:.3e}")
+    if same_rows / rows < KNN_SET_SHARE_MIN:
+        fail(f"prematch card vs CPU: {same_rows}/{rows} nearest-neighbour rows equal")
+
+    # (b) one full-width step, card vs CPU, same state and batch of 2
+    h = HiFiGANConfig()
+    trainset = MelDataset(h, roots["train"], feats["train"], split=True, seed=h.seed)
+    items = [trainset[i % len(trainset)] for i in range(2 * h.batch_size)]
+    host_batches = [{k: np.stack([it[k] for it in items[j * h.batch_size:(j + 1) * h.batch_size]])
+                     for k in BATCH_KEYS} for j in range(2)]
+    results = []
+    for device in (dev, torch.device("cpu")):
+        state = init_train_state(h.seed, h, ModelFamily.MIX, device=device)
+        step = make_train_step(h, ModelFamily.MIX)
+        t0 = time.perf_counter()
+        m = step(state, {k: torch.from_numpy(v[:CPU_BATCH]).to(device)
+                         for k, v in host_batches[0].items()})
+        m = {k: float(v) for k, v in m.items()}
+        results.append((m, time.perf_counter() - t0, [
+            tree_from_module(state.generator), tree_from_module(state.mpd),
+            tree_from_module(state.msd)]))
+        del state
+    (card_m, card_s, card_t), (cpu_m, cpu_s, cpu_t) = results
+    diffs = np.concatenate([np.abs(a - b).ravel() for a, b in zip(_leaves(card_t), _leaves(cpu_t))])
+    rel = max(abs(card_m[k] - cpu_m[k]) / abs(cpu_m[k]) for k in card_m)
+    log(f"[train] (b) one full-width step (HiFiGANConfig(), MPD x5, MSD x3), batch "
+        f"{CPU_BATCH}, card vs CPU: card {json.dumps(card_m)} ({card_s:.2f} s, first step), "
+        f"CPU {json.dumps(cpu_m)} ({cpu_s:.2f} s); max relative metric diff {rel:.3e} (tol "
+        f"{TRAIN_METRIC_RTOL}); parameters after the step: max |diff| {diffs.max():.3e} over "
+        f"{diffs.size} (bound 2 lr = {2 * h.learning_rate:.1e}: Adam's first step moves each "
+        f"weight by lr * sign(grad)), {np.mean(diffs <= 1e-6):.4%} within 1e-6")
+    if not (rel <= TRAIN_METRIC_RTOL and diffs.max() <= 2 * h.learning_rate * 1.001 + 1e-6
+            and all(np.isfinite(v) for v in card_m.values())):
+        fail(f"the full-width train step differs card vs CPU: metrics {rel}, params {diffs.max()}")
+    del results, card_t, cpu_t, diffs
+
+    # (c) warm steps at the real config
+    state = init_train_state(h.seed, h, ModelFamily.MIX, device=dev)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()} for b in host_batches]
+    audio_s = h.batch_size * h.segment_size / h.sampling_rate
+    for label, precision, compute_dtype in STEP_RUNS:
+        set_precision(precision)
+        try:
+            step = make_train_step(h, ModelFamily.MIX, compute_dtype=compute_dtype and getattr(
+                torch, compute_dtype))
+            for i in range(TRAIN_WARMUP):
+                step(state, batches[i % 2])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times, ms = [], []
+            for i in range(TRAIN_WARM_STEPS):
+                t0 = time.perf_counter()
+                m = step(state, batches[i % 2])
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                ms.append({k: float(v) for k, v in m.items()})
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            set_precision("highest")
+        med, p90 = statistics.median(times), float(np.percentile(times, 90))
+        d_losses = [m["loss_disc_total"] for m in ms]
+        log(f"[train] (c) {label}: {TRAIN_WARM_STEPS} warm steps at batch {h.batch_size}, segment "
+            f"{h.segment_size}: step median {1e3 * med:.2f} ms, p90 {1e3 * p90:.2f} ms, min "
+            f"{1e3 * min(times):.2f} ms; {1 / med:.3f} steps/s = {audio_s / med:.2f} audio-s/s "
+            f"({audio_s:.2f} s of audio per step); peak device memory {peak / 2 ** 30:.3f} GiB; "
+            f"losses first {json.dumps(ms[0])}, last {json.dumps(ms[-1])}")
+        if not (all(np.isfinite(v) for m in ms for v in m.values()) and len(set(d_losses)) > 1):
+            fail(f"training ({label}): non-finite losses or a D loss that never changes")
+
+    # (e) one warm full-width step traced per precision (the top 10 under "highest")
+    for label, precision, compute_dtype in STEP_RUNS:
+        set_precision(precision)
+        try:
+            phase_train_profile(state, h, batches, label, compute_dtype and getattr(
+                torch, compute_dtype), top=label == "highest")
+        finally:
+            set_precision("highest")
+    del state, batches
+
+    # (d) train() end to end, then resume, then serve the trained g_
+    h_loop = dataclasses.replace(h, batch_size=LOOP_BATCH)
+    ckpt = os.path.join(root, "train_ckpt")
+    roots_kw = dict(audio_root_train=roots["train"], feat_root_train=feats["train"],
+                    audio_root_valid=roots["valid"], feat_root_valid=feats["valid"])
+    t0 = time.perf_counter()
+    state = train(h_loop, checkpoint_path=ckpt, training_epochs=1000,
+                  validation_interval=LOOP_VALIDATION, summary_interval=1, stdout_interval=1000,
+                  max_steps=LOOP_STEPS, device=dev, val_artifacts=1, **roots_kw)
+    loop_s = time.perf_counter() - t0
+    with open(os.path.join(ckpt, "logs", "train_log.jsonl")) as fh:
+        scalars = [json.loads(line) for line in fh]
+    steps = [s["step"] for s in scalars if "loss_gen_total" in s]
+    vals = [(s["validation/mel_spec_error"], s["step"]) for s in scalars
+            if "validation/mel_spec_error" in s]
+    improved = [v for i, v in enumerate(vals) if v[0] < min([u[0] for u in vals[:i]] + [np.inf])]
+    pairs = sorted(os.path.basename(p) for p in os.listdir(ckpt) if p.endswith(".knnsvc.pkl"))
+    best = min(vals)[1]
+    log(f"[train] (d) train() batch {LOOP_BATCH}, full width: {len(steps)} steps in {loop_s:.2f} s "
+        f"(with {len(vals)} validations and checkpoint writes); validations (mel err, step) "
+        f"{vals}; new bests at steps {[v[1] for v in improved]}; files left {pairs}")
+    if not (steps == list(range(LOOP_STEPS + 1)) and state.steps == LOOP_STEPS + 1
+            and pairs == [f"do_mix_{best:08d}.knnsvc.pkl", f"g_mix_{best:08d}.knnsvc.pkl"]):
+        fail(f"train(): steps {steps}, state.steps {state.steps}, files {pairs}, best {best}")
+    del state
+    state = train(h_loop, checkpoint_path=os.path.join(root, "train_ckpt2"), training_epochs=1000,
+                  validation_interval=1000, summary_interval=1, stdout_interval=1000,
+                  max_steps=best + 3, device=dev, resume_from=ckpt, **roots_kw)
+    with open(os.path.join(root, "train_ckpt2", "logs", "train_log.jsonl")) as fh:
+        resumed = [json.loads(line)["step"] for line in fh]
+    log(f"[train] (d) resume_from the step-{best} pair: steps {resumed}, state.steps {state.steps}")
+    if not (resumed == [best + 1, best + 2, best + 3] and state.steps == best + 3):
+        fail(f"resume did not continue the step count: {resumed}, {state.steps}")
+    del state
+    wavlm_pkl = os.path.join(root, "train_data", "wavlm.knnsvc.pkl")
+    save_params(wavlm_pkl, {"cfg": {}, "model": wparams})
+    knn = KnnSvc.load(ckpt, "mix", wavlm_ckpt=wavlm_pkl, device=dev)
+    src = os.path.join(roots["valid"], VALID_SINGERS[0][0], f"{VALID_SINGERS[0][0]}_0.wav")
+    ref = os.path.join(roots["train"], singer, f"{singer}_1.wav")
+    gated_bias_attention.launches = 0
+    wav = knn.convert_waveform(src, ref)
+    torch.cuda.synchronize()
+    out = os.path.join(root, "train_data", "served.wav")
+    knn.convert_pair(src, ref, fast=True, output_path=out)
+    log(f"[train] (d) KnnSvc.load(ckpt_dir, 'mix') on the trained g_: convert_pair(fast=True) "
+        f"wrote {os.path.getsize(out)} bytes; pre-quantize waveform {tuple(wav.shape)}, peak "
+        f"{float(wav.abs().max()):.3e}, attention launches {gated_bias_attention.launches} "
+        f"for two conversions")
+    if not (bool(torch.isfinite(wav).all()) and float(wav.abs().max()) > 0
+            and gated_bias_attention.launches == 2 * LAUNCHES_PER_PAIR):
+        fail("the trained checkpoint does not serve")
+    log(f"[train] training phase in {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_train_profile(state, h, batches, label: str, compute_dtype, top: bool) -> None:
+    """One warm full-width train step traced with torch.profiler: device
+    busy share, the device time launched from the knnsvc.d_step and
+    knnsvc.g_step spans (by launch time: the backward's kernels are
+    launched from autograd's thread while the span is open), and with top
+    the 10 device ops that take the most time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from knnsvc_torch.config import ModelFamily
+    from knnsvc_torch.train.trainer import make_train_step
+
+    step = make_train_step(h, ModelFamily.MIX, compute_dtype=compute_dtype)
+    step(state, batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batches[1])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    dev_events = device_events(events)
+    if not dev_events:
+        log(f"[profile] train step ({label}): the trace holds no device events: busy share "
+            "not measured")
+        return
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in dev_events)
+    busy, (lo, hi) = 0.0, spans[0][:2]
+    by_name: dict[str, list] = {}
+    for s, e, name in spans:
+        if s > hi:
+            busy, lo = busy + hi - lo, s
+        hi = max(hi, e)
+        acc = by_name.setdefault(name, [0.0, 0])
+        acc[0] += e - s
+        acc[1] += 1
+    busy += hi - lo
+    windows = {name: [(e.time_range.start, e.time_range.end) for e in events
+                      if e.device_type == DeviceType.CPU and e.name == f"knnsvc.{name}"]
+               for name in ("d_step", "g_step")}
+    runtime = {e.id: e for e in events if e.device_type == DeviceType.CPU and e.name.startswith("cu")}
+    split = {"d_step": 0.0, "g_step": 0.0, "other": 0.0}
+    for e in dev_events:
+        launch = runtime.get(e.id)
+        t = launch.time_range.start if launch is not None else e.time_range.start
+        name = next((n for n, ws in windows.items() if any(a <= t <= b for a, b in ws)), "other")
+        split[name] += e.time_range.elapsed_us()
+    total = sum(split.values())
+    log(f"[profile] train step ({label}, full width, batch {h.batch_size}): wall "
+        f"{wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms ({busy / wall_us:.1%}), idle "
+        f"share {1 - busy / wall_us:.1%}, {len(spans)} device events; device ms by span "
+        + json.dumps({k: [round(v / 1e3, 3), round(v / total, 4)] for k, v in split.items()}))
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10 if top else 0]:
+        log(f"[profile]   {us / 1e3:8.3f} ms x{n:<5d} {name[:100]}")
+
+
 def stage_times(events) -> dict[str, list[float]]:
     """Per stage of convert_pair (the knnsvc.* record_function spans):
     [host ms inside the spans, device ms launched from them]. A device
@@ -1649,6 +2012,8 @@ def main() -> int:
         phase_full(root, knn, records, dev)
         phase_bulk(root, knn, records, dev)
         phase_stream(root, knn, records, dev)
+        del knn
+        phase_train(root, records, dev)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

@@ -10,20 +10,22 @@ ops/concat_scan.py and ops/viterbi.py).
   io/        WAV codec (numpy), FLAC (native/flacdec over ctypes), loudness,
              torch .pt checkpoint converters, loader of the JAX package's
              parameter pytrees
-  dsp/       linear spectrogram, additive-harmonic / sine excitation, f0
+  dsp/       linear and log-mel spectrograms, harmonic / sine excitation, f0
              (sidecars, native Harvest over ctypes, YIN, the device
              extractor)
   ops/       CUDA kernels, their nvcc build step, their plain PyTorch versions
-  models/    WavLM encoder (and its streaming K/V-cache form) and HiFi-GAN
-             vocoder as nn.Modules
+  models/    WavLM encoder (and its streaming K/V-cache form), HiFi-GAN
+             vocoder, its discriminators and GAN losses as nn.Modules
   match/     cosine kNN, f0 register shift and re-rank, concat-cost
              reselection and smoothness optimizer (post_opt), pools,
              serving core
+  train/     vocoder fine-tuning: prematch, the training dataset, the GAN
+             train step (MPD/MSD, AdamW), the loop with its checkpoints
   cli/       ddsp_inference-compatible CLI (pair and folder mode, --fast,
-             --stream_chunk_s)
+             --stream_chunk_s), the prematch and train CLIs
 
-Entry points (KnnSvc, KnnSvc.random_init, the CLI) run on device="cuda"
-unless the caller passes device="cpu".
+Entry points (KnnSvc, KnnSvc.random_init, train, per_spk_extract, the CLIs)
+run on device="cuda" unless the caller passes device="cpu".
 """
 
 __version__ = "0.1.0"

@@ -14,9 +14,9 @@ legacy knn-vc surface (`get_features`, `get_matching_set`, `get_f0`,
 `vocode`, `vocode_batch`, `match`, `self_match`); streaming conversion
 (`stream_convert_chunks`, `stream_convert`, `stream_session` and its
 `StreamSession`), with the windowed or the cached (K/V-cache) encoder. Not
-ported: `mesh` and the sharded matchers (ROADMAP Queue 1 item 11),
-`mel_vocode`. Everything runs on device="cuda" unless the caller passes
-device="cpu".
+ported: `mesh` and the sharded matchers (ROADMAP Queue 1 item 11).
+`mel_vocode` (a debug path) vocodes a waveform's log-mel. Everything runs on
+device="cuda" unless the caller passes device="cpu".
 """
 
 from __future__ import annotations
@@ -37,7 +37,8 @@ from knnsvc_torch.config import (HiFiGANConfig, PostOpt, WavLMConfig,
                                  model_family_for_ckpt_type, uses_harmonics)
 from knnsvc_torch.io.audio import load_audio, resample, save_audio, to_mono
 from knnsvc_torch.io.loudness import normalize_loudness
-from knnsvc_torch.io.jax_params import generator_from_numpy, load_params, wavlm_from_numpy
+from knnsvc_torch.io.checkpoints import load_params
+from knnsvc_torch.io.jax_params import generator_from_numpy, wavlm_from_numpy
 from knnsvc_torch.match.pipeline import ConversionFeatures, multi_device_error
 from knnsvc_torch.precision import apply_precision
 from knnsvc_torch.utils.layer_weights import generate_matrix_from_index, one_hot_layer
@@ -524,6 +525,23 @@ class KnnSvc:
             device=self.device, dtype=torch.float32)[None])
         wav = self._vocode_tensor(as_dev(feats), as_dev(f0), as_dev(harmonics))
         return wav[0].cpu().numpy()
+
+    @torch.no_grad()
+    def mel_vocode(self, wav: np.ndarray, f0: np.ndarray) -> np.ndarray:
+        """Vocode the log-mel of `wav` as features (debug path, ref
+        ddsp_matcher.py:346-368); only meaningful for checkpoints trained on
+        mel input (hubert_dim == num_mels). Mix-family checkpoints need
+        harmonics and raise."""
+        from knnsvc_torch.dsp.stft import log_mel_spectrogram
+
+        h = self.h
+        x = torch.from_numpy(np.asarray(wav, dtype=np.float32).reshape(1, -1)).to(self.device)
+        mel = log_mel_spectrogram(x, n_fft=h.n_fft, num_mels=h.num_mels,
+                                  sampling_rate=h.sampling_rate, hop_size=h.hop_size,
+                                  win_size=h.win_size, fmin=h.fmin, fmax=h.fmax).transpose(1, 2)
+        f0 = np.asarray(f0, dtype=np.float32).reshape(-1)[: mel.shape[1]]
+        f0_t = torch.from_numpy(f0).to(self.device).reshape(1, -1, 1)
+        return self.vocoder(mel, f0_t, None)[0].cpu().numpy()
 
     @torch.no_grad()
     def match(self, query_seq: np.ndarray, matching_set: np.ndarray,

@@ -9,10 +9,18 @@ into the port's modules, key for key the JAX package's layout.
 Weight norm (g·v/||v||) is folded into plain weights at conversion time,
 so inference never pays for the re-normalization. `torch.load` unpickles:
 load only checkpoints from a trusted source.
+
+`save_params` / `load_params` read and write the `.knnsvc.pkl` format of
+both packages: a pickled tree of dicts, lists and numpy arrays, so a
+`g_<type>_<steps>.knnsvc.pkl` written by either package loads in both.
+`load_numpy_params` reads one with an unpickler that admits numpy and
+builtins only: a JAX-written `do_` file holds optax's state classes, which
+the port neither has nor imports.
 """
 
 from __future__ import annotations
 
+import pickle
 from typing import Any, Mapping
 
 import numpy as np
@@ -202,3 +210,48 @@ def load_hifigan_checkpoint(path: str, h: HiFiGANConfig, family: ModelFamily,
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     sd = ckpt["generator"] if "generator" in ckpt else ckpt
     return convert_hifigan_state_dict(sd, h, family, fold)
+
+
+# ------------------------------------------------------------------ pytree io
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_numpy(v) for v in tree)
+    if tree is None or isinstance(tree, (bool, int, float, str, bytes)):
+        return tree
+    return np.asarray(tree)
+
+
+def save_params(path: str, params: Any) -> None:
+    """Persist a parameter tree as pickled numpy (the JAX package's format)."""
+    with open(path, "wb") as f:
+        pickle.dump(_to_numpy(params), f, protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def load_params(path: str) -> Any:
+    """Read a `.knnsvc.pkl` parameter file (pickled numpy pytree) written by
+    either package's save_params. Unpickling runs code: load only files
+    this program family wrote."""
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+class ForeignPickleError(ValueError):
+    """The pickle names a class from outside numpy and the builtins."""
+
+
+class _NumpyUnpickler(pickle.Unpickler):
+    def find_class(self, module: str, name: str):
+        if module.split(".")[0] in ("numpy", "builtins", "collections", "copyreg"):
+            return super().find_class(module, name)
+        raise ForeignPickleError(f"{module}.{name}")
+
+
+def load_numpy_params(path: str) -> Any:
+    """load_params that admits only numpy arrays and builtin containers;
+    any other class raises ForeignPickleError (a ValueError) naming it."""
+    with open(path, "rb") as f:
+        return _NumpyUnpickler(f).load()

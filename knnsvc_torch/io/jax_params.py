@@ -13,11 +13,19 @@ The layouts differ in three ways only:
   folded already ({"w"}).
 Module attribute names follow the pytree keys, so the rest is renaming
 (w -> weight, b -> bias, LayerNorm scale -> weight).
+
+The training form keeps the norms live instead (`live=True`): {"g", "v"}
+becomes torch's weight-norm parametrization (dim 0; g = original0, v =
+original1) and the spectral-normed {"v_sn", "u", "v_pow"} the
+discriminators' SpectralNorm parametrization (v_sn = original, u and v_pow
+its buffers). `tree_from_module` maps the training modules back, so a
+trained generator is saved in the JAX package's layout, and
+`train_state_from_numpy` carries a whole JAX TrainState across (parameters,
+spectral-norm buffers, optionally optax's Adam moments).
 """
 
 from __future__ import annotations
 
-import pickle
 from typing import Any, Iterator
 
 import numpy as np
@@ -37,15 +45,23 @@ def _fold_weight_norm(p: dict) -> dict:
     return folded
 
 
-def _state_items(tree, prefix: str = "") -> Iterator[tuple[str, torch.Tensor]]:
+# the training form's leaf names: live weight norm and spectral norm
+_LIVE = {"g": "parametrizations.weight.original0", "v": "parametrizations.weight.original1",
+         "v_sn": "parametrizations.weight.original", "u": "parametrizations.weight.0.u",
+         "v_pow": "parametrizations.weight.0.v_pow"}
+
+
+def _state_items(tree, prefix: str = "", live: bool = False
+                 ) -> Iterator[tuple[str, torch.Tensor]]:
     if isinstance(tree, dict):
-        if "g" in tree and "v" in tree:
+        if "g" in tree and "v" in tree and not live:
             tree = _fold_weight_norm(tree)
         for key, sub in tree.items():
-            yield from _state_items(sub, f"{prefix}{_RENAME.get(key, key)}.")
+            name = _LIVE[key] if live and key in _LIVE else _RENAME.get(key, key)
+            yield from _state_items(sub, f"{prefix}{name}.", live)
     elif isinstance(tree, (list, tuple)):
         for i, sub in enumerate(tree):
-            yield from _state_items(sub, f"{prefix}{i}.")
+            yield from _state_items(sub, f"{prefix}{i}.", live)
     else:
         a = np.asarray(tree, np.float32)
         name = prefix[:-1]
@@ -54,13 +70,80 @@ def _state_items(tree, prefix: str = "") -> Iterator[tuple[str, torch.Tensor]]:
         yield name, torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
 
 
-def _build(module_cls, args: tuple, tree, device) -> nn.Module:
+def _attach_norms(module: nn.Module, tree, path: str = "") -> None:
+    """Register the parametrizations of the live norms that `tree` holds on
+    the matching submodules of `module`."""
+    from torch.nn.utils import parametrize
+    from torch.nn.utils.parametrizations import weight_norm
+
+    from knnsvc_torch.models.hifigan.discriminator import SpectralNorm
+
+    if isinstance(tree, dict):
+        if "g" in tree and "v" in tree:
+            weight_norm(module.get_submodule(path), dim=0)
+        elif "v_sn" in tree:
+            sub = module.get_submodule(path)
+            parametrize.register_parametrization(sub, "weight", SpectralNorm(sub.weight))
+        else:
+            for key, s in tree.items():
+                _attach_norms(module, s, f"{path}.{key}" if path else key)
+    elif isinstance(tree, (list, tuple)):
+        for i, s in enumerate(tree):
+            _attach_norms(module, s, f"{path}.{i}" if path else str(i))
+
+
+def _build(module_cls, args: tuple, tree, device, live: bool = False) -> nn.Module:
     """Construct without allocating or initializing weights, then take
-    copies of the arrays of `tree` as the parameters."""
+    copies of the arrays of `tree` as the parameters. live=True keeps the
+    norms of `tree` as parametrizations and returns the module in train
+    mode."""
     with torch.device("meta"):
         module = module_cls(*args)
-    module.load_state_dict(dict(_state_items(tree)), strict=True, assign=True)
-    return module.to(device).eval()
+        if live:
+            _attach_norms(module, tree)
+    module.load_state_dict(dict(_state_items(tree, live=live)), strict=True, assign=True)
+    module = module.to(device)
+    return module.train() if live else module.eval()
+
+
+def _tree_key(name: str) -> tuple[list[str], str]:
+    """A training module's state-dict name -> (path in the pytree, leaf key)."""
+    for key, suffix in _LIVE.items():
+        if name.endswith("." + suffix):
+            return name[: -len(suffix) - 1].split("."), key
+    *path, leaf = name.split(".")
+    return path, {"weight": "w", "bias": "b"}[leaf]
+
+
+def _listify(tree):
+    if isinstance(tree, dict):
+        if tree and all(k.isdigit() for k in tree):
+            return [_listify(tree[str(i)]) for i in range(len(tree))]
+        return {k: _listify(v) for k, v in tree.items()}
+    return tree
+
+
+def tree_from_tensors(named: dict[str, torch.Tensor]) -> dict[str, Any]:
+    """{state-dict name: tensor} of a training module (or tensors keyed the
+    same way, such as Adam moments) -> numpy pytree in the JAX package's
+    layout (float32, a Linear's weight back to (in, out))."""
+    tree: dict[str, Any] = {}
+    for name, t in named.items():
+        path, key = _tree_key(name)
+        a = t.detach().float().cpu().numpy()
+        if key == "w" and a.ndim == 2:
+            a = np.ascontiguousarray(a.T)
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[key] = a
+    return _listify(tree)
+
+
+def tree_from_module(module: nn.Module) -> dict[str, Any]:
+    """Training module -> numpy pytree (parameters and spectral-norm
+    buffers), the layout of the JAX package's TrainState trees."""
+    return tree_from_tensors(module.state_dict())
 
 
 def _unstack_layers(params: dict, cfg: WavLMConfig) -> dict:
@@ -96,9 +179,69 @@ def generator_from_numpy(params: dict[str, Any], h: HiFiGANConfig, family: Model
     return _build(Synthesizer, (h, family), params, device)
 
 
-def load_params(path: str) -> Any:
-    """Read a `.knnsvc.pkl` parameter file (pickled numpy pytree) written by
-    the JAX package's save_params. Unpickling runs code: load only files
-    this program family wrote."""
-    with open(path, "rb") as f:
-        return pickle.load(f)
+def generator_train_from_numpy(params: dict[str, Any], h: HiFiGANConfig, family: ModelFamily,
+                               device: str | torch.device = "cpu") -> nn.Module:
+    """The training form of generator_from_numpy: the weight norms of
+    `params` ({"g", "v"}, as init_generator_params(weight_norm_parametrized=
+    True) and trained checkpoints hold them) stay live."""
+    from knnsvc_torch.models.hifigan.generator import Synthesizer
+
+    return _build(Synthesizer, (h, family), params, device, live=True)
+
+
+def discriminators_from_numpy(mpd_params: dict[str, Any], msd_params: dict[str, Any],
+                              device: str | torch.device = "cpu") -> tuple[nn.Module, nn.Module]:
+    """The JAX package's MPD and MSD trees -> (MultiPeriodDiscriminator,
+    MultiScaleDiscriminator) on `device`, their norms live. Widths and the
+    numbers of periods and scales are read from the trees."""
+    from knnsvc_torch.models.hifigan.discriminator import (MultiPeriodDiscriminator,
+                                                           MultiScaleDiscriminator)
+
+    mpd_discs, msd_discs = mpd_params["discriminators"], msd_params["discriminators"]
+    post = mpd_discs[0]["conv_post"]
+    top = np.asarray(post.get("v", post.get("w"))).shape[1]
+    mpd = _build(MultiPeriodDiscriminator, (1024 // top, len(mpd_discs)), mpd_params, device,
+                 live=True)
+    post = msd_discs[0]["conv_post"]
+    top = np.asarray(post.get("v_sn", post.get("v", post.get("w")))).shape[1]
+    msd = _build(MultiScaleDiscriminator, (1024 // top, len(msd_discs)), msd_params, device,
+                 live=True)
+    return mpd, msd
+
+
+def _adam_state(optimizer: torch.optim.Optimizer, modules: dict[str, nn.Module],
+                mu: dict[str, Any], nu: dict[str, Any], count: int) -> None:
+    """Set `optimizer`'s AdamW moments from optax Adam trees keyed like
+    `modules` (spectral-norm buffers are not parameters and have none)."""
+    for prefix, module in modules.items():
+        mu_items = dict(_state_items(mu[prefix], live=True))
+        nu_items = dict(_state_items(nu[prefix], live=True))
+        for name, p in module.named_parameters():
+            optimizer.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": mu_items[name].to(p.device).reshape(p.shape).clone(),
+                "exp_avg_sq": nu_items[name].to(p.device).reshape(p.shape).clone()}
+
+
+def train_state_from_numpy(g_params: dict[str, Any], mpd_params: dict[str, Any],
+                           msd_params: dict[str, Any], h: HiFiGANConfig, family: ModelFamily,
+                           device: str | torch.device = "cpu", adam_g: dict | None = None,
+                           adam_d: dict | None = None, steps: int = 0):
+    """A JAX TrainState as numpy trees -> train.trainer.TrainState on
+    `device`: g_params with live {"g", "v"}, mpd_params, msd_params with the
+    spectral-norm u / v_pow, and optionally optax's Adam state of each
+    optimizer as {"mu", "nu", "count"} (for the D optimizer mu and nu are
+    JAX's (mpd, msd) pair)."""
+    from knnsvc_torch.train.trainer import TrainState, make_optimizers
+
+    generator = generator_train_from_numpy(g_params, h, family, device)
+    mpd, msd = discriminators_from_numpy(mpd_params, msd_params, device)
+    opt_g, opt_d = make_optimizers(h, generator, mpd, msd)
+    if adam_g is not None:
+        _adam_state(opt_g, {"g": generator}, {"g": adam_g["mu"]}, {"g": adam_g["nu"]},
+                    int(adam_g["count"]))
+    if adam_d is not None:
+        mu, nu = adam_d["mu"], adam_d["nu"]
+        _adam_state(opt_d, {"mpd": mpd, "msd": msd}, {"mpd": mu[0], "msd": mu[1]},
+                    {"mpd": nu[0], "msd": nu[1]}, int(adam_d["count"]))
+    return TrainState(generator, mpd, msd, opt_g, opt_d, family, steps)

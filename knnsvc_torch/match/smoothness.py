@@ -48,13 +48,17 @@ _FAIL_LIMIT = 1000
 _log = logging.getLogger(__name__)
 
 
-def _gather_surrounding(indices: torch.Tensor, synth_set: torch.Tensor) -> torch.Tensor:
+def _gather_surrounding(indices: torch.Tensor, synth_set: torch.Tensor,
+                        amp_ratio: torch.Tensor | None = None) -> torch.Tensor:
     """(T, k) ids -> (T, k, 3, D) pool rows at id offsets -1, 0, +1, clipped
-    to the pool (ref :477-485), flattened to (T, k, 3D) for the products."""
+    to the pool (ref :477-485), flattened to (T, k, 3D) for the products.
+    amp_ratio (T, k), the training-time variant, scales each candidate's
+    three rows."""
     P = synth_set.shape[0]
     offs = torch.tensor([-1, 0, 1], device=indices.device)
     idx = torch.clamp(indices[:, :, None] + offs, 0, P - 1)          # (T, k, 3)
-    return synth_set[idx].reshape(indices.shape[0], indices.shape[1], -1)
+    rows = synth_set[idx].reshape(indices.shape[0], indices.shape[1], -1)
+    return rows if amp_ratio is None else rows * amp_ratio[:, :, None]
 
 
 def _loss_and_grad(w: torch.Tensor, surrounding: torch.Tensor, scale: float):
@@ -84,12 +88,15 @@ def _loss_and_grad(w: torch.Tensor, surrounding: torch.Tensor, scale: float):
 @torch.no_grad()
 def optimize_smoothness_weights(indices: torch.Tensor, synth_set: torch.Tensor,
                                 scale: float = WAVLM_LOSS_SCALE,
+                                amp_ratio: torch.Tensor | None = None,
                                 max_steps: int = _MAX_STEPS, return_steps: bool = False):
     """indices (T, k) into synth_set (P, D) -> convex weights (T, k), the
-    softmax of the best weights ('sum_to_1_geq', ref :426-428). With
-    return_steps, also the number of steps taken. Each call logs its step
-    count at DEBUG level on this module's logger."""
-    surrounding = _gather_surrounding(indices, synth_set)
+    softmax of the best weights ('sum_to_1_geq', ref :426-428). amp_ratio
+    (T, k) multiplies each candidate's gathered rows (prematch's amp-weighted
+    variant, ref ddsp_prematch_dataset.py:1681). With return_steps, also the
+    number of steps taken. Each call logs its step count at DEBUG level on
+    this module's logger."""
+    surrounding = _gather_surrounding(indices, synth_set, amp_ratio)
     dev = surrounding.device
     T, k = indices.shape
     w = torch.zeros((T, k), dtype=torch.float32, device=dev)

@@ -142,38 +142,51 @@ class Synthesizer(nn.Module):
             exc = harmonic_synth(f0, harmonics, h.sampling_rate, h.hop_size).transpose(1, 2)
         else:
             exc = sine_excitation(f0, h.sampling_rate, h.hop_size)
-        return self.dec(feats, self.sin_prenet(exc))[:, 0, :]
+        # the excitation is fp32 (f0 stays fp32); convs compute in their
+        # weight's dtype, as the JAX package's conv1d casts its input
+        return self.dec(feats, self.sin_prenet(exc.to(self.sin_prenet.weight.dtype)))[:, 0, :]
 
 
 def init_generator_params(h: HiFiGANConfig, family: ModelFamily,
-                          generator: torch.Generator) -> Params:
-    """Random weights (folded weight norm) in the JAX package's pytree layout,
-    from the same distributions as its init_generator_params, for every
-    family and both residual block types."""
+                          generator: torch.Generator,
+                          weight_norm_parametrized: bool = False) -> Params:
+    """Random weights in the JAX package's pytree layout, from the same
+    distributions as its init_generator_params, for every family and both
+    residual block types. Weight-normed convs come folded ({"w"}) for
+    serving, or live ({"g", "v"}, g = ||v|| per output row, the first axis
+    of the weight; ConvTranspose1d's (in, out, k) weight thus gets g of
+    shape (in, 1, 1)) with weight_norm_parametrized=True, for training."""
     if h.resblock not in ("1", "2"):
         raise ValueError(f"resblock must be '1' or '2', not {h.resblock!r}")
     rates, kernels = h.upsample_rates, h.upsample_kernel_sizes
     n = len(rates)
 
-    def conv(out_c, in_c, k, bias=True, std=0.01):
-        p: Params = {"w": (torch.randn((out_c, in_c, k), generator=generator) * std).numpy()}
+    def weights(shape, wn, std):
+        w = (torch.randn(shape, generator=generator) * std).numpy()
+        if not (wn and weight_norm_parametrized):
+            return {"w": w}
+        g = np.linalg.norm(w.reshape(w.shape[0], -1), axis=1).reshape(-1, 1, 1)
+        return {"v": w, "g": g.astype(np.float32)}
+
+    def conv(out_c, in_c, k, bias=True, wn=False, std=0.01):
+        p = weights((out_c, in_c, k), wn, std)
         if bias:
             p["b"] = np.zeros(out_c, np.float32)
         return p
 
     def conv_t(in_c, out_c, k, std=0.01):
-        return {"w": (torch.randn((in_c, out_c, k), generator=generator) * std).numpy(),
-                "b": np.zeros(out_c, np.float32)}
+        return {**weights((in_c, out_c, k), True, std), "b": np.zeros(out_c, np.float32)}
 
     def resblock(ch, k, d):
         if h.resblock == "2":
-            return {"convs": [conv(ch, ch, k) for _ in d]}
-        return {"convs1": [conv(ch, ch, k) for _ in d], "convs2": [conv(ch, ch, k) for _ in d]}
+            return {"convs": [conv(ch, ch, k, wn=True) for _ in d]}
+        return {"convs1": [conv(ch, ch, k, wn=True) for _ in d],
+                "convs2": [conv(ch, ch, k, wn=True) for _ in d]}
 
     uic = h.upsample_initial_channel
     original = family == ModelFamily.ORIGINAL
     dec: Params = {
-        "conv_pre": conv(uic, h.hubert_dim if original else h.hifi_dim, 7),
+        "conv_pre": conv(uic, h.hubert_dim if original else h.hifi_dim, 7, wn=original),
         "ups": [conv_t(uic // 2 ** i, uic // 2 ** (i + 1), kernels[i]) for i in range(n)],
         "resblocks": [resblock(uic // 2 ** (i + 1), k, d)
                       for i in range(n)
@@ -189,8 +202,9 @@ def init_generator_params(h: HiFiGANConfig, family: ModelFamily,
         "lin_pre": {"w": (torch.randn((h.hubert_dim, h.hifi_dim), generator=generator)
                           * 0.02).numpy(),
                     "b": np.zeros(h.hifi_dim, np.float32)},
-        "downs": [conv(oc, ic, kernels[n - 1 - i]) for i, (ic, oc) in enumerate(downs_ch)],
-        "resblocks_downs": [{"convs": [conv(oc, oc, 3)]} for _, oc in downs_ch],
+        "downs": [conv(oc, ic, kernels[n - 1 - i], wn=True)
+                  for i, (ic, oc) in enumerate(downs_ch)],
+        "resblocks_downs": [{"convs": [conv(oc, oc, 3, wn=True)]} for _, oc in downs_ch],
         "concat_pre": conv(uic, uic + res_ch[n], 3),
         "concat_conv": [conv(uic // 2 ** (i + 1), uic // 2 ** (i + 1) + res_ch[n - 1 - i], 3,
                              bias=False) for i in range(n)],

@@ -4,6 +4,8 @@ JAX package and its port, on the CPU."""
 
 import jax
 import numpy as np
+import pytest
+import torch
 
 from knnsvc_tpu.config import HiFiGANConfig as JaxHiFiGANConfig
 from knnsvc_tpu.config import ModelFamily as JaxModelFamily
@@ -121,3 +123,84 @@ def int16_codes(path):
     y, sr = load_audio(path)
     assert sr == SR
     return np.round(y[0].astype(np.float64) * 32768).astype(np.int64)
+
+
+# ------------------------------------------------------------ training
+
+# tests/test_training.py's tiny vocoder config; the discriminators run at
+# disc_width_scale=8
+TINY_H = dict(
+    upsample_initial_channel=32,
+    n_harmonic=4,
+    hubert_dim=16,
+    hifi_dim=16,
+    segment_size=1280,
+    resblock_kernel_sizes=(3,),
+    resblock_dilation_sizes=((1, 3, 5),),
+    batch_size=2,
+    seed=1234,
+)
+DISC_WIDTH_SCALE = 8
+
+# tests/test_train_loop.py's tiny WavLM world
+TINY_WAVLM = dict(
+    extractor_mode="layer_norm", encoder_layers=2, encoder_embed_dim=16,
+    encoder_ffn_embed_dim=32, encoder_attention_heads=2, layer_norm_first=True,
+    conv_feature_layers="[(16,10,5)] + [(16,4,4)] + [(16,4,4)] + [(16,4,4)]",
+    conv_bias=True, conv_pos=8, conv_pos_groups=2,
+    relative_position_embedding=True, num_buckets=16, max_distance=32,
+    gru_rel_pos=True,
+)
+
+
+def tiny_wavlm_params(seed: int = 0):
+    """(JAX WavLMConfig, numpy params) of the tiny training-world encoder."""
+    jcfg = JaxWavLMConfig.from_dict(TINY_WAVLM)
+    return jcfg, jax.tree.map(np.asarray, init_wavlm_params(jax.random.PRNGKey(seed), jcfg))
+
+
+def write_sung_dataset(root, singers, seconds: float = 1.0) -> None:
+    """root/<singer>/utt<i>.wav for singers = {name: [(hz, seed), ...]},
+    each a vibrato_wav of `seconds` (sung notes: the f0 re-rank does not hang
+    on near-equal f0s, as a pure tone's does)."""
+    from knnsvc_torch.io.audio import save_audio
+
+    for name, notes in singers.items():
+        d = root / name
+        d.mkdir(parents=True, exist_ok=True)
+        for i, (hz, seed) in enumerate(notes):
+            save_audio(d / f"utt{i}.wav", vibrato_wav(seconds, hz, seed), SR)
+
+
+def adam_moments(opt_state) -> dict:
+    """optax's inject_hyperparams(adamw) state -> {"mu", "nu", "count"} of
+    its Adam transform, as numpy."""
+    adam = opt_state.inner_state[0]
+    return {"mu": jax.tree.map(np.asarray, adam.mu), "nu": jax.tree.map(np.asarray, adam.nu),
+            "count": int(adam.count)}
+
+
+def tiny_batch(h, B: int, seed: int = 0) -> dict:
+    """tests/test_training.py's _tiny_batch, as numpy."""
+    rng = np.random.default_rng(seed)
+    T = h.segment_size // h.hop_size
+    n_mel_frames = (h.segment_size + (h.n_fft - h.hop_size) - h.n_fft) // h.hop_size + 1
+    return {
+        "feats": rng.standard_normal((B, T, h.hubert_dim)).astype(np.float32),
+        "audio": (rng.standard_normal((B, h.segment_size)) * 0.1).astype(np.float32),
+        "mel_loss": np.full((B, h.num_mels, n_mel_frames), -5.0, dtype=np.float32),
+        "f0": (rng.random((B, T, 1)) * 200).astype(np.float32),
+        "harmonics": (rng.random((B, T, 49)) * 0.05).astype(np.float32),
+    }
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one intra-op thread for a module (restored after): these
+    tiny shapes gain nothing from more, and idle OpenMP workers spin on the
+    cores that the other test workers' XLA compiles need. A test module
+    that imports it by name has it on every test (autouse)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)

@@ -428,3 +428,83 @@ def test_concat_chained_chunks_equal_the_whole_utterance_kernel():
         ps.append(p)
         w = ws[-1]
     assert torch.equal(torch.cat(us), whole[0]) and torch.equal(torch.cat(ps), whole[1])
+
+
+# tests/test_training.py's tiny vocoder (TINY_H), discriminators at 1/8 width
+_TINY_H = dict(upsample_initial_channel=32, n_harmonic=4, hubert_dim=16, hifi_dim=16,
+               segment_size=1280, resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1, 3, 5),),
+               batch_size=2)
+
+
+@pytest.mark.gpu
+def test_train_step_card_matches_cpu():
+    """Three GAN train steps on the card against the CPU from one state and
+    batch, "highest" precision: metrics at rtol 1e-3, parameters at 1e-4
+    (cuDNN and cuFFT sum in other orders than the CPU kernels)."""
+    from knnsvc_torch.config import HiFiGANConfig, ModelFamily
+    from knnsvc_torch.io.jax_params import tree_from_module
+    from knnsvc_torch.train.trainer import init_train_state, make_train_step
+
+    dev = _cuda()
+    set_precision("highest")
+    h = HiFiGANConfig.from_dict(_TINY_H)
+    rng = np.random.default_rng(3)
+    T = h.segment_size // h.hop_size
+    batch = {"feats": rng.standard_normal((2, T, 16)), "audio": rng.standard_normal((2, 1280)) * 0.1,
+             "mel_loss": np.full((2, 80, 4), -5.0), "f0": rng.random((2, T, 1)) * 200,
+             "harmonics": rng.random((2, T, 49)) * 0.05}
+    results = []
+    for device in (dev, torch.device("cpu")):
+        state = init_train_state(0, h, ModelFamily.MIX, disc_width_scale=8, device=device)
+        step = make_train_step(h, ModelFamily.MIX)
+        b = {k: torch.from_numpy(v.astype(np.float32)).to(device) for k, v in batch.items()}
+        metrics = [{k: float(v) for k, v in step(state, b).items()} for _ in range(3)]
+        results.append((metrics, tree_from_module(state.generator)))
+    (card_m, card_g), (cpu_m, cpu_g) = results
+    for a, b in zip(card_m, cpu_m):
+        for k in a:
+            assert np.isfinite(a[k]) and abs(a[k] - b[k]) <= 1e-3 * abs(b[k]), (k, a[k], b[k])
+    a_leaves, b_leaves = [], []
+
+    def walk(x, y):
+        if isinstance(x, dict):
+            for k in x:
+                walk(x[k], y[k])
+        elif isinstance(x, list):
+            for u, v in zip(x, y):
+                walk(u, v)
+        else:
+            a_leaves.append(x)
+            b_leaves.append(y)
+
+    walk(card_g, cpu_g)
+    assert max(float(np.abs(u - v).max()) for u, v in zip(a_leaves, b_leaves)) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_prematch_on_the_card_launches_the_kernel(tmp_path):
+    """per_spk_extract on the card: 6 attention launches per 30-s chunk of
+    each utterance (a 24-layer encoder with the kernel's head dim, layer 6),
+    the pickles written with the JAX package's keys and dtypes."""
+    import pickle
+
+    from knnsvc_torch.config import WavLMConfig
+    from knnsvc_torch.io.audio import save_audio
+    from knnsvc_torch.models.wavlm.model import init_wavlm_params
+    from knnsvc_torch.train.prematch import per_spk_extract
+    from knnsvc_torch.utils.layer_weights import generate_matrix_from_index
+
+    dev = _cuda()
+    (tmp_path / "data" / "spk").mkdir(parents=True)
+    for i in range(2):
+        save_audio(tmp_path / "data" / "spk" / f"u{i}.wav", _sung(1.5 + i, i)[0].numpy(), 16000)
+    cfg = WavLMConfig.from_dict(_GPU_WAVLM)
+    params = init_wavlm_params(cfg, torch.Generator().manual_seed(0))
+    w = generate_matrix_from_index(6)
+    before = gated_bias_attention.launches
+    per_spk_extract(tmp_path / "data", tmp_path / "out", params, cfg, w, w, device=dev)
+    assert gated_bias_attention.launches == before + 2 * 6
+    with open(tmp_path / "out" / "spk" / "u1.pt", "rb") as fh:
+        fd = pickle.load(fh)
+    assert fd["nearest_nbrs"].dtype == np.int64 and fd["nearest_nbrs"].shape[1] == 32
+    assert np.isfinite(fd["harmonics_best_weight_para"]).all()
