@@ -28,7 +28,11 @@ Phases (any failure exits non-zero, before the result line):
      costs of a sung 30-s wav, timed against its plain version; device f0
      on the card against the CPU on that wav, and the time of one 30-s
      device_f0_tensor with its Viterbi share; the attention kernel and the
-     Viterbi also at a streaming window's shape (T = 200);
+     Viterbi also at a streaming window's shape (T = 200); the concat
+     kernel's shard-table entries (a pool split into S = 1, 2, 4 logical
+     shards of the card) against the plain version reading the same shards
+     at (1500, 1499, 1024), k = 4 and 8, pair and single lane, and S = 1
+     against the dense entry, each timed;
   3. the slice on the card against the slice on the CPU: one full-width
      KnnSvc.random_init("mix") (WavLM-Large, HiFi-GAN v1 config), the same
      weights on both, "highest" precision, a seeded 4-s synthetic singing
@@ -94,7 +98,24 @@ Phases (any failure exits non-zero, before the result line):
      knnsvc.d_step / g_step spans; train() for 11 steps with validation every 5 (best-val
      retention), resume_from continuing the step count, and the trained g_
      served by KnnSvc.load(ckpt_dir, "mix") with convert_pair(fast=True);
-  8. the card's name and power limit (nvidia-smi).
+  8. the multi-device matchers (knnsvc_torch/parallel) on logical shards of
+     the card, the same model: an hour-scale pool (180 000 x 1024, seeded)
+     at 1 and 4 shards, sharded_knn_topk against knn_topk and
+     match_utterance(matcher='sharded', post_opt_0.2) against 'exact'
+     (shares of equal rows and concat picks, largest feature difference,
+     times); convert_pair(fast=True) on a 30-s pair with 'sharded'
+     (no_post_opt, post_opt_0.2) and 'sharded_int8' on the default pool
+     mesh and on 4 shards (launches checked; waveforms against the exact
+     matcher's, and the int8 one against the host-pool int8 pair; warm
+     medians beside the dense ones) and convert_pair(fast=False,
+     matcher='sharded'); bulk_convert on phase 5's dataset: the host loop
+     with 'sharded', the dense fast loop on a (2, 1) data mesh, the fast
+     loop with 'sharded_int8' serial, with data_batch=2 and with
+     data_batch=2 on a 2 x 2 mesh, each against its dense or serial twin,
+     audio-s/s each; a windowed 30-s 'sharded'
+     stream against the 'exact' one and a live 'sharded_int8'
+     stream_session against its file stream;
+  9. the card's name and power limit (nvidia-smi).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it fails and prints no result.
@@ -172,6 +193,12 @@ HOST_VS_FAST_ATOL = INT16_STEP + 2e-5   # tests/test_pipeline.py's 2e-5, plus th
 HOST_PAIR_RUNS = 3                      # warm host-pool pair conversions
 INT8_SHAPE = (1500, 9000, 1024)         # (Q, P, D): a 30-s query, a 3-min pool
 KNN_HOUR = (1500, 180_000, 1024)        # (Q, P, D): a 30-s query, an hour of target
+# the multi-device matchers (knnsvc_torch/parallel) on logical shards of the card
+SHARD_COUNTS = (1, 2, 4)                # pool shards of the concat kernel's pointer table
+SHARD_KS = (4, 8)                       # k = 8 reads its rows from L2
+SHARDED_POOL = 1499                     # a true_len that 2 and 4 do not divide
+HOUR_SHARDS = (1, 4)
+SHARDED_PAIR_RUNS = (5, 3)              # warm runs without and with post_opt
 
 # the carried (streaming) concat-cost entry
 CARRIED_KS = (2, 4, 8, 32)              # at CONCAT_SMALL, random ids and ids at P-1
@@ -1259,6 +1286,7 @@ def phase_bulk(root: str, knn, records, dev):
         f"{same:.2%} of rows)")
     del hour, qh
     log(f"[bulk] phase 6 in {time.perf_counter() - t_phase:.1f} s")
+    return data, want_attention, audio_s, n_conv
 
 
 class PickSpy:
@@ -1564,6 +1592,348 @@ def phase_bulk_profile(fn, label: str) -> None:
     log(f"[profile] bulk {label}: wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms, "
         f"idle share {1 - busy / wall_us:.1%}; stages (host ms in span, device kernel ms) "
         + json.dumps({k: [round(h, 3), round(d, 3)] for k, (h, d) in stage_times(events).items()}))
+
+
+# ------------------------------------------------------------ multi-device matchers
+
+
+def logical_mesh(dev, n_data: int, n_pool: int):
+    """A (n_data, n_pool) mesh of logical shards, every one on `dev`."""
+    from knnsvc_torch.parallel import make_mesh
+
+    return make_mesh(n_data, n_pool, devices=[dev] * (n_data * n_pool))
+
+
+def phase_concat_sharded(dev) -> dict:
+    """The concat kernel's shard-table entries against the plain version
+    reading the same shards (parallel/mesh.gather_rows) at (1500, 1499,
+    1024): S in SHARD_COUNTS logical shards, k in SHARD_KS, pair and single
+    lane; S = 1 also against the dense entry. -> the record's times."""
+    import torch
+
+    from knnsvc_torch.match.concat_cost import knn_with_concat_cost, knn_with_concat_cost_pair
+    from knnsvc_torch.ops.concat_scan import (concat_cost_pair, concat_cost_pair_sharded,
+                                              concat_cost_single, concat_cost_single_sharded)
+    from knnsvc_torch.parallel.mesh import gather_rows, shard_rows
+
+    T, _, D = CONCAT_MAIN
+    P = SHARDED_POOL
+    times = {}
+    for k in SHARD_KS:
+        idx_u, idx_p, src, tgt, sf0, tf0 = concat_inputs(T, P, D, 6 + k, dev, k=k)
+        dense = [*concat_cost_pair(idx_u, idx_p, src, tgt, sf0, tf0),
+                 concat_cost_single(idx_u, src, tgt)]
+        for S in SHARD_COUNTS:
+            shards = shard_rows(tgt, logical_mesh(dev, 1, S))[0]
+            got = [*concat_cost_pair_sharded(idx_u, idx_p, src, shards, P, sf0, tf0),
+                   concat_cost_single_sharded(idx_u, src, shards, P)]
+            rows = lambda ids, sh=shards: gather_rows(sh, ids)
+            want = [*knn_with_concat_cost_pair(idx_u, idx_p, src, rows, sf0, tf0, pool_len=P),
+                    knn_with_concat_cost(idx_u, src, rows, pool_len=P)]
+            torch.cuda.synchronize()
+            shares = [float((g == w).all(dim=1).float().mean()) for g, w in zip(got, want)]
+            as_dense = all(bool(torch.equal(g, w)) for g, w in zip(got, dense))
+            iters = 10 if k <= 4 else 3
+            pair_ms = cuda_ms(lambda: concat_cost_pair_sharded(idx_u, idx_p, src, shards, P, sf0,
+                                                               tf0), iters=iters, warmup=1)
+            single_ms = cuda_ms(lambda: concat_cost_single_sharded(idx_u, src, shards, P),
+                                iters=iters, warmup=1)
+            log(f"[sharded] concat_cost_pair_sharded ({T}, {P} in {S} shards of "
+                f"{shards[0].shape[0]}, {D}) k={k}: frames equal to the plain sharded version, "
+                f"unpitched {shares[0]:.2%}, pitched {shares[1]:.2%}, single lane "
+                f"{shares[2]:.2%}; equal to the dense entry: {as_dense}; kernel pair "
+                f"{pair_ms:.4f} ms ({1e3 * pair_ms / (T - 1):.3f} us per frame), single "
+                f"{single_ms:.4f} ms")
+            if min(shares) < CONCAT_SHARE_MIN or (S == 1 and not as_dense):
+                fail(f"the sharded concat entry disagrees at S={S}, k={k}: shares {shares}, "
+                     f"equal to the dense entry {as_dense}")
+            times[f"S{S}_k{k}"] = {"pair_ms": pair_ms, "single_ms": single_ms,
+                                   "equal_to_dense": as_dense}
+    return {"sharded_shape": [T, P, D], "sharded": times}
+
+
+def phase_sharded(root: str, knn, records, dev, bulk) -> None:
+    """The multi-device matchers at full width on logical shards of the
+    card: (b) an hour-scale pool, (c) the 30-s pair, (d) the bulk loops on
+    phase 6's dataset, (e) streaming."""
+    t_phase = time.perf_counter()
+    phase_sharded_hour(knn, dev)
+    phase_sharded_pair(root, knn, records, dev)
+    phase_sharded_bulk(root, knn, dev, *bulk)
+    phase_sharded_stream(root, knn, dev)
+    log(f"[sharded] phase in {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_sharded_hour(knn, dev) -> None:
+    """(b) A seeded KNN_HOUR pool (random rows, f0 and harmonics, made on
+    the card) at 1 and 4 shards: sharded_knn_topk against knn_topk, then
+    match_utterance(matcher='sharded', post_opt_0.2) against 'exact': the
+    shares of equal rows and picks, the largest feature difference, times."""
+    import torch
+
+    from knnsvc_torch.config import PostOpt
+    from knnsvc_torch.match.f0_logic import shift_f0_to_target_register, sort_by_f0_compatibility
+    from knnsvc_torch.match.knn import knn_topk
+    from knnsvc_torch.match.pipeline import match_utterance
+    from knnsvc_torch.ops.concat_scan import concat_cost_pair, concat_cost_pair_sharded
+    from knnsvc_torch.parallel import sharded_knn_topk
+    from knnsvc_torch.parallel.sharded_match import shard_speaker_pool
+
+    Q, P, D = KNN_HOUR
+    gen = torch.Generator(device=dev).manual_seed(10)
+    matching = torch.randn(P, D, device=dev, generator=gen)
+    synth = torch.randn(P, D, device=dev, generator=gen)
+    harm = torch.rand(P, 49, device=dev, generator=gen)
+    f0 = 100 + 300 * torch.rand(P, device=dev, generator=gen)
+    f0[torch.rand(P, device=dev, generator=gen) < 0.15] = 0.0
+    q = torch.randn(Q, D, device=dev, generator=gen)
+    qf0 = 100 + 200 * torch.rand(Q, device=dev, generator=gen)
+    qf0[torch.rand(Q, device=dev, generator=gen) < 0.15] = 0.0
+    popt = PostOpt.parse(POST_OPT)
+
+    def timed(fn):
+        concat_cost_pair.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out, concat_cost_pair.launches
+
+    dense_idx = knn_topk(q, matching, k=32)[0]
+    dense_ms = cuda_ms(lambda: knn_topk(q, matching, k=32), iters=3, warmup=1)
+    shifted = shift_f0_to_target_register(qf0, f0)
+    pitched = sort_by_f0_compatibility(shifted, f0, dense_idx)[:, :4]
+    dense_picks = concat_cost_pair(dense_idx[:, :4], pitched, q, matching, shifted, f0)
+    timed(lambda: match_utterance(q, qf0, matching, synth, f0, harm, "mix", popt,
+                                  matcher="exact", as_numpy=False))   # first call
+    dense_s, dense, launches = timed(lambda: match_utterance(
+        q, qf0, matching, synth, f0, harm, "mix", popt, matcher="exact", as_numpy=False))
+    log(f"[sharded] hour pool {KNN_HOUR}: dense knn_topk {dense_ms:.3f} ms; dense "
+        f"match_utterance(exact, {POST_OPT}) {dense_s:.3f} s, concat launches {launches}")
+    for S in HOUR_SHARDS:
+        mesh = logical_mesh(dev, 1, S)
+        sp = shard_speaker_pool(matching, synth, f0, harm, mesh)
+        idx = sharded_knn_topk(q, sp.matching, P, mesh, k=32)[0]
+        rows_equal = float((idx == dense_idx).all(dim=1).float().mean())
+        knn_ms = cuda_ms(lambda: sharded_knn_topk(q, sp.matching, P, mesh, k=32), iters=3,
+                         warmup=1)
+        pitched_s = sort_by_f0_compatibility(shifted, f0, idx)[:, :4]
+        picks = concat_cost_pair_sharded(idx[:, :4], pitched_s, q, sp.matching[0], P, shifted, f0)
+        picks_equal = float(torch.stack([(a == b).all(dim=1) for a, b in zip(picks, dense_picks)])
+                            .all(dim=0).float().mean())
+        timed(lambda: match_utterance(q, qf0, None, None, None, None, "mix", popt,
+                                      matcher="sharded", sharded=sp, as_numpy=False))
+        sharded_s, got, launches = timed(lambda: match_utterance(
+            q, qf0, None, None, None, None, "mix", popt, matcher="sharded", sharded=sp,
+            as_numpy=False))
+        diff = max(float((a - b).abs().max()) for a, b in (
+            (got.out_feats_weighted, dense.out_feats_weighted),
+            (got.harmonics_out_feats_weighted, dense.harmonics_out_feats_weighted)))
+        finite = bool(torch.isfinite(got.out_feats_weighted).all())
+        log(f"[sharded] hour pool, {S} shard(s) of {sp.matching[0][0].shape[0]} rows: "
+            f"sharded_knn_topk {knn_ms:.3f} ms (dense {dense_ms:.3f}), top-32 rows equal to "
+            f"knn_topk's on {rows_equal:.2%} of queries; match_utterance(sharded, {POST_OPT}) "
+            f"{sharded_s:.3f} s (exact {dense_s:.3f} s), concat launches {launches}, frames "
+            f"whose concat picks (both lanes) equal exact's {picks_equal:.2%}, largest feature "
+            f"difference {diff:.3e}")
+        if not (finite and launches == 1 and rows_equal >= KNN_SET_SHARE_MIN
+                and picks_equal >= PICK_SHARE_MIN):
+            fail(f"the sharded match at an hour of target, S={S}: rows {rows_equal}, picks "
+                 f"{picks_equal}, launches {launches}, finite {finite}")
+        del sp, got
+    del matching, synth, harm, dense
+
+
+def phase_sharded_pair(root: str, knn, records, dev) -> None:
+    """(c) convert_pair on the 30-s pair with f0 sidecars: 'sharded'
+    (no_post_opt, post_opt_0.2) and 'sharded_int8' (no_post_opt), on the
+    default pool mesh and on 4 logical shards, launches checked; the
+    pre-quantize waveform against the 'exact' matcher's (sharded), the
+    written one against the host-pool int8 pair's (sharded_int8); warm
+    medians beside the dense matcher's; convert_pair(fast=False,
+    matcher='sharded') once against the host exact pair."""
+    import numpy as np
+    import torch
+
+    from knnsvc_torch.io.audio import load_audio
+    from knnsvc_torch.ops.attention import gated_bias_attention
+    from knnsvc_torch.ops.concat_scan import concat_cost_pair
+
+    pair_dir = os.path.join(root, "sharded_pair")
+    os.makedirs(pair_dir)
+    src, ref = write_pair(pair_dir, FULL_SECONDS, sidecars=True)
+    mesh4 = logical_mesh(dev, 1, 4)
+
+    def run(name, **kw):
+        out = os.path.join(pair_dir, f"{name}.wav")
+        gated_bias_attention.launches = concat_cost_pair.launches = 0
+        t0 = time.perf_counter()
+        knn.convert_pair(src, ref, output_path=out, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        po = kw.get("post_opt", "no_post_opt")
+        launches = (gated_bias_attention.launches, concat_cost_pair.launches)
+        want = (LAUNCHES_PER_PAIR, 0 if po == "no_post_opt" else 1)
+        if launches != want:
+            fail(f"convert_pair({kw}) launched (attention, concat) {launches}, expected {want}")
+        return dt, load_audio(out)[0][0], launches
+
+    def medians(name, **kw):
+        n = SHARDED_PAIR_RUNS[kw.get("post_opt", "no_post_opt") != "no_post_opt"]
+        first, _, _ = run(name, **kw)
+        times = [run(name, **kw)[0] for _ in range(n)]
+        return first, statistics.median(times), min(times), max(times)
+
+    dense = {po: medians(f"exact_{po}", fast=True, post_opt=po)
+             for po in ("no_post_opt", POST_OPT)}
+    exact_wave = {po: knn.convert_waveform(src, ref, post_opt=po).cpu().numpy()
+                  for po in dense}
+    _, int8_host, _ = run("int8_host", fast=False, matcher="int8")
+    for po, (first, med, lo, hi) in dense.items():
+        log(f"[sharded] pair exact {po} (dense): first {first:.4f} s, warm median {med:.4f} s "
+            f"(min {lo:.4f}, max {hi:.4f})")
+    for matcher, po in (("sharded", "no_post_opt"), ("sharded", POST_OPT),
+                        ("sharded_int8", "no_post_opt")):
+        for mesh_name, mesh in (("default mesh", None), ("4 logical shards", mesh4)):
+            kw = dict(fast=True, matcher=matcher, post_opt=po, mesh=mesh)
+            first, med, lo, hi = medians(f"{matcher}_{po}", **kw)
+            _, written, launches = run(f"{matcher}_{po}", **kw)
+            wave = knn.convert_waveform(src, ref, post_opt=po, matcher=matcher,
+                                        mesh=mesh).cpu().numpy()
+            peak = float(np.abs(exact_wave[po]).max())
+            rel = float(np.abs(wave - exact_wave[po]).max()) / max(peak, 1e-30)
+            check = f"vs exact {rel:.3e} of the peak (tol {WAV_REL_TOL})"
+            ok = np.isfinite(wave).all() and wave.shape == exact_wave[po].shape
+            if matcher == "sharded_int8":
+                host = float(np.abs(written - int8_host).max())
+                check = (f"vs exact {rel:.3e} of the peak (other picks: int8 search); written "
+                         f"vs the host-pool int8 pair {host:.3e} (tol {HOST_VS_FAST_ATOL:.3e})")
+                ok = ok and host <= HOST_VS_FAST_ATOL
+            else:
+                ok = ok and rel <= WAV_REL_TOL
+            log(f"[sharded] pair {matcher} {po}, {mesh_name}: first {first:.4f} s, warm median "
+                f"{med:.4f} s (min {lo:.4f}, max {hi:.4f}; dense {dense[po][1]:.4f}); launches "
+                f"(attention, concat) {launches}; pre-quantize waveform {check}")
+            if not ok:
+                fail(f"convert_pair({matcher}, {po}, {mesh_name}) disagrees: {check}")
+            if matcher == "sharded" and po == POST_OPT and mesh is None:
+                records["concat_cost_pair"]["sharded_launches"] = launches[1]
+    phase_profile(knn, src, ref, os.path.join(pair_dir, "traced.wav"),
+                  f"sharded {POST_OPT}, 4 logical shards, repeat", POST_OPT, matcher="sharded",
+                  mesh=mesh4)
+    _, host_sharded, launches = run("sharded_host", fast=False, matcher="sharded")
+    _, host_exact, _ = run("exact_host", fast=False)
+    rel = float(np.abs(host_sharded - host_exact).max()) / max(float(np.abs(host_exact).max()),
+                                                               1e-30)
+    log(f"[sharded] convert_pair(fast=False, matcher='sharded'): launches {launches}; vs the "
+        f"host exact pair {rel:.3e} of the peak (tol {WAV_REL_TOL})")
+    if not rel <= WAV_REL_TOL:
+        fail(f"the sharded host-pool pair differs from the exact one: {rel}")
+
+
+def phase_sharded_bulk(root: str, knn, dev, data: str, want_attention: int, audio_s: float,
+                       n_conv: int) -> None:
+    """(d) bulk_convert on phase 5's dataset: the host loop with 'sharded'
+    against phase 5's host loop; the dense fast loop on a (2, 1) data mesh
+    against phase 5's data_batch=2 loop; the fast loop with 'sharded_int8'
+    serial, with data_batch=2, and with data_batch=2 on a 2 x 2 mesh, each
+    against the next. One pass each (pools built inside), attention
+    launches checked, audio-s/s."""
+    import numpy as np
+    import torch
+
+    from knnsvc_torch.ops.attention import gated_bias_attention
+    from knnsvc_torch.ops.concat_scan import concat_cost_pair
+
+    loops = (("host sharded", {"matcher": "sharded"}),
+             ("fast exact, (2, 1) data mesh", {"fast": True, "mesh": logical_mesh(dev, 2, 1)}),
+             ("fast sharded_int8", {"fast": True, "matcher": "sharded_int8"}),
+             ("fast sharded_int8, data_batch=2",
+              {"fast": True, "matcher": "sharded_int8", "data_batch": 2}),
+             ("fast sharded_int8, 2 x 2 mesh, data_batch=2",
+              {"fast": True, "matcher": "sharded_int8", "data_batch": 2,
+               "mesh": logical_mesh(dev, 2, 2)}))
+    # phase 5's warm passes of the dense loops
+    trees = {f"{name} (phase 5)": read_tree(os.path.join(root, f"bulk_{name}_1"))
+             for name, _ in BULK_LOOPS}
+    for i, (name, kw) in enumerate(loops):
+        out_dir = os.path.join(root, f"bulk_sharded_{i}")
+        gated_bias_attention.launches = concat_cost_pair.launches = 0
+        t0 = time.perf_counter()
+        written = knn.bulk_convert(data, data, out_dir, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = (gated_bias_attention.launches, concat_cost_pair.launches)
+        trees[name] = read_tree(out_dir)
+        log(f"[sharded] bulk {name}: {len(written)} conversions of {audio_s:.0f} s in {dt:.3f} s "
+            f"= {audio_s / dt:.2f} audio-s/s (pools built in the pass); launches (attention, "
+            f"concat) {launches}")
+        if not (len(written) == n_conv and launches == (want_attention, 0)):
+            fail(f"bulk {name}: {len(written)} written, launches {launches}")
+    for a, b, tol in (("host sharded", "host (phase 5)", INT16_STEP),
+                      ("fast exact, (2, 1) data mesh", "fast_batch2 (phase 5)", INT16_STEP),
+                      ("fast sharded_int8, 2 x 2 mesh, data_batch=2",
+                       "fast sharded_int8, data_batch=2", INT16_STEP),
+                      ("fast sharded_int8, data_batch=2", "fast sharded_int8", INT16_STEP),
+                      ("fast sharded_int8", "fast (phase 5)", None)):
+        if set(trees[a]) != set(trees[b]):
+            fail(f"bulk {a} and {b} wrote different files")
+        diff = max(float(np.abs(trees[a][k] - trees[b][k]).max()) for k in trees[a])
+        log(f"[sharded] bulk {a} vs {b}: max |diff| {diff:.3e}"
+            + (f" (tol {tol:.3e})" if tol else " (other picks: int8 search; not checked)"))
+        if tol is not None and not diff <= tol:
+            fail(f"bulk {a} differs from {b} by {diff}")
+
+
+def phase_sharded_stream(root: str, knn, dev) -> None:
+    """(e) A windowed 30-s stream at the CLI defaults with 'sharded'
+    against the same stream with 'exact' (per-chunk launches checked), and
+    a live stream_session with 'sharded_int8' pushed 20 ms at a time against
+    its file stream."""
+    import numpy as np
+
+    from knnsvc_torch.match.pool import load_utterance
+
+    sdir = os.path.join(root, "stream")
+    src, ref = (os.path.join(sdir, f"{name}_{int(FULL_SECONDS)}s.wav") for name, _, _ in VOICES)
+    streams = {}
+    for matcher in ("exact", "sharded"):
+        kw = dict(STREAM_CLI, matcher=matcher)
+        stream_counted(knn, src, ref, kw)      # cold
+        chunks, times, launches = stream_counted(knn, src, ref, kw)
+        per_window = LAUNCHES_PER_PAIR // 2          # one 30-s-or-less window encoded
+        if not (len(chunks) == STREAM_CHUNKS and launches[0] == (2 * per_window, 0, 0)
+                and all(n == (per_window, 0, 0) for n in launches[1:])):
+            fail(f"stream {matcher}: {len(chunks)} chunks, launches {launches}")
+        streams[matcher] = np.concatenate(chunks)
+        log(f"[sharded] stream (windowed, {kw}): {len(chunks)} chunks; warm "
+            f"chunks 1-{len(times) - 1}: {spread(times[1:])} per 2-s chunk; launches "
+            f"(attention, concat, viterbi) chunk 0 {launches[0]}, then {launches[1]}")
+    a, b = streams["sharded"], streams["exact"]
+    rel = float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1e-30)
+    log(f"[sharded] stream sharded vs exact: bit-identical {np.array_equal(a, b)}, max |diff| "
+        f"{rel:.3e} of the peak (tol {WAV_REL_TOL})")
+    if not (a.shape == b.shape and rel <= WAV_REL_TOL):
+        fail(f"the sharded stream differs from the exact one: {rel}")
+    kw = dict(LIVE, encoder="cached", matcher="sharded_int8")
+    want = np.concatenate(list(knn.stream_convert_chunks(src, ref, **kw)))
+    wav = load_utterance(src)
+    sess = knn.stream_session(ref, **kw)
+    outs, emits = [], []
+    for i in range(0, len(wav), PUSH_SAMPLES):
+        t0 = time.perf_counter()
+        out = sess.push(wav[i:i + PUSH_SAMPLES])
+        if len(out):
+            emits.append(time.perf_counter() - t0)
+        outs.append(out)
+    outs.append(sess.flush())
+    live = np.concatenate(outs)
+    equal = live.shape == want.shape and np.array_equal(live, want)
+    log(f"[sharded] live stream_session({kw}): {len(emits)} pushes "
+        f"emitted a chunk, their wall time {spread(emits)}; bit-identical to the file "
+        f"stream: {equal}")
+    if not (equal and emits):
+        fail("the sharded_int8 live session differs from its file stream")
 
 
 # ------------------------------------------------------------ vocoder training
@@ -1936,7 +2306,8 @@ def device_events(events):
 
 
 def phase_profile(knn, src: str, ref: str, out: str, label: str,
-                  post_opt: str = "no_post_opt", upload_dtype: str = "float32") -> None:
+                  post_opt: str = "no_post_opt", upload_dtype: str = "float32",
+                  **pair_kw) -> None:
     """One more warm convert_pair traced with torch.profiler (CUPTI): the
     device busy share, device time by kernel, and the per-stage split read
     from the knnsvc.* spans. A trace without device events is reported as
@@ -1948,7 +2319,7 @@ def phase_profile(knn, src: str, ref: str, out: str, label: str,
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         knn.convert_pair(src, ref, fast=True, post_opt=post_opt, output_path=out,
-                         upload_dtype=upload_dtype)
+                         upload_dtype=upload_dtype, **pair_kw)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.events()
@@ -1970,9 +2341,9 @@ def phase_profile(knn, src: str, ref: str, out: str, label: str,
         f"{busy / 1e3:.2f} ms ({busy / wall_us:.1%}), idle share {1 - busy / wall_us:.1%}, "
         f"{len(spans)} device events adding up to {sum(e - s for s, e, _ in spans) / 1e3:.2f} ms")
     stages = stage_times(events)
-    log(f"[profile] {label}: stages (host ms in span, device kernel ms; concat_cost and "
-        f"smoothness nest in match, f0_device (and f0_viterbi in it) in pool_build, whose "
-        f"host ms include theirs) " + json.dumps(
+    log(f"[profile] {label}: stages (host ms in span, device kernel ms; concat_cost, "
+        f"smoothness, sharded_knn and shard_gather nest in match, f0_device (and f0_viterbi "
+        f"in it) in pool_build, whose host ms include theirs) " + json.dumps(
         {k: [round(h, 3), round(d, 3)] for k, (h, d) in stages.items()}))
     for kernel in ("gated_bias_attention", "concat_cost", "f0_viterbi"):
         us = sum(v[0] for k, v in by_name.items() if kernel in k)
@@ -2004,14 +2375,16 @@ def main() -> int:
     records = {"gated_bias_attention": phase_kernels(dev),
                "concat_cost_pair": phase_concat_kernel(dev),
                "f0_viterbi": phase_viterbi_kernel(dev)}
+    records["concat_cost_pair"].update(phase_concat_sharded(dev))
     root = tempfile.mkdtemp(prefix="knnsvc_smoke_")
     try:
         knn, cpu = phase_slice_cpu_vs_cuda(root, dev)
         phase_stream_slice(root, knn, cpu)
         del cpu
         phase_full(root, knn, records, dev)
-        phase_bulk(root, knn, records, dev)
+        bulk = phase_bulk(root, knn, records, dev)
         phase_stream(root, knn, records, dev)
+        phase_sharded(root, knn, records, dev, bulk)
         del knn
         phase_train(root, records, dev)
     finally:

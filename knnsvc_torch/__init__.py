@@ -19,6 +19,8 @@ ops/concat_scan.py and ops/viterbi.py).
   match/     cosine kNN, f0 register shift and re-rank, concat-cost
              reselection and smoothness optimizer (post_opt), pools,
              serving core
+  parallel/  device meshes (a grid of torch.devices, logical shards allowed),
+             kNN and the whole match over a pool sharded on the mesh
   train/     vocoder fine-tuning: prematch, the training dataset, the GAN
              train step (MPD/MSD, AdamW), the loop with its checkpoints
   cli/       ddsp_inference-compatible CLI (pair and folder mode, --fast,

@@ -12,10 +12,11 @@ default) is the host-pool path, --fast true the device-resident one, and
 --stream_chunk_s S (pair mode) the streaming path (KnnSvc.stream_convert:
 --stream_context_s, --stream_right_context_s, --stream_encoder
 windowed|cached, --stream_cache_s, --f0_method); every --ckpt_type; matcher
-exact, approx (both exact search here) or int8 (host-pool path); .pt or
-.knnsvc.pkl checkpoints. Runs on --device cuda (the default; no card ->
-error, never a silent CPU run) or --device cpu. Not ported: the sharded
-matchers (ROADMAP.md Queue 1 item 11), which raise.
+exact, approx (both exact search here), int8 (host-pool path), sharded or
+sharded_int8 (every mode: the target pool sharded over every visible card,
+or the CPU; sharded_int8 serves no_post_opt only); .pt or .knnsvc.pkl
+checkpoints. Runs on --device cuda (the default; no card -> error, never a
+silent CPU run) or --device cpu.
 """
 
 from __future__ import annotations
@@ -69,8 +70,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--matcher", type=str, default="exact",
                         choices=["exact", "approx", "int8", "sharded", "sharded_int8"],
                         help="kNN candidate search: exact, approx (exact search on a GPU), "
-                             "int8 (quantized pool, --fast false, no streaming); the sharded "
-                             "ones are not ported")
+                             "int8 (quantized pool, --fast false, no streaming), sharded (the "
+                             "target pool sharded over every visible card), sharded_int8 (int8 "
+                             "matching rows AND sharded: P/(4n) bytes per card; no_post_opt)")
     parser.add_argument("--precision", type=str, default="highest",
                         choices=["highest", "fastest"],
                         help="highest = fp32 with TF32 off in cuBLAS and cuDNN; "

@@ -55,6 +55,18 @@
 // and the selector's dependent shared-memory and division latencies, about
 // 2 us a frame, with the producers' one L2 round trip close behind.
 //
+// The pool is a table of S shard base pointers (a device array) and the
+// rows per shard: row g is shards[g / shard_len] + (g % shard_len) * D. A
+// dense pool is the case S = 1, shard_len = P, where each thread reads the
+// one base pointer once and skips the division and the table load (they
+// cost the dense entry ~2% per frame); a pool split over a mesh's
+// pool axis (knnsvc_torch/parallel) passes its shards, which the JAX
+// package's sharded core reads through a masked gather + psum instead
+// (knnsvc_tpu/parallel/sharded_match.py:111-117). P is the unpadded pool
+// length: ids clamp to it, so padding rows are never read. Shards on
+// another card than the kernel's are read through peer access, which the
+// wrapper checks and enables.
+//
 // Rows in shared memory: 3 frames of k own rows and 3 frames of 2k prev+1
 // rows, 9 k D floats. When they and the static arrays fit the block's
 // opt-in shared memory (227 KB on an H100: k <= 6 at D = 1024, every k at
@@ -135,6 +147,22 @@ __device__ __forceinline__ bool before(float a, int ia, float b, int ib) {
 
 __device__ __forceinline__ int clamp_id(int id, int P) { return min(max(id, 0), P - 1); }
 
+// The pool's rows behind the shard table; `first` is shards[0], read once.
+struct PoolRows {
+  const float* const* shards;
+  const float* first;
+  int shard_len, n_shards, D;
+
+  __device__ PoolRows(const float* const* s, int len, int n, int d)
+      : shards(s), first(s[0]), shard_len(len), n_shards(n), D(d) {}
+
+  // row g, 0 <= g < P
+  __device__ __forceinline__ const float* operator()(int g) const {
+    if (n_shards == 1) return first + (size_t)g * D;
+    return shards[g / shard_len] + (size_t)(g % shard_len) * D;
+  }
+};
+
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
@@ -179,14 +207,16 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
 // of frame t), with c = idx[t][l][j] clamped.
 __global__ void __launch_bounds__(PREPASS_THREADS)
 concat_cost_prepass_kernel(const int* __restrict__ idx, const float* __restrict__ svn,
-                           const float* __restrict__ tgt, float* __restrict__ pnorm,
-                           float* __restrict__ osd, int T, int P, int D, int L, int k) {
+                           const float* const* __restrict__ shards, int shard_len,
+                           int n_shards, float* __restrict__ pnorm, float* __restrict__ osd,
+                           int T, int P, int D, int L, int k) {
   const int ln = threadIdx.x & 31, d4 = D / 4;
+  const PoolRows pool_row(shards, shard_len, n_shards, D);
   const long own = (long)T * L * k, items = P + 2 * own;
   const long warps = (long)gridDim.x * (PREPASS_THREADS / 32);
   for (long w = blockIdx.x * (PREPASS_THREADS / 32) + (threadIdx.x >> 5); w < items; w += warps) {
     if (w < P) {
-      const float* row = tgt + (size_t)w * D;
+      const float* row = pool_row((int)w);
       const float n = warp_dot(row, row, d4, ln);
       if (ln == 0) pnorm[w] = sqrtf(n);
     } else {
@@ -195,7 +225,7 @@ concat_cost_prepass_kernel(const int* __restrict__ idx, const float* __restrict_
       const int t = (int)(e / ((long)L * k)) + next;
       const int id = min(clamp_id(idx[e], P) + next, P - 1);
       const float s =
-          t < T ? warp_dot(tgt + (size_t)id * D, svn + (size_t)t * D, d4, ln) : 0.f;
+          t < T ? warp_dot(pool_row(id), svn + (size_t)t * D, d4, ln) : 0.f;
       if (ln == 0) osd[w - P] = s;
     }
   }
@@ -231,7 +261,8 @@ struct Cross {
 template <int KM, bool SMEM>
 __global__ void __launch_bounds__(THREADS)
 concat_cost_chain_kernel(const int* __restrict__ idx, const float* __restrict__ svn,
-                         const float* __restrict__ tgt, const float* __restrict__ baselines,
+                         const float* const* __restrict__ shards, int shard_len,
+                         int n_shards, const float* __restrict__ baselines,
                          const float* __restrict__ src_lf0, const float* __restrict__ tgt_lf0,
                          const float* __restrict__ pnorm, const float* __restrict__ osd,
                          int* __restrict__ out, int T, int P, int D, int L, int k,
@@ -248,6 +279,7 @@ concat_cost_chain_kernel(const int* __restrict__ idx, const float* __restrict__ 
 
   const int lane = blockIdx.x;
   const bool pitched = (pitched_mask >> lane) & 1;
+  const PoolRows pool_row(shards, shard_len, n_shards, D);
   const int tid = threadIdx.x, warp = tid >> 5, ln = tid & 31;
   const int pt = tid - DOT_WARPS * 32, pw = pt >> 5;  // producer thread and warp
   const int d4 = D / 4, C = 2 * k;
@@ -257,7 +289,9 @@ concat_cost_chain_kernel(const int* __restrict__ idx, const float* __restrict__ 
   auto x_slot = [&](int f, int q) { return ring + ((size_t)(3 + 2 * (f % 3)) * k + q) * D; };
   auto own_at = [&](int f, int j, int id) { return SMEM ? ((f % 3) * k + j) * D : id; };
   auto x_at = [&](int f, int q, int id) { return SMEM ? ((3 + 2 * (f % 3)) * k + q) * D : id; };
-  auto row_of = [&](int at) -> const float* { return SMEM ? ring + at : tgt + (size_t)at * D; };
+  auto row_of = [&](int at) -> const float* {
+    return SMEM ? ring + at : pool_row(at);
+  };
   const unsigned row_bytes = (unsigned)D * sizeof(float);
   const int* idx0 = idx + (size_t)lane * k;
   int own_next = 0;  // producer thread C + j: raw own id j of the frame staged next
@@ -275,8 +309,7 @@ concat_cost_chain_kernel(const int* __restrict__ idx, const float* __restrict__ 
     const bool is_x = pt < C, is_own = !is_x && pt < 3 * k, is_frame = pt == PROD_THREADS - 1;
     const int j = pt - C, id = is_x ? F.xid[pt] : is_own ? F.oid[j] : 0;
     if (SMEM && (is_x || is_own))
-      bulk_copy(is_x ? x_slot(f, pt) : own_slot(f, j), tgt + (size_t)id * D, row_bytes,
-                &full[f % 3]);
+      bulk_copy(is_x ? x_slot(f, pt) : own_slot(f, j), pool_row(id), row_bytes, &full[f % 3]);
     // loads first, stores after, so they all wait on one latency
     float norm = 0.f, lf0 = 0.f, sdot = 0.f;
     if (is_x || is_own) {
@@ -292,7 +325,7 @@ concat_cost_chain_kernel(const int* __restrict__ idx, const float* __restrict__ 
     const float b = is_frame ? baselines[f - 1] : 0.f;
     const float slf0 = is_frame && pitched ? src_lf0[f] : 0.f;
     for (int q = k + pw; q < C; q += PROD_WARPS) {  // frame f-2's picks + 2
-      const float s = warp_dot(tgt + (size_t)F.xid[q] * D, svn + (size_t)f * D, d4, ln);
+      const float s = warp_dot(pool_row(F.xid[q]), svn + (size_t)f * D, d4, ln);
       if (ln == 0) F.xsd[q] = s;
     }
     if (is_x) {
@@ -323,7 +356,7 @@ concat_cost_chain_kernel(const int* __restrict__ idx, const float* __restrict__ 
     if (SMEM && pt == 0) mbar_expect_tx(&full[0], k * row_bytes);
     bar_sync(2, PROD_THREADS);
     if (SMEM && pt < k)
-      bulk_copy(own_slot(0, pt), tgt + (size_t)clamp_id(idx0[pt], P) * D, row_bytes, &full[0]);
+      bulk_copy(own_slot(0, pt), pool_row(clamp_id(idx0[pt], P)), row_bytes, &full[0]);
     if (pt >= C && pt < 3 * k) own_next = idx[((size_t)L + lane) * k + pt - C];
     stage(1, [&](int q) { return clamp_id(idx0[q % k], P); });
   }
@@ -536,10 +569,10 @@ long dyn_bytes(int k, int D) {
 }
 
 template <int KM>
-int launch_chain(const int* idx, const float* svn, const float* tgt, const float* baselines,
-                 const float* src_lf0, const float* tgt_lf0, const float* pnorm,
-                 const float* osd, int* out, int T, int P, int D, int L, int k,
-                 int pitched_mask, float concat_weight, float init_weight,
+int launch_chain(const int* idx, const float* svn, const float* const* shards, int shard_len,
+                 int n_shards, const float* baselines, const float* src_lf0, const float* tgt_lf0,
+                 const float* pnorm, const float* osd, int* out, int T, int P, int D, int L,
+                 int k, int pitched_mask, float concat_weight, float init_weight,
                  cudaStream_t stream) {
   const long bytes = dyn_bytes<KM>(k, D);
   if (bytes < 0) return (int)cudaGetLastError();
@@ -547,14 +580,15 @@ int launch_chain(const int* idx, const float* svn, const float* tgt, const float
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<L, THREADS, bytes, stream>>>(idx, svn, tgt, baselines, src_lf0, tgt_lf0, pnorm, osd,
-                                        out, T, P, D, L, k, pitched_mask, concat_weight,
-                                        init_weight);
+  kernel<<<L, THREADS, bytes, stream>>>(idx, svn, shards, shard_len, n_shards, baselines,
+                                        src_lf0, tgt_lf0, pnorm, osd, out, T, P, D, L, k,
+                                        pitched_mask, concat_weight, init_weight);
   return (int)cudaGetLastError();
 }
 
-bool bad_shape(int T, int P, int D, int L, int k) {
-  return T <= 0 || P <= 0 || D <= 0 || D % 4 || L <= 0 || L > MAX_LANES || k < 1 || k > MAX_K;
+bool bad_shape(int T, int P, int D, int L, int k, int shard_len, int n_shards) {
+  return T <= 0 || P <= 0 || D <= 0 || D % 4 || L <= 0 || L > MAX_LANES || k < 1 || k > MAX_K ||
+         shard_len <= 0 || n_shards <= 0 || (long)shard_len * n_shards < P;
 }
 
 }  // namespace
@@ -562,44 +596,63 @@ bool bad_shape(int T, int P, int D, int L, int k) {
 extern "C" {
 
 // The pre-pass alone, on `stream`: pnorm (P,) and osd (2, T, L, k) fp32.
-int concat_cost_prepass_f32(const int* idx, const float* svn, const float* tgt, float* pnorm,
-                            float* osd, int T, int P, int D, int L, int k, void* stream) {
-  if (bad_shape(T, P, D, L, k)) return (int)cudaErrorInvalidValue;
+// shards: a device array of the pool's n_shards shard base pointers,
+// shard_len rows each (one pointer and shard_len = P for a dense pool).
+int concat_cost_prepass_f32(const int* idx, const float* svn, const float* const* shards,
+                            int shard_len, int n_shards, float* pnorm, float* osd, int T, int P,
+                            int D, int L, int k, void* stream) {
+  if (bad_shape(T, P, D, L, k, shard_len, n_shards)) return (int)cudaErrorInvalidValue;
   const long items = (long)P + 2L * T * L * k;
   const long per_block = PREPASS_THREADS / 32;
   const int blocks = (int)std::min<long>((items + per_block - 1) / per_block, 132L * 8);
   concat_cost_prepass_kernel<<<blocks, PREPASS_THREADS, 0, (cudaStream_t)stream>>>(
-      idx, svn, tgt, pnorm, osd, T, P, D, L, k);
+      idx, svn, shards, shard_len, n_shards, pnorm, osd, T, P, D, L, k);
   return (int)cudaGetLastError();
 }
 
 // The whole reselection on `stream`: the pre-pass, then one chain block per
 // lane; returns the cudaError_t of the launches (0 = success). idx and out
-// are (T, L, k) int32, svn (T, D), tgt (P, D), baselines (T-1,), src_lf0
+// are (T, L, k) int32, svn (T, D), the pool's rows behind the shard table
+// (P of them, shard_len per shard), baselines (T-1,), src_lf0
 // (T,) and tgt_lf0 (P,) fp32; pnorm (P,) and osd (2, T, L, k) fp32 scratch; all
 // contiguous and 16-byte aligned (checked by the Python wrapper); the f0
 // tracks may be null when no lane is pitched. The pitched lanes' weight
 // starts at init_weight (concat_weight for a whole utterance, the carried
 // weight for a streaming chunk whose frame 0 is the carry).
-int concat_cost_pair_f32(const int* idx, const float* svn, const float* tgt,
-                         const float* baselines, const float* src_lf0, const float* tgt_lf0,
-                         float* pnorm, float* osd, int* out, int T, int P, int D, int L, int k,
-                         int pitched_mask, float concat_weight, float init_weight,
-                         void* stream) {
-  if (bad_shape(T, P, D, L, k)) return (int)cudaErrorInvalidValue;
+int concat_cost_pair_f32(const int* idx, const float* svn, const float* const* shards,
+                         int shard_len, int n_shards, const float* baselines,
+                         const float* src_lf0, const float* tgt_lf0, float* pnorm, float* osd,
+                         int* out, int T, int P, int D, int L, int k, int pitched_mask,
+                         float concat_weight, float init_weight, void* stream) {
+  if (bad_shape(T, P, D, L, k, shard_len, n_shards)) return (int)cudaErrorInvalidValue;
   if (pitched_mask && (src_lf0 == nullptr || tgt_lf0 == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int err = concat_cost_prepass_f32(idx, svn, tgt, pnorm, osd, T, P, D, L, k, stream);
+  const int err = concat_cost_prepass_f32(idx, svn, shards, shard_len, n_shards, pnorm, osd, T,
+                                          P, D, L, k, stream);
   if (err) return err;
   cudaStream_t s = (cudaStream_t)stream;
   if (k <= 4)
-    return launch_chain<4>(idx, svn, tgt, baselines, src_lf0, tgt_lf0, pnorm, osd, out, T, P, D,
-                           L, k, pitched_mask, concat_weight, init_weight, s);
+    return launch_chain<4>(idx, svn, shards, shard_len, n_shards, baselines, src_lf0, tgt_lf0,
+                           pnorm, osd, out, T, P, D, L, k, pitched_mask, concat_weight,
+                           init_weight, s);
   if (k <= 8)
-    return launch_chain<8>(idx, svn, tgt, baselines, src_lf0, tgt_lf0, pnorm, osd, out, T, P, D,
-                           L, k, pitched_mask, concat_weight, init_weight, s);
-  return launch_chain<32>(idx, svn, tgt, baselines, src_lf0, tgt_lf0, pnorm, osd, out, T, P, D,
-                          L, k, pitched_mask, concat_weight, init_weight, s);
+    return launch_chain<8>(idx, svn, shards, shard_len, n_shards, baselines, src_lf0, tgt_lf0,
+                           pnorm, osd, out, T, P, D, L, k, pitched_mask, concat_weight,
+                           init_weight, s);
+  return launch_chain<32>(idx, svn, shards, shard_len, n_shards, baselines, src_lf0, tgt_lf0,
+                          pnorm, osd, out, T, P, D, L, k, pitched_mask, concat_weight,
+                          init_weight, s);
+}
+
+// Lets the current device's kernels read `peer`'s memory (a shard on
+// another card); 0 when enabled now or before.
+int concat_cost_enable_peer_access(int peer) {
+  const cudaError_t err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();  // clear the error it left
+    return 0;
+  }
+  return (int)err;
 }
 
 const char* knnsvc_cuda_error_string(int code) {

@@ -13,10 +13,15 @@ device-resident fast loops, serial or `data_batch` at a time; and the
 legacy knn-vc surface (`get_features`, `get_matching_set`, `get_f0`,
 `vocode`, `vocode_batch`, `match`, `self_match`); streaming conversion
 (`stream_convert_chunks`, `stream_convert`, `stream_session` and its
-`StreamSession`), with the windowed or the cached (K/V-cache) encoder. Not
-ported: `mesh` and the sharded matchers (ROADMAP Queue 1 item 11).
-`mel_vocode` (a debug path) vocodes a waveform's log-mel. Everything runs on
-device="cuda" unless the caller passes device="cpu".
+`StreamSession`), with the windowed or the cached (K/V-cache) encoder; the
+multi-device matchers 'sharded' and 'sharded_int8' on every one of these
+paths, the target pool split over the pool axis of `mesh=` (a
+parallel.Mesh; default: every card, or the CPU, as one pool axis), and a
+mesh's data axis splitting `bulk_convert`'s batched loop. On one card a
+mesh of repeated devices (make_mesh(devices=[cuda:0] * 4, n_pool=4)) runs
+the multi-shard code as logical shards. `mel_vocode` (a debug path)
+vocodes a waveform's log-mel. Everything runs on device="cuda" unless the
+caller passes device="cpu".
 """
 
 from __future__ import annotations
@@ -39,7 +44,8 @@ from knnsvc_torch.io.audio import load_audio, resample, save_audio, to_mono
 from knnsvc_torch.io.loudness import normalize_loudness
 from knnsvc_torch.io.checkpoints import load_params
 from knnsvc_torch.io.jax_params import generator_from_numpy, wavlm_from_numpy
-from knnsvc_torch.match.pipeline import ConversionFeatures, multi_device_error
+from knnsvc_torch.match.pipeline import (SHARDED_MATCHERS, ConversionFeatures,
+                                         check_sharded_int8, pool_mesh_for)
 from knnsvc_torch.precision import apply_precision
 from knnsvc_torch.utils.layer_weights import generate_matrix_from_index, one_hot_layer
 
@@ -48,6 +54,17 @@ BUCKET_FRAMES = 250   # frame bucket of the bulk loops' query padding and vocodi
 
 def _bucket(n: int, bucket: int = BUCKET_FRAMES) -> int:
     return -(-n // bucket) * bucket
+
+
+def _pool_args(ref, use_harm: bool):
+    """The pool arguments of match_utterance / match_utterances_batched for
+    a device pool, or for a ShardedPool (passed as sharded=, the dense
+    arguments None): -> ((matching, synth, f0, harmonics), sharded)."""
+    from knnsvc_torch.parallel.sharded_match import ShardedPool
+
+    if isinstance(ref, ShardedPool):
+        return (None, None, None, None), ref
+    return (ref.matching, ref.synth, ref.f0, ref.harmonics if use_harm else None), None
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -103,8 +120,13 @@ class _StreamRunner:
             self.ref = build_device_pool(load_utterance(ref_wav_file, svc.sr), svc.wavlm,
                                          svc.weighting, svc.weighting, svc.sr,
                                          f0_method=svc.f0_method, audio_path=str(ref_wav_file))
+        self.sharded = None
+        if matcher in SHARDED_MATCHERS:
+            self.sharded = svc._shard_target(self.ref, matcher, pool_mesh_for(svc.device))
         # the sticky-weight carry threads through the concat-cost reselection
-        self.continuity = po.concat_weight != -1.0
+        # of the dense matchers; the sharded ones match each window alone, as
+        # the JAX package does
+        self.continuity = po.concat_weight != -1.0 and matcher in ("exact", "approx")
         self.feat_buf = None     # (<= C, D): the last C final frames' features
         self.carry = None        # (picks (L, k), weight) after the last emitted frame
         self.tail = None         # (features, harmonics, first global frame) of the last chunk
@@ -228,8 +250,8 @@ class _StreamRunner:
         new_v = new_v[new_v > 0]
         self.voiced = new_v if self.voiced is None else torch.cat([self.voiced, new_v])
         anchor = float(masked_log_median(self.voiced)) if len(self.voiced) else None
-        harmonics = ref.harmonics if self.use_harm else None
         if self.continuity:
+            harmonics = ref.harmonics if self.use_harm else None
             with record_function("knnsvc.match"):
                 out_s, shifted, harm_s, carry_at = match_utterance_stream(
                     q_match, q_f0, ref.matching, ref.synth, ref.f0, harmonics,
@@ -255,16 +277,17 @@ class _StreamRunner:
             a = lm * hop
             self.tail = (out_s, harm_s, g_lo)
         else:
+            pool, sharded = _pool_args(ref if self.sharded is None else self.sharded,
+                                       self.use_harm)
             with record_function("knnsvc.match"):
                 feats = match_utterance(
-                    q_match, q_f0, ref.matching, ref.synth, ref.f0, harmonics, svc.ckpt_type,
-                    post_opt=self.po, topk=self.topk, prioritize_f0=self.prioritize_f0,
-                    matcher=self.matcher, as_numpy=False, query_f0_log_median=anchor)
+                    q_match, q_f0, *pool, svc.ckpt_type, post_opt=self.po, topk=self.topk,
+                    prioritize_f0=self.prioritize_f0, matcher=self.matcher, sharded=sharded,
+                    as_numpy=False, query_f0_log_median=anchor)
             v_lo, v_hi = max(0, c_lo - vm), min(t_local, c_hi + vm)
-            harm = feats.harmonics_out_feats_weighted
-            wav = svc._vocode_tensor(feats.out_feats_weighted[None, v_lo:v_hi],
-                                     feats.shifted_query_f0[None, v_lo:v_hi],
-                                     None if harm is None else harm[None, v_lo:v_hi])
+            on = lambda x: None if x is None else x[None, v_lo:v_hi].to(svc.device)
+            wav = svc._vocode_tensor(on(feats.out_feats_weighted), on(feats.shifted_query_f0),
+                                     on(feats.harmonics_out_feats_weighted))
             a = (c_lo - v_lo) * hop
         chunk = self._download(wav[0, a: a + (c_hi - c_lo) * hop])
         if last:
@@ -426,18 +449,18 @@ class KnnSvc:
 
     def convert_waveform(self, src_wav_file: str, ref_wav_file: str, topk: int = 4,
                          post_opt: str = "no_post_opt", matcher: str = "exact",
-                         upload_dtype: str = "float32") -> torch.Tensor:
+                         upload_dtype: str = "float32", mesh=None) -> torch.Tensor:
         """The fast path up to the vocoder: both device pools, the match and
         the vocode. Returns the (T*hop,) float32 waveform on the device,
-        before the int16 quantize."""
+        before the int16 quantize. The sharded matchers shard the target
+        pool over `mesh`'s pool axis (default: every card, or the CPU)."""
         from knnsvc_torch.match.pool import build_device_pool, load_utterance
         from knnsvc_torch.match.serve import convert_pools
 
-        if matcher in ("sharded", "sharded_int8"):
-            raise multi_device_error(matcher)
-        if matcher not in ("exact", "approx"):
-            raise ValueError(f"--fast supports matcher 'exact' or 'approx', not {matcher!r} "
-                             "(the dense int8 pool is host-prepared)")
+        if matcher not in ("exact", "approx", *SHARDED_MATCHERS):
+            raise ValueError(f"--fast supports matcher 'exact', 'approx', 'sharded' or "
+                             f"'sharded_int8', not {matcher!r} (the dense int8 pool is "
+                             "host-prepared; use the default path for it)")
         # record_function spans name the stages in a torch.profiler trace
         pools = []
         for path in (src_wav_file, ref_wav_file):
@@ -448,9 +471,30 @@ class KnnSvc:
                                                self.sr, f0_method=self.f0_method,
                                                audio_path=str(path),
                                                upload_dtype=upload_dtype))
+        if matcher in SHARDED_MATCHERS:
+            return self._convert_sharded(pools[0], pools[1], PostOpt.parse(post_opt), topk,
+                                         matcher, mesh)
         wav, _ = convert_pools(self.vocoder, self.ckpt_type, pools[0], pools[1],
                                PostOpt.parse(post_opt), topk=topk, matcher=matcher, sr=self.sr)
         return wav
+
+    @torch.no_grad()
+    def _convert_sharded(self, src, ref, post_opt: PostOpt, topk: int, matcher: str,
+                         mesh) -> torch.Tensor:
+        """The fast path's match and vocode with the target pool sharded:
+        -> the (T*hop,) waveform before the int16 quantize."""
+        from knnsvc_torch.match.pipeline import match_utterance
+
+        with record_function("knnsvc.f0_join"):     # joins both background f0 threads
+            src_f0, _ = src.f0, ref.f0
+        with record_function("knnsvc.match"):
+            sharded = self._shard_target(ref, matcher, pool_mesh_for(self.device, mesh))
+            feats = match_utterance(src.matching, src_f0, None, None, None, None,
+                                    self.ckpt_type, post_opt, topk=topk, matcher=matcher,
+                                    sharded=sharded, as_numpy=False)
+        on = lambda x: None if x is None else x[None].to(self.device)
+        return self._vocode_tensor(on(feats.out_feats_weighted), on(feats.shifted_query_f0),
+                                   on(feats.harmonics_out_feats_weighted))[0]
 
     # ------------------------------------------------------------- features
 
@@ -635,9 +679,10 @@ class KnnSvc:
     def convert_features(self, src_path, ref_path, topk: int = 4, prioritize_f0: bool = True,
                          post_opt: str = "no_post_opt", duration_limit: float | None = None,
                          required_subset=None, query_pool=None, ref_pool=None,
-                         matcher: str = "exact") -> dict[str, ConversionFeatures]:
+                         matcher: str = "exact", mesh=None) -> dict[str, ConversionFeatures]:
         """Host pools of source and target (built unless passed in) matched
-        on the device: {source utterance path: ConversionFeatures}."""
+        on the device: {source utterance path: ConversionFeatures}. The
+        sharded matchers shard the target pool over `mesh`'s pool axis."""
         from knnsvc_torch.match.pipeline import match_at_inference_time
 
         with record_function("knnsvc.bulk_match"):
@@ -646,13 +691,13 @@ class KnnSvc:
                 prioritize_f0=prioritize_f0, ckpt_type=self.ckpt_type,
                 required_subset=required_subset, post_opt=post_opt,
                 duration_limit=duration_limit, query_pool=query_pool, ref_pool=ref_pool,
-                matcher=matcher)
+                matcher=matcher, mesh=mesh)
 
     def convert_pair(self, src_wav_file: str, ref_wav_file: str, topk: int = 4,
                      prioritize_f0: bool = True, post_opt: str = "no_post_opt",
                      tgt_loudness_db: float | None = None,
                      output_path: str | None = None, matcher: str = "exact",
-                     fast: bool = False, upload_dtype: str = "float32") -> str:
+                     fast: bool = False, upload_dtype: str = "float32", mesh=None) -> str:
         """Single file -> single file (ref special_match :937-1023). Writes
         `<src_dir>/<src>_to_<ref>_knn_<ckpt_type>_<post_opt>.wav` unless
         output_path is given (a `.flac` path writes FLAC); returns the output
@@ -670,22 +715,25 @@ class KnnSvc:
         (a host extractor or its sidecar, or 'device'), and the output is
         quantized to int16 on the device and downloaded once;
         upload_dtype='int16' quantizes its two waveform uploads to 16 bits
-        (lossless for 16-bit-sourced audio)."""
+        (lossless for 16-bit-sourced audio).
+
+        matcher 'sharded' or 'sharded_int8' (both paths) shards the target
+        pool over the pool axis of `mesh` (a parallel.Mesh; default: every
+        card, or the CPU); 'sharded_int8' stores its matching rows int8 and
+        serves no_post_opt only."""
         if not prioritize_f0:
             raise ValueError("prioritize_f0 is mandatory on the reference live path (ref :1375)")
-        if matcher in ("sharded", "sharded_int8"):
-            raise multi_device_error(matcher)
         if fast:
             from knnsvc_torch.match.serve import quantize_int16
 
             wav = self.convert_waveform(src_wav_file, ref_wav_file, topk=topk,
                                         post_opt=post_opt, matcher=matcher,
-                                        upload_dtype=upload_dtype)
+                                        upload_dtype=upload_dtype, mesh=mesh)
             with record_function("knnsvc.quantize_download"):
                 pred = quantize_int16(wav).cpu().numpy().astype(np.float32) / 32768.0
         else:
             results = self.convert_features(Path(src_wav_file), Path(ref_wav_file), topk=topk,
-                                            post_opt=post_opt, matcher=matcher)
+                                            post_opt=post_opt, matcher=matcher, mesh=mesh)
             # pools key utterances by str(Path(...)): './x.wav' still resolves
             feats = results[str(Path(src_wav_file))]
             pred = self.vocode(feats.out_feats_weighted, feats.shifted_query_f0,
@@ -711,11 +759,12 @@ class KnnSvc:
         when known) spans several chunks: the conv frontend trims about a
         frame at each window edge, so a mid-stream window needs a hop of
         real context on each side."""
-        if matcher not in ("exact", "approx", "sharded", "sharded_int8"):
+        if matcher not in ("exact", "approx", *SHARDED_MATCHERS):
             raise ValueError(f"streaming supports matcher 'exact', 'approx', 'sharded' or "
                              f"'sharded_int8', not {matcher!r}")
-        if matcher in ("sharded", "sharded_int8"):
-            raise multi_device_error(matcher)
+        po = PostOpt.parse(post_opt)
+        if matcher == "sharded_int8":
+            check_sharded_int8(po)
         if encoder not in ("windowed", "cached"):
             raise ValueError(f"encoder must be 'windowed' or 'cached', not {encoder!r}")
         hop = HOP_LENGTH
@@ -726,7 +775,7 @@ class KnnSvc:
         if n_samples is not None and n_samples > F * hop:
             C, CR = max(C, 1), max(CR, 1)
         return _StreamRunner(self, ref_wav_file, F=F, C=C, CR=CR, topk=topk,
-                             prioritize_f0=prioritize_f0, po=PostOpt.parse(post_opt),
+                             prioritize_f0=prioritize_f0, po=po,
                              matcher=matcher, vm=max(0, int(vocode_margin_frames)),
                              encoder=encoder, cache_s=cache_s)
 
@@ -757,7 +806,9 @@ class KnnSvc:
         of margin on each side and trimmed, quantized to int16 on the
         device and downloaded once. The register shift is anchored at the
         log-median of all voiced f0 emitted so far, so chunks do not
-        re-pitch independently.
+        re-pitch independently. matcher 'sharded' / 'sharded_int8' shards
+        the target pool over the default pool mesh and matches each window
+        alone (no cross-chunk concat carry, as in the JAX package).
 
         src: a path or a 1-D float waveform at self.sr. Yields float32
         arrays of chunk_s * sr samples (the last may be shorter)."""
@@ -905,22 +956,37 @@ class KnnSvc:
         save_audio(out, pred, self.sr)
         written.append(out)
 
+    def _shard_target(self, ref, matcher: str, mesh):
+        """A target device pool sharded over `mesh`'s pool axis (int8
+        matching rows for 'sharded_int8')."""
+        from knnsvc_torch.parallel.sharded_match import shard_speaker_pool
+
+        return shard_speaker_pool(ref.matching, ref.synth, ref.f0,
+                                  ref.harmonics if uses_harmonics(self.ckpt_type) else None, mesh,
+                                  quantize_matching=matcher == "sharded_int8")
+
     def _bulk_convert_fast(self, src_spks, tgt_spks, same_root, converted_audio_dir, topk,
                            prioritize_f0, post_opt, required, duration_limit, tgt_loudness_db,
-                           resume, matcher) -> list[str]:
+                           resume, matcher, mesh=None) -> list[str]:
         """Device-resident bulk loop, target-outer: one target device pool
         alive at a time, source query tracks in a host LRU, each query
         bucket-padded, matched on the card and vocoded bucket-padded with the
         int16 download. As the host loop but: the fast path's f0
         (`self.f0_method`), no VAD, bucket-padded vocoding (<= 1e-4 per
-        sample plus one int16 step)."""
+        sample plus one int16 step). The sharded matchers shard each target
+        pool over the pool axis of `mesh` (default: the default pool
+        mesh)."""
         from knnsvc_torch.match.pipeline import match_utterance, subset_key
         from knnsvc_torch.match.pool import list_speaker_utterances
 
-        if matcher not in ("exact", "approx"):
-            raise ValueError(f"bulk_convert(fast=True) takes matcher 'exact' or 'approx', "
-                             f"not {matcher!r}")
+        if matcher not in ("exact", "approx", *SHARDED_MATCHERS):
+            raise ValueError(f"bulk_convert(fast=True) takes matcher 'exact', 'approx', "
+                             f"'sharded' or 'sharded_int8', not {matcher!r}")
         popt = PostOpt.parse(post_opt)
+        sharded = matcher in SHARDED_MATCHERS
+        if sharded:
+            mesh = pool_mesh_for(self.device, mesh)
+        use_harm = uses_harmonics(self.ckpt_type)
         queries = self._HostQueryCache(self)
         written: list[str] = []
         for j, tgt_spk in enumerate(tgt_spks):
@@ -939,18 +1005,20 @@ class KnnSvc:
                         with record_function("knnsvc.speaker_pool"):
                             ref = self._device_pool_for_files(
                                 list_speaker_utterances(tgt_spk), duration_limit)
+                            if sharded:
+                                ref = self._shard_target(ref, matcher, mesh)
                     with record_function("knnsvc.speaker_pool"):
                         m, qf0, T = self._bucket_pad_query(*queries.get(src_file))
+                    pool, sharded_pool = _pool_args(ref, use_harm)
                     with record_function("knnsvc.bulk_match"):
                         feats = match_utterance(
-                            m, qf0, ref.matching, ref.synth, ref.f0,
-                            ref.harmonics if uses_harmonics(self.ckpt_type) else None,
-                            ckpt_type=self.ckpt_type, post_opt=popt, topk=topk,
-                            prioritize_f0=prioritize_f0, matcher=matcher, as_numpy=False)
-                    harm = feats.harmonics_out_feats_weighted
-                    feats = ConversionFeatures(feats.out_feats_weighted[:T],
-                                               feats.shifted_query_f0[:T],
-                                               None if harm is None else harm[:T])
+                            m, qf0, *pool, ckpt_type=self.ckpt_type, post_opt=popt, topk=topk,
+                            prioritize_f0=prioritize_f0, matcher=matcher, sharded=sharded_pool,
+                            as_numpy=False)
+                    cut = lambda x: None if x is None else x[:T].to(self.device)
+                    feats = ConversionFeatures(cut(feats.out_feats_weighted),
+                                               cut(feats.shifted_query_f0),
+                                               cut(feats.harmonics_out_feats_weighted))
                     with torch.no_grad():
                         pred = self._vocode_device_bucketed(feats)
                     self._write(out, pred, tgt_loudness_db, written)
@@ -958,23 +1026,32 @@ class KnnSvc:
 
     def _bulk_convert_fast_batched(self, src_spks, tgt_spks, same_root, converted_audio_dir,
                                    topk, prioritize_f0, post_opt, required, duration_limit,
-                                   tgt_loudness_db, resume, matcher, data_batch) -> list[str]:
+                                   tgt_loudness_db, resume, matcher, data_batch,
+                                   mesh=None) -> list[str]:
         """Bulk serving `data_batch` conversions at a time: jobs grouped by
         (target speaker, frame bucket), each group through one batched match
         (match_utterances_batched) and one batched vocoder call with one
         int16 download. A short group is filled by repeating its last job,
         whose rows are computed and dropped. Per utterance as
-        `_bulk_convert_fast` (same padding, same buckets)."""
+        `_bulk_convert_fast` (same padding, same buckets). With a mesh (its
+        data axis dividing data_batch, bulk_convert checks) the batch is
+        split over its data axis: the dense matchers with the pool
+        replicated on each row, the sharded ones with each target pool
+        sharded over the pool axis (the default pool mesh when none is
+        given)."""
         from knnsvc_torch.match.pipeline import match_utterances_batched, subset_key
         from knnsvc_torch.match.pool import list_speaker_utterances
         from knnsvc_torch.match.serve import quantize_int16
 
-        if matcher not in ("exact", "approx"):
-            raise ValueError(f"batched bulk serving takes matcher 'exact' or 'approx', "
-                             f"not {matcher!r}")
+        if matcher not in ("exact", "approx", *SHARDED_MATCHERS):
+            raise ValueError(f"batched bulk serving takes matcher 'exact', 'approx', 'sharded' "
+                             f"or 'sharded_int8', not {matcher!r}")
         if not prioritize_f0:
             raise ValueError("prioritize_f0 is mandatory on the reference live path (ref :1375)")
         popt = PostOpt.parse(post_opt)
+        sharded = matcher in SHARDED_MATCHERS
+        if sharded:
+            mesh = pool_mesh_for(self.device, mesh)
         by_tgt: dict = {}
         for i, spk in enumerate(src_spks):
             for src_file in list_speaker_utterances(spk):
@@ -995,6 +1072,8 @@ class KnnSvc:
             with record_function("knnsvc.speaker_pool"):
                 ref = self._device_pool_for_files(list_speaker_utterances(tgt_spk),
                                                   duration_limit)
+                if sharded:
+                    ref = self._shard_target(ref, matcher, mesh)
                 by_bucket: dict[int, list] = {}
                 for job in jobs:
                     by_bucket.setdefault(_bucket(queries.get(job[0])[0].shape[0]),
@@ -1005,14 +1084,16 @@ class KnnSvc:
                     padded = chunk + [chunk[-1]] * (data_batch - len(chunk))
                     with record_function("knnsvc.speaker_pool"):
                         tracks = [self._bucket_pad_query(*queries.get(job[0])) for job in padded]
+                    qs, qf0s = np.stack([t[0] for t in tracks]), np.stack([t[1] for t in tracks])
+                    pool, sharded_pool = _pool_args(ref, use_harm)
                     with record_function("knnsvc.bulk_match"):
                         out_b, f0_b, harm_b = match_utterances_batched(
-                            np.stack([t[0] for t in tracks]), np.stack([t[1] for t in tracks]),
-                            ref.matching, ref.synth, ref.f0,
-                            ref.harmonics if use_harm else None, ckpt_type=self.ckpt_type,
-                            post_opt=popt, topk=topk, matcher=matcher)
+                            qs, qf0s, *pool, ckpt_type=self.ckpt_type, post_opt=popt, topk=topk,
+                            matcher=matcher, mesh=mesh, sharded=sharded_pool)
+                    on = lambda x: None if x is None else x.to(self.device)
                     with torch.no_grad():
-                        q16 = quantize_int16(self._vocode_tensor(out_b, f0_b, harm_b)).cpu().numpy()
+                        q16 = quantize_int16(self._vocode_tensor(
+                            on(out_b), on(f0_b), on(harm_b))).cpu().numpy()
                     for row, ((_, out), track) in enumerate(zip(chunk, tracks)):
                         pred = q16[row, : track[2] * self.h.hop_size].astype(np.float32) / 32768.0
                         self._write(out, pred, tgt_loudness_db, written)
@@ -1025,7 +1106,7 @@ class KnnSvc:
                      tgt_loudness_db: float | None = None, resume: bool = False,
                      batch_vocode: bool = False, pool_cache_dir: str | None = None,
                      matcher: str = "exact", max_cached_pools: int = 8, fast: bool = False,
-                     data_batch: int | None = None) -> list[str]:
+                     data_batch: int | None = None, mesh=None) -> list[str]:
         """Dataset -> dataset (ref bulk_match :1027-1156): every (source
         speaker, target speaker) pair but the same-index self pairs when both
         roots are one; outputs `<dir>/<src_spk>/<utt>/<tgt_spk>.wav`; returns
@@ -1042,9 +1123,14 @@ class KnnSvc:
         per-utterance device pools, the fast path's f0, bucketed queries and
         vocoding, int16 downloads; data_batch > 1 converts that many
         utterances per batched match and vocoder call. The fast loops ignore
-        batch_vocode and pool_cache_dir."""
-        if matcher in ("sharded", "sharded_int8"):
-            raise multi_device_error(matcher)
+        batch_vocode and pool_cache_dir.
+
+        matcher 'sharded' / 'sharded_int8' shards each target pool over the
+        pool axis of `mesh` (a parallel.Mesh; default: every card, or the
+        CPU). A mesh with a data axis above 1 makes the fast loop batched
+        (data_batch defaults to that axis and must be a multiple of it):
+        the batch is split over the data axis, composed with the pool axis
+        for the sharded matchers."""
         if not (os.path.isdir(src_dataset_path) and os.path.isdir(tgt_dataset_path)):
             raise ValueError("bulk_convert takes two dataset roots of speaker folders")
         os.makedirs(converted_audio_dir, exist_ok=True)
@@ -1067,9 +1153,17 @@ class KnnSvc:
         if fast:
             args = (src_spks, tgt_spks, same_root, converted_audio_dir, topk, prioritize_f0,
                     post_opt, required, duration_limit, tgt_loudness_db, resume, matcher)
+            n_data = 1 if mesh is None else mesh.shape["data"]
+            if data_batch is None and n_data > 1:
+                data_batch = n_data
             if data_batch is not None and data_batch > 1:
-                return self._bulk_convert_fast_batched(*args, data_batch)
-            return self._bulk_convert_fast(*args)
+                # checked before any output is written
+                if data_batch % n_data != 0:
+                    raise ValueError(f"data_batch={data_batch} must be a multiple of the mesh "
+                                     f"'data' axis ({n_data}) so each batch splits evenly")
+                batched_mesh = mesh if matcher in SHARDED_MATCHERS or n_data > 1 else None
+                return self._bulk_convert_fast_batched(*args, data_batch, batched_mesh)
+            return self._bulk_convert_fast(*args, mesh=mesh)
 
         from knnsvc_torch.match.pipeline import subset_key
         from knnsvc_torch.match.pool import build_speaker_pool_cached
@@ -1109,7 +1203,8 @@ class KnnSvc:
                 results = self.convert_features(
                     spk, tgt_spk, topk=topk, prioritize_f0=prioritize_f0, post_opt=post_opt,
                     duration_limit=duration_limit, required_subset=pair_subset,
-                    query_pool=src_pool, ref_pool=tgt_pool_for(tgt_spk), matcher=matcher)
+                    query_pool=src_pool, ref_pool=tgt_pool_for(tgt_spk), matcher=matcher,
+                    mesh=mesh)
                 batch_preds: dict[str, np.ndarray] = {}
                 if batch_vocode and results:
                     keys = list(results)

@@ -18,7 +18,10 @@ for good once b >= 0.08 (the reference reassigns `concat_weight = 0`,
 lib_ongaku_test.py:325-332), and adds |log2 f0_cand - log2 f0_src|.
 
 Lanes are independent and run stacked: (T, L, k) selections, lane l
-pitched or not. This is a Python loop over frames, a few dozen small ops
+pitched or not. The pool is a (P, D) tensor, or a callable that gathers the
+rows of given ids, with the pool length P beside it: a pool sharded over a
+mesh (parallel/mesh.gather_rows, the JAX core's `gather_rows`), P its
+unpadded length. This is a Python loop over frames, a few dozen small ops
 each; on the card the serving path runs the same recurrence as one kernel
 (ops/concat_scan.py, csrc/concat_cost_pair.cu), and this loop is the plain
 version it is held to.
@@ -34,6 +37,8 @@ pass frame for frame, the sticky latch included.
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 
@@ -57,19 +62,25 @@ def scan_inputs(src: torch.Tensor, shifted_src_f0: torch.Tensor | None,
     return svn, baselines, src_lf0, tgt_lf0
 
 
-def concat_cost_scan(idx: torch.Tensor, svn: torch.Tensor, tgt: torch.Tensor,
+Pool = torch.Tensor | Callable[[torch.Tensor], torch.Tensor]
+
+
+def concat_cost_scan(idx: torch.Tensor, svn: torch.Tensor, tgt: Pool,
                      baselines: torch.Tensor, src_lf0: torch.Tensor | None,
                      tgt_lf0: torch.Tensor | None, pitched: tuple[bool, ...],
                      concat_weight: float,
-                     pitched_weight: float | torch.Tensor | None = None) -> torch.Tensor:
+                     pitched_weight: float | torch.Tensor | None = None,
+                     pool_len: int | None = None) -> torch.Tensor:
     """The serial reselection over T frames for L stacked lanes.
-    idx (T, L, k) integer ids into tgt (P, D); pitched[l] says whether lane
-    l is pitched (then src_lf0 (T,) and tgt_lf0 (P,) are needed). The
+    idx (T, L, k) integer ids into tgt (P, D), or into the pool of
+    pool_len rows that the callable tgt gathers; pitched[l] says whether
+    lane l is pitched (then src_lf0 (T,) and tgt_lf0 (P,) are needed). The
     pitched lanes' weight starts at `pitched_weight` (default
     concat_weight; a carry may bring 0), the unpitched lanes' is
     concat_weight throughout. -> (T, L, k) int64 selections."""
     T, L, k = idx.shape
-    P = tgt.shape[0]
+    rows = tgt if callable(tgt) else tgt.__getitem__
+    P = tgt.shape[0] if pool_len is None else pool_len
     idx = idx.long()
     lane_pitched = torch.tensor(pitched, device=idx.device)                   # (L,)
     weight = torch.full((L,), concat_weight, dtype=torch.float32, device=idx.device)
@@ -77,13 +88,13 @@ def concat_cost_scan(idx: torch.Tensor, svn: torch.Tensor, tgt: torch.Tensor,
         weight = torch.where(lane_pitched, torch.as_tensor(
             pitched_weight, dtype=torch.float32, device=idx.device), weight)
     prev = idx[0]                                                             # (L, k)
-    prev_feats = tgt[prev]                                                    # (L, k, D)
+    prev_feats = rows(prev)                                                   # (L, k, D)
     pn = _norm(prev_feats)
     lanes = torch.arange(L, device=idx.device)[:, None]
     out = [prev]
     for t in range(1, T):
         cand = torch.cat([idx[t], torch.clamp(prev + 1, max=P - 1)], dim=1)  # (L, 2k)
-        feats = tgt[cand]                                                     # (L, 2k, D)
+        feats = rows(cand)                                                    # (L, 2k, D)
         cn = _norm(feats)
         matching = 1.0 - (feats * svn[t]).sum(-1) / cn
         cross = (prev_feats[:, :, None, :] * feats[:, None, :, :]).sum(-1)    # (L, k, 2k)
@@ -106,29 +117,32 @@ def concat_cost_scan(idx: torch.Tensor, svn: torch.Tensor, tgt: torch.Tensor,
     return torch.stack(out)
 
 
-def knn_with_concat_cost(idx: torch.Tensor, src: torch.Tensor, tgt: torch.Tensor,
+def knn_with_concat_cost(idx: torch.Tensor, src: torch.Tensor, tgt: Pool,
                          shifted_src_f0: torch.Tensor | None = None,
                          tgt_f0: torch.Tensor | None = None,
-                         concat_weight: float = 0.2) -> torch.Tensor:
+                         concat_weight: float = 0.2, pool_len: int | None = None) -> torch.Tensor:
     """One lane, pitched when both f0 tracks are given. idx (T, k) ->
-    reselected (T, k) int64."""
+    reselected (T, k) int64. tgt: the pool, or a row-gather callable with
+    pool_len."""
     pitched = shifted_src_f0 is not None
     svn, baselines, src_lf0, tgt_lf0 = scan_inputs(
         src, shifted_src_f0, tgt_f0 if pitched else None)
     return concat_cost_scan(idx[:, None], svn, tgt, baselines, src_lf0, tgt_lf0,
-                            (pitched,), concat_weight)[:, 0]
+                            (pitched,), concat_weight, pool_len=pool_len)[:, 0]
 
 
 def knn_with_concat_cost_pair(idx_unpitched: torch.Tensor, idx_pitched: torch.Tensor,
-                              src: torch.Tensor, tgt: torch.Tensor,
+                              src: torch.Tensor, tgt: Pool,
                               shifted_src_f0: torch.Tensor, tgt_f0: torch.Tensor,
-                              concat_weight: float = 0.2):
+                              concat_weight: float = 0.2, pool_len: int | None = None):
     """Both reselections of the post_opt match in one pass: lane 0
     unpitched (the WavLM selection), lane 1 pitched (the harmonic one).
-    -> (unpitched (T, k), pitched (T, k)) int64."""
+    -> (unpitched (T, k), pitched (T, k)) int64. tgt: the pool, or a
+    row-gather callable with pool_len."""
     svn, baselines, src_lf0, tgt_lf0 = scan_inputs(src, shifted_src_f0, tgt_f0)
     out = concat_cost_scan(torch.stack([idx_unpitched, idx_pitched], dim=1), svn, tgt,
-                           baselines, src_lf0, tgt_lf0, (False, True), concat_weight)
+                           baselines, src_lf0, tgt_lf0, (False, True), concat_weight,
+                           pool_len=pool_len)
     return out[:, 0], out[:, 1]
 
 

@@ -11,7 +11,10 @@ pool: exact/approx through those two, int8 through the step path),
 `match_utterances_batched` (a batch of equal-length queries against one
 pool, the vmapped `_match_core_batch` there: here the kNN runs as one block
 over the batch and the serial stages, concat cost and smoothness, loop
-over its utterances).
+over its utterances). The multi-device matchers 'sharded' and
+'sharded_int8' run a pool sharded over a mesh's pool axis
+(parallel/sharded_match.py; pass a ShardedPool, or a mesh where the
+pipeline builds one), and a mesh's data axis splits the batched match.
 
 Ordering quirks kept from the reference (ref ddsp_prematch_dataset.py:1074-1459):
 the WavLM feature output uses the unpitched selection (top-k of the raw kNN,
@@ -24,6 +27,7 @@ smoothness optimizer is off; prioritize_f0 is mandatory (ref :1375).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from pathlib import Path
 from typing import Iterable
@@ -41,6 +45,7 @@ from knnsvc_torch.match.smoothness import (HARMONICS_LOSS_SCALE, WAVLM_LOSS_SCAL
                                            optimize_smoothness_weights)
 from knnsvc_torch.ops.concat_scan import (concat_cost_pair, concat_cost_pair_stream,
                                           concat_cost_single, concat_cost_single_stream)
+from knnsvc_torch.parallel.mesh import Mesh, make_mesh
 
 KNN_CANDIDATES = 32  # ref :1203
 
@@ -181,10 +186,10 @@ def match_utterance_stream(query_seq, query_f0, matching_list: torch.Tensor,
     owns. Returns (out (Ts, D), shifted (T,), harm (Ts, 49) or None,
     carry_at), where carry_at(emit_end) is the carry after window-local
     frame emit_end - 1, for the next chunk. Everything stays on the device."""
-    if matcher in ("sharded", "sharded_int8"):
-        raise multi_device_error(matcher)
     if matcher not in ("exact", "approx"):
-        raise ValueError(f"streaming takes matcher 'exact' or 'approx', not {matcher!r}")
+        raise ValueError(f"the carried streaming match takes matcher 'exact' or 'approx', not "
+                         f"{matcher!r} (the sharded matchers match each window alone, "
+                         "match_utterance)")
     device = synth_list.device
     q = torch.as_tensor(query_seq).to(device=device, dtype=torch.float32)
     qf0 = torch.as_tensor(query_f0).to(device=device, dtype=torch.float32)
@@ -214,10 +219,32 @@ def match_utterance_stream(query_seq, query_f0, matching_list: torch.Tensor,
 # ------------------------------------------------------- host-pool / bulk paths
 
 
-def multi_device_error(matcher: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"matcher {matcher!r}: the multi-device matchers are still to port "
-        "(ROADMAP.md, Queue 1 item 11)")
+SHARDED_MATCHERS = ("sharded", "sharded_int8")
+
+
+@functools.lru_cache(maxsize=None)
+def _default_pool_mesh(device_type: str = "cuda") -> Mesh:
+    """One shared pool mesh per device type: every visible card on the pool
+    axis, or the CPU as one shard. _prepare_ref_pool caches shards by mesh
+    identity, so a fresh mesh per call would re-shard (re-upload) the whole
+    target pool on every conversion."""
+    if device_type == "cpu":
+        return make_mesh(n_data=1, n_pool=1, devices=[torch.device("cpu")])
+    return make_mesh(n_data=1, n_pool=torch.cuda.device_count())
+
+
+def pool_mesh_for(device: torch.device, mesh: Mesh | None = None) -> Mesh:
+    """The mesh a sharded matcher runs on: the caller's, else the default
+    one of `device`'s type."""
+    return mesh if mesh is not None else _default_pool_mesh(torch.device(device).type)
+
+
+def check_sharded_int8(post_opt: PostOpt) -> None:
+    """sharded_int8 keeps no fp32 matching rows, which the concat cost and
+    the optimizer read."""
+    if post_opt.enabled or post_opt.concat_weight != -1.0:
+        raise ValueError("sharded_int8 serves no_post_opt configs only (concat/smoothness "
+                         "read fp32 matching rows; use matcher='sharded')")
 
 
 @dataclasses.dataclass
@@ -236,18 +263,35 @@ def subset_key(src_path: str, ref_path: str) -> str:
 
 
 def _prepare_ref_pool(ref_pool: SpeakerPool, need_fp32_matching: bool, need_harmonics: bool,
-                      need_quantized: bool, device: torch.device) -> dict:
+                      need_quantized: bool, device: torch.device, mesh: Mesh | None = None,
+                      quantize_sharded: bool = False) -> dict:
     """The target pool's device copies, made once and memoized ON the pool
     object: SpeakerPool's concatenated views re-run np.concatenate on each
     access and quantize_pool is an O(P D) host pass, and a bulk run shares
     each target pool across every source speaker. Living on the pool, the
-    copies are freed with it when the bulk loop's FIFO evicts it."""
+    copies are freed with it when the bulk loop's FIFO evicts it.
+
+    With a mesh (the sharded matchers) the pool is sharded over its pool
+    axis, keyed by the mesh object, and no dense copy of any pool array is
+    made; quantize_sharded stores the matching rows int8."""
     prep = ref_pool.__dict__.setdefault("_device_prep", {})
-    if prep.get("device") != device:
-        prep.clear()
-        prep["device"] = device
     if "host_matching" not in prep:
         prep["host_matching"] = ref_pool.matching
+    if mesh is not None:
+        from knnsvc_torch.parallel.sharded_match import shard_speaker_pool
+
+        key = "sharded_int8" if quantize_sharded else "sharded"
+        if prep.get(f"{key}_mesh") is not mesh:
+            prep[f"{key}_mesh"] = mesh
+            prep[key] = shard_speaker_pool(
+                prep["host_matching"], ref_pool.synth, ref_pool.f0,
+                ref_pool.harmonics if need_harmonics else None, mesh,
+                quantize_matching=quantize_sharded)
+        return prep
+    if prep.get("device") != device:
+        host = prep["host_matching"]
+        prep.clear()
+        prep.update(device=device, host_matching=host)
     if "synth" not in prep:
         prep["synth"] = torch.from_numpy(ref_pool.synth).to(device)
         prep["f0"] = torch.from_numpy(ref_pool.f0).to(device)
@@ -269,7 +313,8 @@ def match_utterance(query_seq, query_f0, matching_list: torch.Tensor | None,
                     synth_list: torch.Tensor, matching_f0: torch.Tensor,
                     harmonics_list: torch.Tensor | None, ckpt_type: str, post_opt: PostOpt,
                     topk: int = 4, prioritize_f0: bool = True, matcher: str = "exact",
-                    quantized: QuantizedPool | None = None, as_numpy: bool = True,
+                    quantized: QuantizedPool | None = None, sharded=None,
+                    as_numpy: bool = True,
                     query_f0_log_median: float | None = None) -> ConversionFeatures:
     """Convert one utterance against a prepared target pool on the pool's
     device. query_seq (T, D) and query_f0 (T,) are numpy or tensors.
@@ -278,15 +323,21 @@ def match_utterance(query_seq, query_f0, matching_list: torch.Tensor | None,
     or `match_core_post_opt`; 'int8' (pass `quantized`) the step path: the
     int8 kNN, the register shift, the unpitched lane's concat-cost
     reselection, then the pitched lane's (one kernel launch each on a card),
-    then the smoothness optimizer. as_numpy=False leaves the outputs on the
-    device. query_f0_log_median overrides the query's own log-median in the
-    register shift (None: the reference semantics)."""
+    then the smoothness optimizer; 'sharded' and 'sharded_int8' (pass
+    `sharded`, a ShardedPool; the dense pool arguments may be None) the
+    match over a pool sharded on a mesh's pool axis, on the mesh's first
+    device (parallel/sharded_match.py), the int8 one for no_post_opt only.
+    as_numpy=False leaves the outputs on the device. query_f0_log_median
+    overrides the query's own log-median in the register shift (None: the
+    reference semantics)."""
     if not prioritize_f0:
         raise ValueError("prioritize_f0 is mandatory on the reference live path (ref :1375)")
-    if matcher in ("sharded", "sharded_int8"):
-        raise multi_device_error(matcher)
+    if matcher in SHARDED_MATCHERS:
+        return _match_sharded(query_seq, query_f0, ckpt_type, post_opt, topk, sharded,
+                              matcher, as_numpy, query_f0_log_median)
     if matcher not in ("exact", "approx", "int8"):
-        raise ValueError(f"matcher must be 'exact', 'approx' or 'int8', not {matcher!r}")
+        raise ValueError(f"matcher must be 'exact', 'approx', 'int8', 'sharded' or "
+                         f"'sharded_int8', not {matcher!r}")
     device = synth_list.device
     q = torch.as_tensor(query_seq).to(device=device, dtype=torch.float32)
     qf0 = torch.as_tensor(query_f0).to(device=device, dtype=torch.float32)
@@ -325,9 +376,36 @@ def match_utterance(query_seq, query_f0, matching_list: torch.Tensor | None,
                                                      concat_weight=post_opt.concat_weight)
         out, harm = _smoothed(synth_list, harmonics_list, target_idx, pitched_idx,
                               post_opt.enabled)
+    return _features(out, shifted, harm, as_numpy)
+
+
+def _features(out, shifted, harm, as_numpy: bool) -> ConversionFeatures:
     if not as_numpy:
         return ConversionFeatures(out, shifted, harm)
     return ConversionFeatures(_to_numpy(out), _to_numpy(shifted), _to_numpy(harm))
+
+
+def _match_sharded(query_seq, query_f0, ckpt_type: str, post_opt: PostOpt, topk: int, sharded,
+                   matcher: str, as_numpy: bool, qmed: float | None) -> ConversionFeatures:
+    """match_utterance's sharded matchers: the fp32 core, or the int8 one
+    when the pool holds int8 matching rows (as the JAX package dispatches)."""
+    from knnsvc_torch.parallel.sharded_match import sharded_match_core, sharded_match_core_int8
+
+    if sharded is None:
+        raise ValueError(f"matcher={matcher!r} needs a ShardedPool (sharded=)")
+    use_harm = uses_harmonics(ckpt_type)
+    if sharded.matching_q8 is not None:
+        check_sharded_int8(post_opt)
+        out, shifted, harm = sharded_match_core_int8(
+            query_seq, query_f0, sharded.matching_q8, sharded.inv_norms, sharded.synth,
+            sharded.harmonics, sharded.f0, sharded.true_len, qmed, mesh=sharded.mesh,
+            topk=topk, use_harmonics=use_harm)
+    else:
+        out, shifted, harm = sharded_match_core(
+            query_seq, query_f0, sharded.matching, sharded.synth, sharded.harmonics, sharded.f0,
+            sharded.true_len, qmed, mesh=sharded.mesh, topk=topk, use_harmonics=use_harm,
+            concat_weight=post_opt.concat_weight, opt_enabled=post_opt.enabled)
+    return _features(out, shifted, harm, as_numpy)
 
 
 @torch.no_grad()
@@ -339,14 +417,17 @@ def match_at_inference_time(src_path: str | Path, ref_path: str | Path, wavlm,
                             post_opt: str = "no_post_opt", duration_limit: float | None = None,
                             query_pool: SpeakerPool | None = None,
                             ref_pool: SpeakerPool | None = None,
-                            matcher: str = "exact") -> dict[str, ConversionFeatures]:
+                            matcher: str = "exact",
+                            mesh: Mesh | None = None) -> dict[str, ConversionFeatures]:
     """Every source utterance against the target pool, on the encoder's
     device: {source utterance path: ConversionFeatures (numpy)}. Pools may
     be passed in to reuse them across pairs (the reference rebuilds them,
-    its cache force-disabled, ref :1086-1087)."""
-    if matcher in ("sharded", "sharded_int8"):
-        raise multi_device_error(matcher)
+    its cache force-disabled, ref :1086-1087). The sharded matchers shard
+    the target pool over `mesh`'s pool axis (default: every card, or the
+    CPU) and make no dense copy of it."""
     popt = PostOpt.parse(post_opt)
+    if matcher == "sharded_int8":
+        check_sharded_int8(popt)
     required = set(required_subset) if required_subset is not None else None
     with record_function("knnsvc.speaker_pool"):
         if query_pool is None:
@@ -357,24 +438,29 @@ def match_at_inference_time(src_path: str | Path, ref_path: str | Path, wavlm,
     # the fp32 matching pool goes to the device only when something reads it:
     # the int8 matcher's search does not, its concat cost does
     need_fp32 = matcher != "int8" or popt.concat_weight != -1.0
+    device = next(wavlm.parameters()).device
+    sharded = matcher in SHARDED_MATCHERS
     prep = _prepare_ref_pool(ref_pool, need_fp32, uses_harmonics(ckpt_type),
-                             matcher == "int8", next(wavlm.parameters()).device)
+                             matcher == "int8", device,
+                             mesh=pool_mesh_for(device, mesh) if sharded else None,
+                             quantize_sharded=matcher == "sharded_int8")
     results: dict[str, ConversionFeatures] = {}
     for item, pools in query_pool.utterances.items():
         if required is not None and subset_key(item, str(ref_path)) not in required:
             continue
         results[item] = match_utterance(
-            pools.matching, pools.f0, prep.get("matching"), prep["synth"], prep["f0"],
+            pools.matching, pools.f0, prep.get("matching"), prep.get("synth"), prep.get("f0"),
             prep.get("harmonics"), ckpt_type, popt, topk=topk, prioritize_f0=prioritize_f0,
-            matcher=matcher, quantized=prep.get("quantized"))
+            matcher=matcher, quantized=prep.get("quantized"),
+            sharded=prep.get(matcher) if sharded else None)
     return results
 
 
 @torch.no_grad()
-def match_utterances_batched(qs, qf0s, matching: torch.Tensor, synth: torch.Tensor,
-                             pool_f0: torch.Tensor, harmonics: torch.Tensor | None,
+def match_utterances_batched(qs, qf0s, matching: torch.Tensor | None, synth: torch.Tensor | None,
+                             pool_f0: torch.Tensor | None, harmonics: torch.Tensor | None,
                              ckpt_type: str, post_opt: PostOpt, topk: int = 4,
-                             matcher: str = "approx"):
+                             matcher: str = "approx", mesh: Mesh | None = None, sharded=None):
     """A batch of equal-length queries (B, Tb, D) with f0 (B, Tb) against one
     target pool -> (out (B, Tb, D), shifted f0 (B, Tb), harmonics (B, Tb,
     49) or None), on the pool's device. The kNN runs as one block over the
@@ -382,17 +468,61 @@ def match_utterances_batched(qs, qf0s, matching: torch.Tensor, synth: torch.Tens
     the register shift uses each utterance's own median, and the concat
     cost and smoothness, serial in frames, run per utterance — per
     utterance the result is `match_utterance`'s. The JAX package vmaps its
-    fused core instead and shards the batch over a mesh's 'data' axis;
-    that multi-device form is Queue 1 item 11."""
-    if matcher in ("sharded", "sharded_int8"):
-        raise multi_device_error(matcher)
-    if matcher not in ("exact", "approx"):
-        raise ValueError(f"the batched match takes matcher 'exact' or 'approx', not {matcher!r}")
-    device = synth.device
-    qs = torch.as_tensor(qs).to(device=device, dtype=torch.float32)
-    qf0s = torch.as_tensor(qf0s).to(device=device, dtype=torch.float32)
-    B, Tb, D = qs.shape
+    fused core instead.
+
+    mesh (dense matchers): the batch split over its data axis, B / n_data
+    utterances per grid row on the row's first device with the pool
+    replicated there; the outputs come back to the mesh's first device.
+    matcher 'sharded' / 'sharded_int8' (pass `sharded`, a ShardedPool on a
+    (data, pool) mesh): the batch over the data axis and the pool over the
+    pool axis (parallel/sharded_match.py's batched cores)."""
     use_harm = uses_harmonics(ckpt_type)
+    if matcher in SHARDED_MATCHERS:
+        from knnsvc_torch.parallel.sharded_match import (sharded_match_core_batch,
+                                                         sharded_match_core_int8_batch)
+
+        if sharded is None:
+            raise ValueError(f"matcher={matcher!r} needs a ShardedPool (sharded=)")
+        if sharded.matching_q8 is not None:
+            check_sharded_int8(post_opt)
+            return sharded_match_core_int8_batch(
+                qs, qf0s, sharded.matching_q8, sharded.inv_norms, sharded.synth,
+                sharded.harmonics, sharded.f0, sharded.true_len, mesh=sharded.mesh, topk=topk,
+                use_harmonics=use_harm)
+        return sharded_match_core_batch(
+            qs, qf0s, sharded.matching, sharded.synth, sharded.harmonics, sharded.f0,
+            sharded.true_len, mesh=sharded.mesh, topk=topk, use_harmonics=use_harm,
+            concat_weight=post_opt.concat_weight, opt_enabled=post_opt.enabled)
+    if matcher not in ("exact", "approx"):
+        raise ValueError(f"the batched match takes matcher 'exact', 'approx', 'sharded' or "
+                         f"'sharded_int8', not {matcher!r}")
+    qs, qf0s = torch.as_tensor(qs), torch.as_tensor(qf0s)
+    if mesh is None:
+        return _match_batch_dense(qs, qf0s, matching, synth, pool_f0, harmonics, use_harm,
+                                  post_opt, topk)
+    n_data = mesh.shape["data"]
+    if qs.shape[0] % n_data != 0:
+        raise ValueError(f"mesh 'data' axis ({n_data}) must divide the batch ({qs.shape[0]})")
+    per = qs.shape[0] // n_data
+    parts = []
+    for d in range(n_data):
+        dev = mesh.devices[d][0]
+        on = lambda t: None if t is None else t.to(dev)
+        parts.append(_match_batch_dense(qs[d * per:(d + 1) * per], qf0s[d * per:(d + 1) * per],
+                                        on(matching), on(synth), on(pool_f0), on(harmonics),
+                                        use_harm, post_opt, topk))
+    first = mesh.first
+    cat = lambda i: torch.cat([p[i].to(first) for p in parts])
+    return cat(0), cat(1), (cat(2) if use_harm else None)
+
+
+def _match_batch_dense(qs, qf0s, matching, synth, pool_f0, harmonics, use_harm: bool,
+                       post_opt: PostOpt, topk: int):
+    """match_utterances_batched's dense body on the pool's device."""
+    device = synth.device
+    qs = qs.to(device=device, dtype=torch.float32)
+    qf0s = qf0s.to(device=device, dtype=torch.float32)
+    B, Tb, D = qs.shape
     with record_function("knnsvc.knn"):
         nearest_all, _ = knn_topk(qs.reshape(B * Tb, D), matching, k=KNN_CANDIDATES)
     nearest_all = nearest_all.reshape(B, Tb, -1)

@@ -96,9 +96,22 @@ def optimize_smoothness_weights(indices: torch.Tensor, synth_set: torch.Tensor,
     variant, ref ddsp_prematch_dataset.py:1681). With return_steps, also the
     number of steps taken. Each call logs its step count at DEBUG level on
     this module's logger."""
-    surrounding = _gather_surrounding(indices, synth_set, amp_ratio)
+    return optimize_smoothness_from_surrounding(
+        _gather_surrounding(indices, synth_set, amp_ratio), scale=scale, max_steps=max_steps,
+        return_steps=return_steps)
+
+
+@torch.no_grad()
+def optimize_smoothness_from_surrounding(surrounding: torch.Tensor,
+                                         scale: float = WAVLM_LOSS_SCALE,
+                                         max_steps: int = _MAX_STEPS, return_steps: bool = False):
+    """The optimizer on gathered neighbourhoods: surrounding (T, k, 3D), the
+    pool rows at id offsets -1, 0, +1 of each selection (a sharded pool
+    gathers them across its shards, parallel/sharded_match.py; the JAX
+    package's optimize_smoothness_from_surrounding). -> weights (T, k)[,
+    steps]."""
     dev = surrounding.device
-    T, k = indices.shape
+    T, k = surrounding.shape[:2]
     w = torch.zeros((T, k), dtype=torch.float32, device=dev)
     m, v, vhat, best_w = (torch.zeros_like(w) for _ in range(4))
     min_loss = torch.tensor(20000.0, device=dev)

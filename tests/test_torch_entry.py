@@ -1,7 +1,7 @@
 """knnsvc_torch's entry points and guards on the CPU: the CLI driven end to
-end from `.knnsvc.pkl` files, no silent CPU fallback, the unported options
-(the multi-device matchers, orbax, mp3) raise, and no file of the port
-imports JAX or the JAX package."""
+end from `.knnsvc.pkl` files, no silent CPU fallback, the multi-device
+matchers give the dense matchers' waveforms, the unported options (orbax,
+mp3) raise, and no file of the port imports JAX or the JAX package."""
 
 import ast
 import json
@@ -35,20 +35,23 @@ def test_unported_options_raise(pair):
     knn = KnnSvc(wavlm_params, cfg, gen_params, h, "mix", device="cpu")
     knn.weighting = generate_matrix_from_index(2, size=cfg.encoder_layers + 1)
     out = str(root / "unported.wav")
-    # the host-pool path and bulk mode run; their multi-device matchers do not
-    for matcher in ("sharded", "sharded_int8"):
-        with pytest.raises(NotImplementedError, match="multi-device"):
-            knn.convert_pair(src, ref, fast=False, matcher=matcher, output_path=out)
-        with pytest.raises(NotImplementedError, match="multi-device"):
-            knn.bulk_convert(str(root), str(root), str(root / "bulk_out"), matcher=matcher)
+    # the multi-device matchers run on both pair paths: the sharded searches
+    # pick the dense ones' rows, so the waveforms are the same bits
+    pair = lambda fast, matcher, name: int16_codes(knn.convert_pair(
+        src, ref, fast=fast, matcher=matcher, output_path=str(root / name)))
+    for fast, dense in ((False, "exact"), (False, "int8"), (True, "exact")):
+        want = pair(fast, dense, f"{dense}_{fast}.wav")
+        got = pair(fast, "sharded" if dense == "exact" else "sharded_int8", "sharded.wav")
+        np.testing.assert_array_equal(got, want)
     with pytest.raises(NotImplementedError, match="mp3"):
         knn.convert_pair(src, ref, fast=True, output_path=str(root / "unported.mp3"))
     orbax = root / "orbax_only"
     (orbax / "orbax").mkdir(parents=True, exist_ok=True)
     with pytest.raises(NotImplementedError, match="orbax"):
         KnnSvc.load(str(orbax), "mix", device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        knn.convert_pair(src, ref, fast=True, matcher="sharded", output_path=out)
+    with pytest.raises(ValueError, match="no_post_opt"):
+        knn.convert_pair(src, ref, fast=True, matcher="sharded_int8", post_opt="post_opt_0.2",
+                         output_path=out)
 
 
 def test_cli_loads_knnsvc_pkl_and_converts_on_cpu(pair, tmp_path):

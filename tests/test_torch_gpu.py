@@ -20,7 +20,11 @@ D = 1024); its pre-pass values within 1e-5 relative of the
 plain norms and dots (sums of D fp32 terms in another order). Its carried
 (streaming) entry equals the plain carried cores in picks and in the
 weight after each frame, and chunks chained through it give the
-whole-utterance kernel's picks.
+whole-utterance kernel's picks. Its shard-table entries (a pool split into
+logical shards of the card) equal the plain version reading the same
+shards, and the dense entry with one shard; a shard on the CPU raises. The
+sharded match on the card equals the dense match on these inputs (one
+shard: the same GEMM; four: the shares of equal rows stay at 100% here).
 The f0 Viterbi kernel's states must equal its plain version's on every
 frame (both do the same fp32 operations in the same order, ties included).
 Device f0 on the card against the CPU: cuFFT and cuBLAS sum in other orders
@@ -36,8 +40,9 @@ from knnsvc_torch.match.concat_cost import (concat_cost_pair_stream_core,
                                             concat_cost_stream_core, knn_with_concat_cost,
                                             knn_with_concat_cost_pair, scan_inputs)
 from knnsvc_torch.ops.attention import gated_bias_attention, reference_attention
-from knnsvc_torch.ops.concat_scan import (concat_cost_pair, concat_cost_pair_stream,
-                                          concat_cost_prepass, concat_cost_single,
+from knnsvc_torch.ops.concat_scan import (concat_cost_pair, concat_cost_pair_sharded,
+                                          concat_cost_pair_stream, concat_cost_prepass,
+                                          concat_cost_single, concat_cost_single_sharded,
                                           concat_cost_single_stream)
 from knnsvc_torch.ops.viterbi import MAX_STATES, f0_viterbi, viterbi_plain
 from knnsvc_torch.precision import get_precision, set_precision
@@ -508,3 +513,59 @@ def test_prematch_on_the_card_launches_the_kernel(tmp_path):
         fd = pickle.load(fh)
     assert fd["nearest_nbrs"].dtype == np.int64 and fd["nearest_nbrs"].shape[1] == 32
     assert np.isfinite(fd["harmonics_best_weight_para"]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,k", [(1, 4), (2, 4), (3, 8), (4, 32)])
+def test_concat_sharded_entries_match_plain(S, k):
+    from knnsvc_torch.parallel import make_mesh
+    from knnsvc_torch.parallel.mesh import gather_rows, shard_rows
+
+    dev = _cuda()
+    T, P, D = 120, 301, 1024 if k <= 8 else 128     # 301: no multiple of 2, 3 or 4
+    idx_u, idx_p, src, tgt, sf0, tf0 = _concat_inputs(T, P, D, 17, dev, True, k)
+    shards = shard_rows(tgt, make_mesh(1, S, devices=[dev] * S))[0]
+    before = concat_cost_pair.launches
+    got = concat_cost_pair_sharded(idx_u, idx_p, src, shards, P, sf0, tf0, concat_weight=0.2)
+    got_s = concat_cost_single_sharded(idx_p, src, shards, P, sf0, tf0, concat_weight=0.3)
+    torch.cuda.synchronize()
+    assert concat_cost_pair.launches == before + 2
+    rows = lambda ids: gather_rows(shards, ids)
+    want = knn_with_concat_cost_pair(idx_u, idx_p, src, rows, sf0, tf0, concat_weight=0.2,
+                                     pool_len=P)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(got_s, knn_with_concat_cost(idx_p, src, rows, sf0, tf0,
+                                                   concat_weight=0.3, pool_len=P))
+    dense = concat_cost_pair(idx_u, idx_p, src, tgt, sf0, tf0, concat_weight=0.2)
+    assert all(torch.equal(a, b) for a, b in zip(got, dense))
+    with pytest.raises(ValueError, match="is on cpu"):
+        concat_cost_pair_sharded(idx_u, idx_p, src, [t.cpu() for t in shards], P, sf0, tf0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 4])
+def test_sharded_match_on_the_card_equals_dense(S):
+    from knnsvc_torch.match.pipeline import match_core_post_opt
+    from knnsvc_torch.parallel import make_mesh
+    from knnsvc_torch.parallel.sharded_match import shard_speaker_pool, sharded_match_core
+
+    dev = _cuda()
+    rng = np.random.default_rng(23)
+    T, P, D = 200, 1001, 1024
+    q, matching, synth = (torch.from_numpy(rng.standard_normal((n, D)).astype(np.float32))
+                          .to(dev) for n in (T, P, P))
+    pool_f0 = torch.from_numpy((150 + 300 * rng.random(P)).astype(np.float32)).to(dev)
+    qf0 = torch.from_numpy((100 + 200 * rng.random(T)).astype(np.float32)).to(dev)
+    harm = torch.from_numpy(rng.random((P, 49)).astype(np.float32)).to(dev)
+    mesh = make_mesh(1, S, devices=[dev] * S)
+    sp = shard_speaker_pool(matching, synth, pool_f0, harm, mesh)
+    before = concat_cost_pair.launches
+    got = sharded_match_core(q, qf0, sp.matching, sp.synth, sp.harmonics, sp.f0, sp.true_len,
+                             None, mesh=mesh, topk=4, use_harmonics=True, concat_weight=0.2,
+                             opt_enabled=False)
+    torch.cuda.synchronize()
+    assert concat_cost_pair.launches == before + 1
+    want = match_core_post_opt(q, matching, synth, pool_f0, harm, qf0, None, topk=4,
+                               use_harmonics=True, concat_weight=0.2, opt_enabled=False)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -198,7 +198,7 @@ def test_match_utterance_stream_rejects():
     q, qf0, matching, synth, pool_f0, harm = _window(20, 30, 16, 6)
     args = (q, qf0, _t(matching), _t(synth), _t(pool_f0), _t(harm), "mix",
             PostOpt.parse("post_opt_0.2"))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="match each window alone"):   # no carry to thread
         match_utterance_stream(*args, 2, None, matcher="sharded")
     with pytest.raises(ValueError, match="matcher"):
         match_utterance_stream(*args, 2, None, matcher="int8")

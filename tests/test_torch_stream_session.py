@@ -4,7 +4,8 @@ gives complete audio; a StreamSession fed uneven pieces and flushed gives
 the file stream's audio bit for bit (windowed and cached, with the
 concat-cost carry); the CLI's --stream_chunk_s writes stream_convert's
 file; and the checks (cached encoder without a one-hot weighting, the
-matchers, the multi-device ones still to port)."""
+matchers; the multi-device ones stream each window alone, as the dense
+matchers without a concat carry do)."""
 
 import numpy as np
 import pytest
@@ -85,11 +86,19 @@ def test_session_equals_file_stream(world, kw):
 
 def test_stream_checks(world):
     _, knn, (src, ref) = world
-    for matcher in ("sharded", "sharded_int8"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            list(knn.stream_convert_chunks(src, ref, matcher=matcher))
-        with pytest.raises(NotImplementedError, match="item 11"):
-            knn.stream_session(ref, matcher=matcher)
+    kw = dict(chunk_s=0.25, context_s=0.2)
+    want = list(knn.stream_convert_chunks(src, ref, matcher="exact", **kw))
+    # the sharded matcher streams the dense one's chunks bit for bit (the
+    # target pool on the default CPU pool mesh, no concat carry either way)
+    got = list(knn.stream_convert_chunks(src, ref, matcher="sharded", **kw))
+    assert len(got) == len(want) >= 3
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    sess = knn.stream_session(ref, matcher="sharded_int8", **kw)
+    out = np.concatenate([sess.push(load_utterance(src)), sess.flush()])
+    assert abs(len(out) - len(load_utterance(src))) <= 2 * 320 and np.isfinite(out).all()
+    with pytest.raises(ValueError, match="no_post_opt"):
+        knn.stream_session(ref, matcher="sharded_int8", post_opt="post_opt_0.2")
     with pytest.raises(ValueError, match="matcher"):
         list(knn.stream_convert_chunks(src, ref, matcher="int8"))
     with pytest.raises(ValueError, match="encoder"):
