@@ -115,7 +115,21 @@ Phases (any failure exits non-zero, before the result line):
      audio-s/s each; a windowed 30-s 'sharded'
      stream against the 'exact' one and a live 'sharded_int8'
      stream_session against its file stream;
-  9. the card's name and power limit (nvidia-smi).
+  9. [rest], the modules beside the served and trained paths: after phase
+     8, the eval harnesses over phase 5's bulk output (generate_pair_lists,
+     compute_speaker_similarity with mfcc_stats_embedder on the card and on
+     the CPU: EERs equal, embeddings within EMBED_ATOL; spectral_distance
+     and max_waveform_deviation between phase 3's card and CPU waveforms),
+     the harm head, sss_loss, stft_magnitude and harmonic_synth_zero_phase
+     on the card against the CPU, and a StageTimer with format_mfu_table
+     around one 30-s pair; after phase 7, data-parallel training at its
+     full-width config on a (2, 1) logical mesh of the card against the
+     one-device step over 3 steps: in float64 at rtol 1e-4 (metrics) and
+     1e-5 (parameters), in float32 the metrics at rtol 1e-4 and the
+     parameters' spread measured; 10 fp32 steps of each timed; then one
+     step under initialize_distributed on a world of 1 over NCCL (the
+     all-reduces on the card);
+ 10. the card's name and power limit (nvidia-smi).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it fails and prints no result.
@@ -232,6 +246,13 @@ TRAIN_WARM_STEPS = 20
 LOOP_BATCH = 2                          # 6 train utterances: 3 steps an epoch
 LOOP_STEPS = 10                         # steps 0..10
 LOOP_VALIDATION = 5                     # validations at steps 0, 5, 10
+DP_COMPARE_STEPS = 3                    # data-parallel vs one-device steps from one state
+DP_TIMED_STEPS = 10
+DP_METRIC_RTOL = 1e-4                   # tests/test_training.py:101-120's bounds
+DP_PARAM_ATOL = 1e-5
+DP_GRAD_RTOL = 1e-6                     # float64 gradients, summed in another order
+EMBED_ATOL = 1e-4                       # mfcc_stats embeddings, card vs CPU
+HARM_HIDDEN = 256                       # the harm head's hidden width
 
 
 def fail(msg: str) -> None:
@@ -746,6 +767,7 @@ def phase_slice_cpu_vs_cuda(root: str, dev):
 
     from knnsvc_torch import HOP_LENGTH
     from knnsvc_torch.hub import KnnSvc
+    from knnsvc_torch.io.audio import save_audio
     from knnsvc_torch.match.knn import knn_topk
     from knnsvc_torch.match.pool import load_utterance
 
@@ -778,6 +800,10 @@ def phase_slice_cpu_vs_cuda(root: str, dev):
 
     wa = cpu.convert_waveform(src, ref).numpy()
     wb = gpu.convert_waveform(src, ref).cpu().numpy()
+    # kept for the eval phase's regression metrics (PCM_32: the 6e-5 peaks
+    # of random weights keep ~17 bits)
+    save_audio(os.path.join(root, "slice_cpu.wav"), wa, 16000)
+    save_audio(os.path.join(root, "slice_card.wav"), wb, 16000)
     peak = float(np.abs(wa).max())
     rel = float(np.abs(wa - wb).max()) / max(peak, 1e-30)
     log(f"[slice] pre-quantize waveform {wa.shape}: max |cpu| {peak:.3e}, "
@@ -2156,6 +2182,7 @@ def phase_train(root: str, records, dev) -> None:
         finally:
             set_precision("highest")
     del state, batches
+    phase_dp_train(host_batches, dev)
 
     # (d) train() end to end, then resume, then serve the trained g_
     h_loop = dataclasses.replace(h, batch_size=LOOP_BATCH)
@@ -2209,6 +2236,367 @@ def phase_train(root: str, records, dev) -> None:
             and gated_bias_attention.launches == 2 * LAUNCHES_PER_PAIR):
         fail("the trained checkpoint does not serve")
     log(f"[train] training phase in {time.perf_counter() - t_phase:.1f} s")
+
+
+def _dp_run(h, batches, dev, mesh, double: bool):
+    """DP_COMPARE_STEPS train steps from init_train_state(h.seed) on `dev`
+    (mesh None) or `mesh`, the modules and batch in float64 when double.
+    -> (state, step, metrics per step, first-step gradients, parameters,
+    buffers), the arrays on the host in parameters() / buffers() order."""
+    import torch
+
+    from knnsvc_torch.config import ModelFamily
+    from knnsvc_torch.train.trainer import init_train_state, make_train_step
+
+    state = init_train_state(h.seed, h, ModelFamily.MIX, device=dev)
+    modules = (state.generator, state.mpd, state.msd)
+    if double:
+        batches = [{k: v.double() for k, v in b.items()} for b in batches]
+        for m in modules:
+            m.double()
+    step = make_train_step(h, ModelFamily.MIX, mesh=mesh)
+    host = lambda ts: [t.detach().double().cpu().numpy() for t in ts]  # noqa: E731
+    metrics = [{k: float(v) for k, v in step(state, batches[0]).items()}]
+    grads = host(p.grad for m in modules for p in m.parameters())
+    metrics += [{k: float(v) for k, v in step(state, batches[i % 2]).items()}
+                for i in range(1, DP_COMPARE_STEPS)]
+    return (state, step, metrics, grads, host(p for m in modules for p in m.parameters()),
+            host(b for m in modules for b in m.buffers()))
+
+
+def _dp_compare(one, dp):
+    """(metrics, gradients, parameters, buffers) of two runs -> (max
+    relative metric diff, max over tensors of the first-step gradient diff
+    over the tensor's largest |grad|, parameter |diff|s flattened, max
+    buffer |diff|)."""
+    import numpy as np
+
+    (one_m, one_g, one_p, one_b), (dp_m, dp_g, dp_p, dp_b) = one, dp
+    rel = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(dp_m, one_m) for k in a)
+    grad_rel = max(float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1e-30)
+                   for a, b in zip(dp_g, one_g))
+    diffs = np.concatenate([np.abs(a - b).ravel() for a, b in zip(dp_p, one_p)])
+    buf = max(float(np.abs(a - b).max()) for a, b in zip(dp_b, one_b))
+    return rel, grad_rel, diffs, buf
+
+
+def phase_dp_train(host_batches, dev) -> None:
+    """[rest] Data-parallel training at the full-width config of phase 7
+    (HiFiGANConfig(), batch 16 x 7040): DP_COMPARE_STEPS steps from one
+    seeded state of the one-device step and of the step on a (2, 1)
+    logical mesh of the card (two replicas, 8 utterances each):
+    (a) in float64, held to tests/test_training.py:101-120's bounds: the
+        metrics at DP_METRIC_RTOL, every parameter and spectral-norm buffer
+        at DP_PARAM_ATOL, and the first step's gradients at DP_GRAD_RTOL of
+        each tensor's largest;
+    (b) in float32 under "highest": the metrics at DP_METRIC_RTOL, and the
+        parameters within Adam's 2 lr a step, their share past
+        DP_PARAM_ATOL and the first-step gradients' difference printed. In
+        fp32 the step's own rounding moves the weight-norm gradients of the
+        residual convs by ~1e-2 of their largest entry (their values are
+        ~1e-6, differences of much larger terms; the one-device step is that
+        far from its float64 value too), and Adam's first steps move a
+        weight by ~lr * sign(grad), so another summation order parts some
+        weights by up to 2 lr a step: the float64 run is the check of the
+        data-parallel arithmetic;
+    then DP_TIMED_STEPS timed fp32 steps of each, and one step under
+    initialize_distributed on a world of 1 over NCCL at 127.0.0.1 (the
+    gradient and metric all-reduces on the card) against the plain step,
+    the group torn down after."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    from knnsvc_torch.config import HiFiGANConfig, ModelFamily
+    from knnsvc_torch.parallel.mesh import initialize_distributed
+    from knnsvc_torch.train.trainer import init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    h = HiFiGANConfig()
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()} for b in host_batches]
+    audio_s = h.batch_size * h.segment_size / h.sampling_rate
+    mesh = logical_mesh(dev, 2, 1)
+
+    t0 = time.perf_counter()
+    one = _dp_run(h, batches, dev, None, double=True)[2:]
+    dp = _dp_run(h, batches, dev, mesh, double=True)[2:]
+    rel, grad_rel, diffs, buf = _dp_compare(one, dp)
+    log(f"[rest] dp_train float64, (2, 1) mesh vs one device after {DP_COMPARE_STEPS} steps "
+        f"({time.perf_counter() - t0:.1f} s): max relative metric diff {rel:.3e} (tol "
+        f"{DP_METRIC_RTOL}); first-step gradients max |diff| / max |grad| per tensor "
+        f"{grad_rel:.3e} (tol {DP_GRAD_RTOL}); parameters max |diff| {diffs.max():.3e} over "
+        f"{diffs.size} (tol {DP_PARAM_ATOL}); spectral-norm buffers {buf:.3e}")
+    if not (rel <= DP_METRIC_RTOL and grad_rel <= DP_GRAD_RTOL and diffs.max() <= DP_PARAM_ATOL
+            and buf <= DP_PARAM_ATOL):
+        fail(f"the float64 data-parallel step differs from the one-device step: metrics {rel}, "
+             f"gradients {grad_rel}, parameters {diffs.max()}, buffers {buf}")
+    exact_grads = one[1]          # the one-device step's first gradients in float64
+    del one, dp, diffs
+
+    runs = {}
+    for name, m in (("one device", None), ("(2, 1) mesh", mesh)):
+        state, step, *rest = _dp_run(h, batches, dev, m, double=False)
+        torch.cuda.synchronize()
+        times = []
+        for i in range(DP_TIMED_STEPS):
+            t0 = time.perf_counter()
+            step(state, batches[i % 2])
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        runs[name] = (rest, times)
+        med = statistics.median(times)
+        log(f"[rest] dp_train {name}: {DP_TIMED_STEPS} steps at batch {h.batch_size} x "
+            f"{h.segment_size} after {DP_COMPARE_STEPS}: median {1e3 * med:.2f} ms, p90 "
+            f"{1e3 * float(np.percentile(times, 90)):.2f} ms, min {1e3 * min(times):.2f} ms = "
+            f"{audio_s / med:.2f} audio-s/s; metrics after step {DP_COMPARE_STEPS} "
+            f"{json.dumps(rest[0][-1])}")
+        del state, step
+    (one, one_times), (dp, dp_times) = runs.values()
+    one_m = one[0]
+    rel, grad_rel, diffs, buf = _dp_compare(one, dp)
+    # each fp32 run's first gradients against the float64 one-device step's
+    own_err = [max(float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1e-30)
+                   for a, b in zip(run[1], exact_grads)) for run in (one, dp)]
+    step_bound = 2 * h.learning_rate * DP_COMPARE_STEPS
+    far = diffs > DP_PARAM_ATOL
+    log(f"[rest] dp_train float32, (2, 1) mesh vs one device after {DP_COMPARE_STEPS} steps: max "
+        f"relative metric diff {rel:.3e} (tol {DP_METRIC_RTOL}); first-step gradients max |diff| "
+        f"/ max |grad| per tensor {grad_rel:.3e}, against the float64 step's: one device "
+        f"{own_err[0]:.3e}, mesh {own_err[1]:.3e}; parameters max |diff| {diffs.max():.3e} over "
+        f"{diffs.size} (bound 2 lr x steps = {step_bound:.1e}), {int(far.sum())} "
+        f"({far.mean():.4%}) past {DP_PARAM_ATOL}; spectral-norm buffers {buf:.3e}; step median "
+        f"{1e3 * statistics.median(dp_times):.2f} ms against "
+        f"{1e3 * statistics.median(one_times):.2f} ms on one device")
+    if not (rel <= DP_METRIC_RTOL and diffs.max() <= step_bound * 1.001):
+        fail(f"the float32 data-parallel step differs from the one-device step: metrics {rel}, "
+             f"parameters {diffs.max()}")
+    del runs, one, dp, diffs, exact_grads
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    initialize_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        init_s = time.perf_counter() - t0
+        backend = torch.distributed.get_backend()
+        state = init_train_state(h.seed, h, ModelFamily.MIX, device=dev)
+        step = make_train_step(h, ModelFamily.MIX)
+        t0 = time.perf_counter()
+        m = {k: float(v) for k, v in step(state, batches[0]).items()}
+        torch.cuda.synchronize()
+        nccl_s = time.perf_counter() - t0
+        del state, step
+    finally:
+        torch.distributed.destroy_process_group()
+    rel = max(abs(m[k] - one_m[0][k]) / abs(one_m[0][k]) for k in m)
+    log(f"[rest] dp_train initialize_distributed(127.0.0.1, world 1): backend {backend}, up in "
+        f"{init_s:.2f} s; one step with the all-reduces in {1e3 * nccl_s:.2f} ms (first step "
+        f"of its state); metrics {json.dumps(m)}, max relative diff to the plain first step "
+        f"{rel:.3e}; group torn down: {not torch.distributed.is_initialized()}")
+    if not (backend == "nccl" and rel <= DP_METRIC_RTOL
+            and not torch.distributed.is_initialized()):
+        fail(f"the NCCL world-1 step: backend {backend}, metrics {rel}")
+    log(f"[rest] dp_train phase in {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_rest(root: str, knn, dev, bulk) -> None:
+    """[rest] The modules the JAX package has beside the served and trained
+    paths, on the card: the eval harnesses over phase 5's bulk output, the
+    training-side modules against the CPU, and the StageTimer / MFU table
+    around a 30-s pair."""
+    t_phase = time.perf_counter()
+    phase_eval(root, dev, bulk[0])
+    phase_side_modules(dev)
+    phase_stage_timer(root, knn, dev)
+    log(f"[rest] serving-side phase in {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_eval(root: str, dev, data: str) -> None:
+    """generate_pair_lists over phase 5's bulk dataset and its fast-loop
+    output tree, compute_speaker_similarity with mfcc_stats_embedder on the
+    card and on the CPU (EERs equal, every embedding within EMBED_ATOL),
+    and spectral_distance / max_waveform_deviation between the card's and
+    the CPU's waveforms of phase 3's pair."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from knnsvc_torch.eval.pairs import generate_pair_lists
+    from knnsvc_torch.eval.regression import max_waveform_deviation, spectral_distance
+    from knnsvc_torch.eval.speaker_sim import _load_16k, compute_speaker_similarity
+    from knnsvc_torch.eval.speaker_sim import mfcc_stats_embedder
+
+    from pathlib import Path
+
+    out_tree = os.path.join(root, "bulk_fast_1")
+    flat = os.path.join(root, "eval", "converted")
+    for src_spk in sorted(os.listdir(out_tree)):
+        for utt in sorted(os.listdir(os.path.join(out_tree, src_spk))):
+            os.makedirs(os.path.join(flat, utt))
+            for f in os.listdir(os.path.join(out_tree, src_spk, utt)):
+                os.symlink(os.path.join(out_tree, src_spk, utt, f), os.path.join(flat, utt, f))
+    t0 = time.perf_counter()
+    sim_csv, intelli = generate_pair_lists(data, data, os.path.join(root, "eval", "splits"))
+    pairs_s = time.perf_counter() - t0
+    with open(sim_csv) as fh:
+        n_rows = len(fh.read().splitlines()) - 1
+    results = []
+    for label, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        res_dir = os.path.join(root, "eval", label)
+        os.makedirs(res_dir)
+        t0 = time.perf_counter()
+        sim = compute_speaker_similarity(sim_csv, flat, data,
+                                         functools.partial(mfcc_stats_embedder, device=device),
+                                         result_dir=res_dir)
+        results.append((sim, time.perf_counter() - t0))
+    (card, card_s), (cpu, cpu_s) = results
+    wavs = sorted(str(p) for p in Path(data).rglob("*.wav")) + sorted(
+        str(p) for p in Path(flat).rglob("*.wav"))
+    emb = max(float(np.abs(mfcc_stats_embedder(x, device=dev)
+                           - mfcc_stats_embedder(x, device="cpu")).max())
+              for x in (_load_16k(Path(w).with_suffix("")) for w in wavs))
+    eers_equal = bool(np.array_equal(card.to_numpy(), cpu.to_numpy(), equal_nan=True))
+    log(f"[rest] eval: generate_pair_lists over the bulk dataset in {1e3 * pairs_s:.2f} ms "
+        f"({n_rows} rows); compute_speaker_similarity (mfcc_stats_embedder) card "
+        f"{card_s:.3f} s, CPU {cpu_s:.3f} s; EER mean/std card "
+        f"{card.to_numpy().ravel().tolist()}, CPU {cpu.to_numpy().ravel().tolist()}, equal "
+        f"{eers_equal}; embeddings of {len(wavs)} files card vs CPU max |diff| {emb:.3e} (tol "
+        f"{EMBED_ATOL})")
+    if not (eers_equal and emb <= EMBED_ATOL and n_rows > 0):
+        fail(f"speaker similarity card vs CPU: EERs equal {eers_equal}, embeddings {emb}")
+    a, b = os.path.join(root, "slice_card.wav"), os.path.join(root, "slice_cpu.wav")
+    t0 = time.perf_counter()
+    dev_dist = spectral_distance(a, b, device=dev)
+    dist_s = time.perf_counter() - t0
+    cpu_dist = spectral_distance(a, b, device="cpu")
+    t0 = time.perf_counter()
+    dev_max = max_waveform_deviation(a, b)
+    max_s = time.perf_counter() - t0
+    log(f"[rest] eval: phase 3's {SLICE_SECONDS:.0f}-s pair, card vs CPU output: spectral_distance "
+        f"{dev_dist:.6e} on the card ({1e3 * dist_s:.2f} ms), {cpu_dist:.6e} on the CPU; "
+        f"max_waveform_deviation {dev_max:.3e} ({1e3 * max_s:.2f} ms)")
+    if not (np.isfinite(dev_dist) and abs(dev_dist - cpu_dist) <= 1e-4
+            and dev_max <= WAV_REL_TOL):
+        fail(f"regression metrics: spectral {dev_dist} / {cpu_dist}, max {dev_max}")
+
+
+def phase_side_modules(dev) -> None:
+    """The harm head, sss_loss, stft_magnitude and harmonic_synth_zero_phase
+    on the card against the CPU at full size (a 30-s f0 track, 49
+    harmonics, a training batch of 16 x 7040), each timed on the card."""
+    import numpy as np
+    import torch
+
+    from knnsvc_torch.dsp.stft import stft_magnitude
+    from knnsvc_torch.dsp.synth import harmonic_synth_zero_phase
+    from knnsvc_torch.io.jax_params import generator_harm_from_numpy
+    from knnsvc_torch.models.hifigan.harm_head import init_generator_harm_params
+    from knnsvc_torch.train.spectral_losses import sss_loss
+
+    rng = np.random.default_rng(12)
+    f0 = sung_wav(FULL_SECONDS, VOICES[0][1], VOICES[0][2])[1][None].astype(np.float32)
+    T = f0.shape[1]
+    params = init_generator_harm_params(torch.Generator().manual_seed(0), HARM_HIDDEN, 49)
+    params["net"]["proj"]["w"] = (rng.standard_normal(params["net"]["proj"]["w"].shape)
+                                  * 0.02).astype(np.float32)
+    heads = {d.type: generator_harm_from_numpy(params, d) for d in (torch.device("cpu"), dev)}
+    harm = rng.standard_normal((1, HARM_HIDDEN, T)).astype(np.float32)
+    amp = (rng.random((1, T, 49)) * 0.05).astype(np.float32)
+    audio = (rng.standard_normal((2, 16, 7040)) * 0.1).astype(np.float32)
+    wav = sung_wav(FULL_SECONDS, VOICES[1][1], VOICES[1][2])[0][None].astype(np.float32)
+    cases = [
+        ("harm_head", lambda d, x: heads[d.type](x[0][..., None], x[1]), (f0, harm), 2e-4),
+        ("sss_loss n_fft=1024", lambda d, x: sss_loss(x[0][0], x[0][1], n_fft=1024), (audio,),
+         1e-5),
+        ("stft_magnitude 1024/256", lambda d, x: stft_magnitude(x[0], 1024, 256), (wav,), 1e-5),
+        ("harmonic_synth_zero_phase", lambda d, x: harmonic_synth_zero_phase(x[0], x[1]),
+         (f0, amp), 2e-4),
+    ]
+    with torch.no_grad():
+        for name, fn, inputs, tol in cases:
+            cpu_in = [torch.from_numpy(a) for a in inputs]
+            dev_in = [a.to(dev) for a in cpu_in]
+            want = fn(torch.device("cpu"), cpu_in)
+            got = fn(dev, dev_in).cpu()
+            scale = max(float(want.abs().max()), 1e-30)
+            err = float((got - want).abs().max())
+            bound = tol if name.startswith("harm") else tol * scale
+            card_ms = cuda_ms(lambda: fn(dev, dev_in), iters=5, warmup=1)
+            log(f"[rest] {name} {tuple(want.shape)} card vs CPU: max |diff| {err:.3e} (bound "
+                f"{bound:.3e}; max |cpu| {scale:.3e}); card {card_ms:.4f} ms")
+            if not (torch.isfinite(got).all() and err <= bound):
+                fail(f"{name} differs card vs CPU: {err} > {bound}")
+
+
+def phase_stage_timer(root: str, knn, dev) -> None:
+    """StageTimer around one 30-s pair (the two layer-6 encodes, the
+    vocoder on the source's frames, then the whole convert_pair), its
+    report and JSON, and format_mfu_table: the encoder's and the
+    vocoder's FLOPs (utils/flops.py) over their times against the card's
+    fp32 peak (no tensor cores under "highest")."""
+    import numpy as np
+    import torch
+
+    from knnsvc_torch import HOP_LENGTH
+    from knnsvc_torch.match.pool import load_utterance
+    from knnsvc_torch.ops.attention import gated_bias_attention
+    from knnsvc_torch.utils.flops import (conv_frontend_flops, format_mfu_table, hifigan_flops,
+                                          wavlm_encoder_flops)
+    from knnsvc_torch.utils.profiling import StageTimer
+
+    pair_dir = os.path.join(root, "stage_timer")
+    os.makedirs(pair_dir)
+    src, ref = write_pair(pair_dir, FULL_SECONDS, sidecars=True)
+    wavs = []
+    for path in (src, ref):
+        wav = load_utterance(path)
+        wavs.append(torch.from_numpy(np.pad(wav, (0, HOP_LENGTH - len(wav) % HOP_LENGTH))[None])
+                    .to(dev))
+    out = os.path.join(pair_dir, "out.wav")
+    knn.convert_pair(src, ref, fast=True, output_path=out)      # warm
+    rng = np.random.default_rng(13)
+    timer = StageTimer()
+    gated_bias_attention.launches = 0
+    with torch.no_grad():
+        feats = []
+        for wav in wavs:
+            with timer.stage("wavlm"):
+                feats.append(timer.observe(knn.wavlm.extract_layer(wav, 6)))
+        T = feats[0].shape[1]
+        f0 = torch.from_numpy(sung_wav(FULL_SECONDS, VOICES[0][1], VOICES[0][2])[1][:T]
+                              .astype(np.float32)).to(dev)[None, :, None]
+        harm = torch.from_numpy((rng.random((1, T, 49)) * 0.05).astype(np.float32)).to(dev)
+        for _ in range(2):
+            with timer.stage("vocoder"):
+                timer.observe(knn.vocoder(feats[0], f0, harm))
+        with timer.stage("convert_pair"):
+            knn.convert_pair(src, ref, fast=True, output_path=out)
+    launches = gated_bias_attention.launches
+    cfg, h = knn.wavlm_cfg, knn.h
+    enc = sum(conv_frontend_flops(cfg.conv_feature_layers, w.shape[1])[0]
+              + wavlm_encoder_flops(cfg.encoder_embed_dim, cfg.encoder_ffn_embed_dim, 6,
+                                    conv_frontend_flops(cfg.conv_feature_layers, w.shape[1])[1],
+                                    cfg.conv_pos, cfg.conv_pos_groups) for w in wavs)
+    voc = 2 * hifigan_flops(h, T, "mix")
+    table = format_mfu_table([("wavlm (2 pools)", enc, timer.totals["wavlm"]),
+                              ("vocoder (x2)", voc, timer.totals["vocoder"])],
+                             PEAK_FP32_FLOPS / 1e12)
+    log(f"[rest] StageTimer around a {FULL_SECONDS:.0f}-s pair (attention launches {launches}, "
+        f"want {4 * 6}):\n{timer.report()}\n[rest] StageTimer JSON {timer.as_json()}")
+    log(f"[rest] MFU against the {PEAK_FP32_FLOPS / 1e12:.0f}-TFLOPS fp32 peak (H100 SXM data "
+        f"sheet; card {card_label()}):\n{table}")
+    if not (launches == 4 * 6 and timer.counts["wavlm"] == 2 and timer.counts["vocoder"] == 2):
+        fail(f"StageTimer pair: {launches} attention launches, counts {dict(timer.counts)}")
+
+
+def card_label() -> str:
+    """nvidia-smi's name and power limit of the card."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
 
 
 def phase_train_profile(state, h, batches, label: str, compute_dtype, top: bool) -> None:
@@ -2385,6 +2773,7 @@ def main() -> int:
         bulk = phase_bulk(root, knn, records, dev)
         phase_stream(root, knn, records, dev)
         phase_sharded(root, knn, records, dev, bulk)
+        phase_rest(root, knn, dev, bulk)
         del knn
         phase_train(root, records, dev)
     finally:

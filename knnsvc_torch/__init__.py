@@ -20,14 +20,21 @@ ops/concat_scan.py and ops/viterbi.py).
              reselection and smoothness optimizer (post_opt), pools,
              serving core
   parallel/  device meshes (a grid of torch.devices, logical shards allowed),
-             kNN and the whole match over a pool sharded on the mesh
+             kNN and the whole match over a pool sharded on the mesh, the
+             batch shardings and multi-process bring-up of training
   train/     vocoder fine-tuning: prematch, the training dataset, the GAN
-             train step (MPD/MSD, AdamW), the loop with its checkpoints
+             train step (MPD/MSD, AdamW; on one device, a data mesh, or
+             processes joined by torch.distributed), the loop with its
+             checkpoints; the spectral losses and the legacy DDSP dataset
+  eval/      WER/CER, EER, pair lists, speaker similarity, intelligibility,
+             golden-file regression, the demo site
+  utils/     layer weightings, plots, FLOP counts (MFU), profiling
   cli/       ddsp_inference-compatible CLI (pair and folder mode, --fast,
              --stream_chunk_s), the prematch and train CLIs
 
-Entry points (KnnSvc, KnnSvc.random_init, train, per_spk_extract, the CLIs)
-run on device="cuda" unless the caller passes device="cpu".
+Entry points (KnnSvc, KnnSvc.random_init, train, per_spk_extract,
+initialize_distributed, the eval harnesses, the CLIs) run on device="cuda"
+unless the caller passes device="cpu".
 """
 
 __version__ = "0.1.0"

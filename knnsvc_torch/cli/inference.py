@@ -74,9 +74,10 @@ def build_parser() -> argparse.ArgumentParser:
                              "target pool sharded over every visible card), sharded_int8 (int8 "
                              "matching rows AND sharded: P/(4n) bytes per card; no_post_opt)")
     parser.add_argument("--precision", type=str, default="highest",
-                        choices=["highest", "fastest"],
-                        help="highest = fp32 with TF32 off in cuBLAS and cuDNN; "
-                             "fastest = TF32 allowed")
+                        choices=["highest", "high", "fastest"],
+                        help="highest = fp32 with TF32 off in cuBLAS and cuDNN; high = TF32 "
+                             "allowed, the attention kernel kept at 3xTF32; fastest = TF32 "
+                             "allowed")
     parser.add_argument("--tgt_loudness_db", type=float, default=-16)
     parser.add_argument("--apply_loudness", type=str2bool, default=False,
                         help="normalize the output to --tgt_loudness_db (the reference keeps "

@@ -1,6 +1,8 @@
 """Spectrograms (counterpart of knnsvc_tpu/dsp/stft.py).
 
-Two consumers:
+`stft_magnitude` is |STFT| with torch.stft's conventions (reflect padding
+when centred, a window shorter than n_fft centred in it), for the spectral
+losses of train/spectral_losses.py. Two consumers in the pipeline:
 - the linear spectrogram of the harmonic-amplitude pool:
   torchaudio.transforms.Spectrogram(n_fft=400, hop_length=320, center=True,
   power=1) — ref ddsp_prematch_dataset.py:326,361-366: periodic Hann window,
@@ -19,6 +21,34 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def hann_window(win_length: int, dtype: torch.dtype = torch.float32,
+                device: str | torch.device = "cuda") -> torch.Tensor:
+    """Periodic Hann window of win_length samples on `device` (a CUDA
+    request without a card raises)."""
+    from knnsvc_torch.hub import resolve_device
+
+    return torch.hann_window(win_length, periodic=True, dtype=dtype,
+                             device=resolve_device(device))
+
+
+def stft_magnitude(x: torch.Tensor, n_fft: int, hop_length: int, win_length: int | None = None,
+                   center: bool = True, power: float = 1.0,
+                   pad_mode: str = "reflect") -> torch.Tensor:
+    """|STFT| of x (..., T) -> (..., n_freqs, n_frames): a periodic Hann
+    window of win_length (default n_fft) centred in n_fft, input padded by
+    n_fft // 2 on both sides with pad_mode when center, magnitude raised to
+    `power`. Runs on x's device."""
+    win_length = n_fft if win_length is None else win_length
+    window = torch.hann_window(win_length, periodic=True, dtype=x.dtype, device=x.device)
+    lead = x.shape[:-1]
+    spec = torch.stft(x.reshape(-1, x.shape[-1]), n_fft=n_fft, hop_length=hop_length,
+                      win_length=win_length, window=window, center=center, pad_mode=pad_mode,
+                      return_complex=True).abs()
+    if power != 1.0:
+        spec = spec ** power
+    return spec.reshape(*lead, *spec.shape[-2:])
 
 
 def linear_spectrogram(x: torch.Tensor, n_fft: int = 400, hop_length: int = 320) -> torch.Tensor:

@@ -116,3 +116,22 @@ def sine_excitation(f0: torch.Tensor, sample_rate: int = 16000,
     f0_up = upsample_nearest(f0, hop_size)
     phase = wrapped_phase_cumsum(_phase_step(f0_up, sample_rate), dim=1)
     return torch.sin(2.0 * math.pi * phase).transpose(1, 2)
+
+
+def harmonic_synth_zero_phase(f0: torch.Tensor, amp: torch.Tensor, sample_rate: int = 16000,
+                              hop_size: int = 320, dsp_type: str = "sin") -> torch.Tensor:
+    """== ref get_bulk_dsp (ddsp_prematch_dataset.py:212-267): additive
+    synthesis from an explicit initial phase (0 for sin, a quarter cycle
+    for cos), amplitudes upsampled nearest and zeroed where f0 == 0.
+    f0 (B, T), amp (B, T, N) -> (B, T*hop)."""
+    if dsp_type not in ("sin", "cos"):
+        raise NotImplementedError(dsp_type)
+    amp = torch.where(f0[..., None] == 0, torch.zeros((), dtype=amp.dtype, device=amp.device), amp)
+    f0_up = upsample_nearest(f0[..., None], hop_size)[..., 0]   # (B, Tw)
+    amp_up = upsample_nearest(amp, hop_size)                     # (B, Tw, N)
+    step = _phase_step(f0_up, sample_rate)
+    initial = torch.full_like(step[:, :1], 0.0 if dsp_type == "sin" else 0.25)
+    phase = 2.0 * math.pi * wrapped_phase_cumsum(torch.cat([initial, step], dim=1)[:, :-1], dim=1)
+    k = torch.arange(1, amp.shape[-1] + 1, dtype=phase.dtype, device=phase.device)
+    amp_masked = remove_above_nyquist(amp_up, f0_up[..., None], sample_rate)
+    return torch.sum(torch.sin(phase[..., None] * k) * amp_masked, dim=-1)

@@ -3,8 +3,9 @@ knnsvc_tpu/io/checkpoints.py's converters).
 
 Converts the reference's released checkpoints (WavLM-Large.pt with {'cfg',
 'model'}, HiFi-GAN g_*.pt with {'generator'}; ref ddsp_hubconf.py:113-121,
-hifigan/utils.py:41-46) into the numpy pytrees that io/jax_params.py turns
-into the port's modules, key for key the JAX package's layout.
+hifigan/utils.py:41-46) and its discriminators' state dicts into the numpy
+pytrees that io/jax_params.py turns into the port's modules, key for key
+the JAX package's layout.
 
 Weight norm (g·v/||v||) is folded into plain weights at conversion time,
 so inference never pays for the re-normalization. `torch.load` unpickles:
@@ -210,6 +211,48 @@ def load_hifigan_checkpoint(path: str, h: HiFiGANConfig, family: ModelFamily,
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     sd = ckpt["generator"] if "generator" in ckpt else ckpt
     return convert_hifigan_state_dict(sd, h, family, fold)
+
+
+def _conv_sn(sd: Mapping[str, Any], prefix: str) -> Params:
+    """Spectral-normed torch conv -> {'v_sn', 'u', 'v_pow', 'b'}."""
+    p: Params = {
+        "v_sn": _np(sd[prefix + ".weight_orig"]),
+        "u": _np(sd[prefix + ".weight_u"]),
+        "v_pow": _np(sd[prefix + ".weight_v"]),
+    }
+    if prefix + ".bias" in sd:
+        p["b"] = _np(sd[prefix + ".bias"])
+    return p
+
+
+def convert_mpd_state_dict(sd: Mapping[str, Any], fold: bool = False) -> Params:
+    """MultiPeriodDiscriminator (ref ddsp_models.py:532-541): 5 period discs
+    of 5 weight-normed Conv2d + conv_post. fold=False keeps the weight norms
+    live ({'g', 'v'}), the training form that
+    io/jax_params.discriminators_from_numpy builds."""
+    discs = []
+    for i in range(5):
+        discs.append({
+            "convs": [_conv(sd, f"discriminators.{i}.convs.{j}", fold) for j in range(5)],
+            "conv_post": _conv(sd, f"discriminators.{i}.conv_post", fold),
+        })
+    return {"discriminators": discs}
+
+
+def convert_msd_state_dict(sd: Mapping[str, Any], fold: bool = False) -> Params:
+    """MultiScaleDiscriminator (ref ddsp_models.py:587-598): disc 0 is
+    spectral-normed (its weight_orig, weight_u and weight_v become
+    {'v_sn', 'u', 'v_pow'}), discs 1-2 weight-normed."""
+    discs = []
+    for i in range(3):
+        cv = []
+        for j in range(7):
+            prefix = f"discriminators.{i}.convs.{j}"
+            cv.append(_conv_sn(sd, prefix) if i == 0 else _conv(sd, prefix, fold))
+        post_prefix = f"discriminators.{i}.conv_post"
+        post = _conv_sn(sd, post_prefix) if i == 0 else _conv(sd, post_prefix, fold)
+        discs.append({"convs": cv, "conv_post": post})
+    return {"discriminators": discs}
 
 
 # ------------------------------------------------------------------ pytree io

@@ -209,6 +209,19 @@ def discriminators_from_numpy(mpd_params: dict[str, Any], msd_params: dict[str, 
     return mpd, msd
 
 
+def generator_harm_from_numpy(params: dict[str, Any],
+                              device: str | torch.device = "cpu") -> nn.Module:
+    """The JAX package's harm-head pytree (init_generator_harm_params) ->
+    models.hifigan.harm_head.GeneratorHarm on `device`; hidden width,
+    harmonic count, depth and kernel size are read from the tree."""
+    from knnsvc_torch.models.hifigan.harm_head import GeneratorHarm
+
+    convs = params["net"]["convs"]
+    hidden, _, kernel_size = np.asarray(convs[0]["w"]).shape
+    n_harmonic = np.asarray(params["postnet"]["w"]).shape[0] - 1
+    return _build(GeneratorHarm, (hidden, n_harmonic, len(convs), kernel_size), params, device)
+
+
 def _adam_state(optimizer: torch.optim.Optimizer, modules: dict[str, nn.Module],
                 mu: dict[str, Any], nu: dict[str, Any], count: int) -> None:
     """Set `optimizer`'s AdamW moments from optax Adam trees keyed like

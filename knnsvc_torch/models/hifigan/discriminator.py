@@ -191,6 +191,23 @@ class MultiScaleDiscriminator(nn.Module):
         return y_d_rs, y_d_gs, fmap_rs, fmap_gs
 
 
+def mpd_apply(mpd: MultiPeriodDiscriminator, y: torch.Tensor, y_hat: torch.Tensor):
+    """The JAX package's functional form of calling the MPD:
+    -> (y_d_rs, y_d_gs, fmap_rs, fmap_gs)."""
+    return mpd(y, y_hat)
+
+
+def msd_apply(msd: MultiScaleDiscriminator, y: torch.Tensor, y_hat: torch.Tensor,
+              update_sn: bool = False):
+    """The MSD's outputs after one spectral-norm power-iteration step when
+    update_sn (the JAX package's D pass): -> (y_d_rs, y_d_gs, fmap_rs,
+    fmap_gs, msd). The module holds the updated u / v_pow buffers, so it
+    stands where the JAX function returns its updated parameters."""
+    if update_sn:
+        power_iterate(msd)
+    return (*msd(y, y_hat), msd)
+
+
 # ------------------------------------------------------------------ init
 
 

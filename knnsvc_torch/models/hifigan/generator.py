@@ -147,6 +147,43 @@ class Synthesizer(nn.Module):
         return self.dec(feats, self.sin_prenet(exc.to(self.sin_prenet.weight.dtype)))[:, 0, :]
 
 
+def generator_apply(generator: Generator, feats: torch.Tensor,
+                    ddsp: torch.Tensor | None) -> torch.Tensor:
+    """The JAX package's functional form of calling a Generator: feats
+    (B, T, hubert_dim), ddsp (B, C_exc, T*hop) or None (ORIGINAL) ->
+    (B, 1, T*hop)."""
+    return generator(feats, ddsp)
+
+
+def _synthesize(synth: Synthesizer, family: ModelFamily, *args) -> torch.Tensor:
+    if synth.family != family:
+        raise ValueError(f"a {synth.family.value} Synthesizer is not a {family.value} one")
+    return synth(*args)[:, None, :]
+
+
+def synthesizer_mix_apply(synth: Synthesizer, feats: torch.Tensor, f0: torch.Tensor,
+                          harmonics: torch.Tensor) -> torch.Tensor:
+    """ckpt_type "mix": additive harmonic excitation -> (B, 1, T*hop)."""
+    return _synthesize(synth, ModelFamily.MIX, feats, f0, harmonics)
+
+
+def synthesizer_f0_apply(synth: Synthesizer, feats: torch.Tensor,
+                         f0: torch.Tensor) -> torch.Tensor:
+    """ckpt_type "wavlm_only": sine-at-f0 excitation -> (B, 1, T*hop)."""
+    return _synthesize(synth, ModelFamily.F0_ONLY, feats, f0)
+
+
+def synthesizer_original_apply(synth: Synthesizer, feats: torch.Tensor) -> torch.Tensor:
+    """ckpt_type "wavlm_only_original": plain HiFi-GAN -> (B, 1, T*hop)."""
+    return _synthesize(synth, ModelFamily.ORIGINAL, feats)
+
+
+def vocode(synth: Synthesizer, feats: torch.Tensor, f0: torch.Tensor | None = None,
+           harmonics: torch.Tensor | None = None) -> torch.Tensor:
+    """Unified vocode dispatch (ref ddsp_matcher.py:374-406) -> (B, T*hop)."""
+    return synth(feats, f0, harmonics)
+
+
 def init_generator_params(h: HiFiGANConfig, family: ModelFamily,
                           generator: torch.Generator,
                           weight_norm_parametrized: bool = False) -> Params:

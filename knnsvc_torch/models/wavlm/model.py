@@ -322,6 +322,31 @@ class WavLM(nn.Module):
         return torch.stack(outs)
 
 
+def wavlm_extract_layer(model: WavLM, wav: torch.Tensor, output_layer: int) -> torch.Tensor:
+    """The JAX package's functional form of `model.extract_layer`: features
+    at encoder layer `output_layer` (1-based). (B, T_samples) -> (B, T, C)."""
+    return model.extract_layer(wav, output_layer)
+
+
+def wavlm_extract_layer_bucketed(model: WavLM, wav: torch.Tensor,
+                                 output_layer: int) -> torch.Tensor:
+    """`model.extract_layer_bucketed` in the JAX package's functional form."""
+    return model.extract_layer_bucketed(wav, output_layer)
+
+
+def wavlm_extract_all_layers(model: WavLM, wav: torch.Tensor) -> torch.Tensor:
+    """`model.extract_all_layers`: (n_layers + 1, B, T, C)."""
+    return model.extract_all_layers(wav)
+
+
+def wavlm_encode(model: WavLM, wav: torch.Tensor,
+                 output_layer: int | None = None) -> torch.Tensor:
+    """Every layer's output when output_layer is None, else that layer's."""
+    if output_layer is None:
+        return model.extract_all_layers(wav)
+    return model.extract_layer(wav, output_layer)
+
+
 def init_wavlm_params(cfg: WavLMConfig, generator: torch.Generator) -> Params:
     """Random weights in the JAX package's pytree layout (numpy; the layers
     stacked on a leading axis), drawn from the same distributions as its

@@ -41,8 +41,6 @@ import functools
 
 import torch
 
-from knnsvc_torch.match.concat_cost import (carried_inputs, concat_cost_scan, scan_inputs,
-                                            sticky_weights)
 
 KERNEL = "concat_cost_pair"
 MAX_K = 32   # picks per lane the kernel takes: the kNN sets' width (match/pipeline.py)
@@ -180,6 +178,10 @@ def _concat_cost_lanes(lanes: list[torch.Tensor], pitched: tuple[bool, ...],
     continuity baselines (T-1,)), the pool's pool_len rows held in `shards`
     (one tensor for a dense pool). The pitched lanes' weight starts at
     pitched_weight (default concat_weight)."""
+    # imported here: importing knnsvc_torch.match runs its pipeline, which
+    # imports this module
+    from knnsvc_torch.match.concat_cost import concat_cost_scan, scan_inputs
+
     _check_inputs(lanes, src, shards, pool_len, shifted_src_f0, tgt_f0)
     init_weight = concat_weight if pitched_weight is None else pitched_weight
     if src.device.type == "cpu":
@@ -279,6 +281,8 @@ def _stream_lanes(lanes, pitched, prev_idx, prev_src, src, tgt, shifted_src_f0, 
     """One launch over [carry | T frames] -> ((T, L, k) picks, the weight
     after each frame (T,)). The carried weight is read to the host once (a
     4-byte copy) for the kernel's argument."""
+    from knnsvc_torch.match.concat_cost import carried_inputs, scan_inputs, sticky_weights
+
     if prev_src.device != src.device or prev_idx.device != src.device:
         raise ValueError(f"the carry is on {prev_idx.device} and {prev_src.device}, "
                          f"src on {src.device}")

@@ -19,12 +19,17 @@ in for the JAX tests' eight virtual CPU devices. Shards on other CUDA
 devices are read by the concat-cost kernel through peer access
 (ops/concat_scan.py).
 
-Multi-host bring-up (`initialize_distributed` there) waits for the
-data-parallel training slice.
+`data_sharding(mesh)` splits a batch over the grid rows and
+`replicated(mesh)` copies a tensor to each, the roles of the JAX package's
+NamedShardings in its data-parallel train step (train/trainer.py).
+`initialize_distributed` brings up torch.distributed over TCP (NCCL on
+cards, gloo on the CPU); the train step then averages its gradients over
+the processes, each of which owns its own Mesh.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import torch
@@ -77,6 +82,70 @@ def make_mesh(n_data: int | None = None, n_pool: int = 1, devices=None) -> Mesh:
         raise ValueError(f"a ({n_data}, {n_pool}) mesh needs {n_data * n_pool} devices, "
                          f"got {len(devices)}")
     return Mesh([devices[r * n_pool:(r + 1) * n_pool] for r in range(n_data)])
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """Where a tensor goes on a mesh: split on its leading (batch) axis over
+    the grid rows (axis 'data') or copied whole to each (axis None). Each
+    part lands on its row's first device."""
+
+    mesh: Mesh
+    axis: str | None
+
+    @property
+    def devices(self) -> list[torch.device]:
+        return [row[0] for row in self.mesh.devices]
+
+    def put(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """-> one tensor per grid row: B / n_data rows of x each ('data'),
+        or x itself (None); a part on its row's device."""
+        devices = self.devices
+        if self.axis is None:
+            return [x.to(d) for d in devices]
+        if x.shape[0] % len(devices):
+            raise ValueError(f"a batch of {x.shape[0]} does not split over a data axis of "
+                             f"{len(devices)}")
+        return [part.to(d) for part, d in zip(x.chunk(len(devices)), devices)]
+
+
+def data_sharding(mesh: Mesh) -> Sharding:
+    """The batch (leading) axis split over the mesh's 'data' axis."""
+    return Sharding(mesh, "data")
+
+
+def replicated(mesh: Mesh) -> Sharding:
+    """A whole copy on each grid row."""
+    return Sharding(mesh, None)
+
+
+def initialize_distributed(coordinator_address: str | None = None,
+                           num_processes: int | None = None, process_id: int | None = None,
+                           device: str | torch.device = "cuda") -> None:
+    """Multi-process bring-up: torch.distributed.init_process_group over
+    tcp://<coordinator_address> (host:port) with world size num_processes
+    and rank process_id, NCCL on device 'cuda' (each process then takes card
+    process_id % device_count as its current device) and gloo on 'cpu' (ref
+    hifigan/ddsp_train.py:30-32). A no-op when the group is already up or
+    for a single process without a coordinator, as the JAX package's
+    jax.distributed bring-up is. A CUDA request without a card raises."""
+    from knnsvc_torch.hub import resolve_device
+
+    dev = resolve_device(device)
+    if coordinator_address is None and (num_processes is None or num_processes <= 1):
+        return
+    if torch.distributed.is_initialized():
+        return
+    if coordinator_address is None or num_processes is None or process_id is None:
+        raise ValueError("initialize_distributed needs coordinator_address, num_processes "
+                         "and process_id")
+    if dev.type == "cuda":
+        torch.cuda.set_device(process_id % torch.cuda.device_count())
+    address = coordinator_address if "://" in coordinator_address else \
+        f"tcp://{coordinator_address}"
+    torch.distributed.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                         init_method=address, world_size=num_processes,
+                                         rank=process_id)
 
 
 def shard_rows(x: torch.Tensor, mesh: Mesh) -> list[list[torch.Tensor]]:

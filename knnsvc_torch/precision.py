@@ -8,7 +8,8 @@ cuBLAS and cuDNN, while the attention kernel (ops/attention.py) keeps its
 three TF32 tensor-core passes (3xTF32, fp32-grade).
 "fastest": TF32 allowed in both, which is what JAX's Precision.DEFAULT
 means on a GPU; the attention kernel then takes one TF32 tensor-core pass
-instead of three.
+instead of three. "default" is another name for "fastest", as in the JAX
+package.
 
 The policy is process-wide, like torch's own backend flags. KnnSvc applies
 it when constructed; `set_precision` applies it at once.
@@ -19,13 +20,15 @@ from __future__ import annotations
 import torch
 
 _MODES = ("highest", "high", "fastest")
+_ALIASES = {"default": "fastest"}
 _mode = "highest"
 
 
 def set_precision(name: str) -> None:
     global _mode
+    name = _ALIASES.get(name, name)
     if name not in _MODES:
-        raise ValueError(f"precision must be one of {_MODES}, not {name!r}")
+        raise ValueError(f"precision must be one of {_MODES + tuple(_ALIASES)}, not {name!r}")
     _mode = name
     apply_precision()
 

@@ -1,5 +1,6 @@
 """Training loop (counterpart of knnsvc_tpu/train/loop.py; the reference's
-hifigan/ddsp_train.py:29-440 train()), around the one-device train step.
+hifigan/ddsp_train.py:29-440 train()), around the train step on a device
+mesh (one device, or the batch sharded over the mesh's 'data' axis).
 
 - per-epoch ExponentialLR decay: lr * decay^epoch, set before the epoch's
   first step (ref :149-150,387-388); the steps > max_steps cap (1e6,
@@ -19,6 +20,10 @@ hifigan/ddsp_train.py:29-440 train()), around the one-device train step.
   audio and mel to logs/.
 Resuming from a g_/do_ pair keeps the step count continuous; a do_ written
 by the JAX package holds optax's state and raises a ValueError.
+Under torch.distributed (parallel/mesh.initialize_distributed) every process
+draws the same global batches and trains on its rank's contiguous part of
+each (the step averages the gradients over the processes); process 0 alone
+writes the log and the checkpoints.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ from knnsvc_torch.config import HiFiGANConfig, ModelFamily
 from knnsvc_torch.io.checkpoints import (ForeignPickleError, load_numpy_params, save_params)
 from knnsvc_torch.io.jax_params import train_state_from_numpy, tree_from_module, tree_from_tensors
 from knnsvc_torch.train.dataset import BATCH_KEYS, MelDataset, batch_iterator
-from knnsvc_torch.train.trainer import (TrainState, eval_bucket, eval_step_padded,
+from knnsvc_torch.train.trainer import (TrainState, distributed, eval_bucket, eval_step_padded,
                                         init_train_state, make_train_step, set_learning_rate)
 
 MAX_STEPS = 1_000_000  # ref ddsp_train.py:172
@@ -147,10 +152,15 @@ def train(h: HiFiGANConfig, audio_root_train: str, feat_root_train: str, audio_r
           device: str | torch.device = "cuda", seed: int | None = None,
           resume_from: str | None = None, compute_dtype: str | None = None,
           checkpoint_backend: str = "pickle", val_artifacts: int = 2,
-          ckpt_type: str | None = None, disc_width_scale: int = 1) -> TrainState:
+          ckpt_type: str | None = None, disc_width_scale: int = 1,
+          mesh=None) -> TrainState:
     """Fine-tune the vocoder on prematched features; returns the final
-    TrainState. The JAX package's train() with `device` for its `mesh`:
-    runs on device="cuda" unless the caller passes "cpu".
+    TrainState. Runs on device="cuda" unless the caller passes "cpu".
+    mesh: a parallel.mesh.Mesh whose 'data' axis shards each batch (the
+    state lives on mesh.first); by default, as in the JAX package, the
+    largest number of `device`'s devices (every visible card for "cuda",
+    this process's card under torch.distributed) that divides the batch
+    size.
     compute_dtype='bfloat16' runs the bf16 step (the reference's fp16 AMP
     analogue, ref ddsp_train.py:153-155). checkpoint_backend='torch' keeps
     the best-val TrainState as one torch.save file under
@@ -160,12 +170,26 @@ def train(h: HiFiGANConfig, audio_root_train: str, feat_root_train: str, audio_r
     from knnsvc_torch.dsp.stft import log_mel_spectrogram
     from knnsvc_torch.hub import resolve_device
     from knnsvc_torch.io.audio import save_audio
+    from knnsvc_torch.parallel.mesh import make_mesh
     from knnsvc_torch.precision import apply_precision
 
     if checkpoint_backend not in ("pickle", "torch"):
         raise ValueError(f"checkpoint_backend must be 'pickle' or 'torch', not "
                          f"{checkpoint_backend!r} (orbax imports JAX)")
     dev = resolve_device(device)
+    world, rank = 1, 0
+    if distributed():
+        world, rank = torch.distributed.get_world_size(), torch.distributed.get_rank()
+        if h.batch_size % world:
+            raise ValueError(f"batch_size {h.batch_size} does not split over {world} processes")
+    if mesh is None:
+        if dev.type == "cuda" and dev.index is None and world == 1:
+            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        else:
+            devices = [dev]
+        local = h.batch_size // world
+        mesh = make_mesh(max(d for d in range(1, len(devices) + 1) if local % d == 0), 1, devices)
+    dev = mesh.first
     apply_precision()
     family = _family(h, with_harm)
     # checkpoint names carry the ckpt_type, so KnnSvc.load(ckpt_dir,
@@ -195,7 +219,7 @@ def train(h: HiFiGANConfig, audio_root_train: str, feat_root_train: str, audio_r
         if resumed is not None:
             state, start_steps, start_epoch = resumed
     dtype = torch.bfloat16 if compute_dtype in ("bfloat16", "bf16") else None
-    step_fn = make_train_step(h, family, compute_dtype=dtype)
+    step_fn = make_train_step(h, family, compute_dtype=dtype, mesh=mesh)
 
     trainset = MelDataset(h, audio_root_train, feat_root_train, split=True, seed=h.seed)
     validset = MelDataset(h, audio_root_valid, feat_root_valid, split=False, shuffle=False)
@@ -209,6 +233,8 @@ def train(h: HiFiGANConfig, audio_root_train: str, feat_root_train: str, audio_r
     with open(log_dir / "train_log.jsonl", "a") as log_file:
 
         def log(scalars: dict) -> None:
+            if rank:
+                return
             log_file.write(json.dumps({"step": steps, **scalars}) + "\n")
             log_file.flush()
 
@@ -238,7 +264,7 @@ def train(h: HiFiGANConfig, audio_root_train: str, feat_root_train: str, audio_r
                 err, y_hat = eval_step_padded(state.generator, h, family, batch,
                                               min(mel_true, Tb + 1))
                 errs.append(float(err))
-                if j < val_artifacts:
+                if j < val_artifacts and not rank:
                     wav = y_hat[0, 0, : T * h.hop_size].float().cpu()
                     save_audio(log_dir / f"val_{steps:08d}_{j}.wav", wav.numpy(), h.sampling_rate)
                     with torch.no_grad():
@@ -259,6 +285,8 @@ def train(h: HiFiGANConfig, audio_root_train: str, feat_root_train: str, audio_r
 
             if val_err < prev_min_val_err:
                 prev_min_val_err, prev_min_val_err_step = val_err, steps
+                if rank:
+                    return
                 if checkpoint_backend == "torch":
                     _save_torch_state(os.path.join(checkpoint_path, TORCH_STATE_DIR), state,
                                       steps, epoch)
@@ -286,7 +314,9 @@ def train(h: HiFiGANConfig, audio_root_train: str, feat_root_train: str, audio_r
 
             for batch in batch_iterator(trainset, h.batch_size, shuffle=True,
                                         seed=h.seed + epoch, num_workers=h.num_workers):
-                arrays = {k: torch.from_numpy(batch[k]).to(dev) for k in BATCH_KEYS}
+                part = len(batch["audio"]) // world
+                arrays = {k: torch.from_numpy(batch[k][rank * part:(rank + 1) * part]).to(dev)
+                          for k in BATCH_KEYS}
                 metrics = step_fn(state, arrays)
 
                 if steps % summary_interval == 0:

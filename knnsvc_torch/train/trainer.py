@@ -6,7 +6,7 @@ step (adv + feature matching + 45 * L1 log-mel), batch 16, segment 7040
 samples.
 
 The JAX package runs this as one jitted step over a device mesh; here it is
-that step on one device, in the same order:
+that step, in the same order:
 - y_hat from the pre-update generator, detached;
 - one spectral-norm power-iteration step (MSD scale 0) on the pre-update
   weights, then the D loss and the D update;
@@ -24,6 +24,21 @@ serves the generator, one the MPD and the MSD together; the spectral-norm
 u / v_pow are buffers, so neither sees them (the JAX step's
 _merge_sn_buffers).
 
+Data parallelism (mesh=, parallel/mesh.py): the JAX step shards the batch
+over the mesh's 'data' axis and XLA all-reduces the gradients. Here each
+grid row's first device holds a replica of G, MPD and MSD and takes its
+shard of the batch; the master modules (the TrainState's, on the mesh's
+first device) are row 0's replica. Each phase (D, then G) starts by copying
+the master's parameters and buffers to the replicas, so the G phase sees the
+updated discriminators; each shard's loss, weighted by its share of the
+batch, is backpropagated on its replica; the gradients are summed onto the
+master, which alone steps its optimizer. The power iteration runs once, on
+the master. When torch.distributed is initialized
+(parallel/mesh.initialize_distributed), the summed gradients and the metrics
+are then averaged over the processes by one all-reduce each, as DDP does:
+each process feeds its own part of the global batch. With one shard and no
+process group this is the one-device step.
+
 compute_dtype=torch.bfloat16 is the JAX step's bf16 mode as a cast, not
 autocast's per-op policy: each module runs on a bf16 copy of its
 parameters and buffers (torch.func.functional_call), the batch except f0
@@ -33,6 +48,7 @@ master weights through the cast; the optimizer state stays fp32.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import itertools
 
@@ -120,60 +136,171 @@ def _mel(h: HiFiGANConfig, wav: torch.Tensor) -> torch.Tensor:
                                win_size=h.win_size, fmin=h.fmin, fmax=h.fmax)
 
 
+def _d_loss(mpd: nn.Module, msd: nn.Module, y: torch.Tensor, y_hat: torch.Tensor,
+            dtype: torch.dtype | None) -> torch.Tensor:
+    y_df_r, y_df_g, _, _ = _call(mpd, dtype, y, y_hat)
+    loss_f = discriminator_loss(y_df_r, y_df_g)[0]
+    y_ds_r, y_ds_g, _, _ = _call(msd, dtype, y, y_hat)
+    loss_s = discriminator_loss(y_ds_r, y_ds_g)[0]
+    return (loss_f + loss_s).float()
+
+
+def _g_loss(h: HiFiGANConfig, family: ModelFamily, G: nn.Module, mpd: nn.Module, msd: nn.Module,
+            batch: dict, y: torch.Tensor, dtype: torch.dtype | None):
+    """-> (G total loss, the mel L1 times MEL_LOSS_WEIGHT)."""
+    y_hat = _generator_forward(G, family, batch, dtype)
+    # the mel loss in fp32 at least (a bf16 step's y_hat is promoted; a
+    # float64 one stays float64)
+    wav = y_hat[:, 0, :]
+    y_hat_mel = _mel(h, wav if wav.dtype == torch.float64 else wav.float())
+    loss_mel = torch.mean(torch.abs(batch["mel_loss"] - y_hat_mel)) * MEL_LOSS_WEIGHT
+    _, y_df_g, fmap_f_r, fmap_f_g = _call(mpd, dtype, y, y_hat)
+    _, y_ds_g, fmap_s_r, fmap_s_g = _call(msd, dtype, y, y_hat)
+    loss_fm = feature_loss(fmap_f_r, fmap_f_g) + feature_loss(fmap_s_r, fmap_s_g)
+    loss_gen_f = generator_loss(y_df_g)[0]
+    loss_gen_s = generator_loss(y_ds_g)[0]
+    return (loss_gen_f + loss_gen_s + loss_fm).float() + loss_mel, loss_mel
+
+
+class _Replicas:
+    """One (G, MPD, MSD) per grid row of the mesh on that row's device, row
+    0 the TrainState's own modules (the master); rebuilt when the step is
+    given another TrainState."""
+
+    def __init__(self, state: TrainState, devices: list[torch.device]):
+        self.state = state
+        masters = (state.generator, state.mpd, state.msd)
+        self.rows = [masters] + [tuple(copy.deepcopy(m).to(d) for m in masters)
+                                 for d in devices[1:]]
+
+    @torch.no_grad()
+    def sync(self, which: slice) -> None:
+        """Copy the master's parameters and buffers of modules[which] (of
+        G, MPD, MSD) to every other row."""
+        for row in self.rows[1:]:
+            for master, rep in zip(self.rows[0][which], row[which]):
+                for a, b in zip(itertools.chain(master.parameters(), master.buffers()),
+                                itertools.chain(rep.parameters(), rep.buffers())):
+                    b.copy_(a)
+
+    def reduce_grads(self, which: slice) -> None:
+        """Sum the gradients of modules[which] over the rows onto the
+        master's (each row's loss is already weighted by its share of the
+        batch); under torch.distributed, then average them over the
+        processes in one all-reduce."""
+        params = [p for m in self.rows[0][which] for p in m.parameters()]
+        for row in self.rows[1:]:
+            for p, r in zip(params, (r for m in row[which] for r in m.parameters())):
+                if r.grad is not None:
+                    g = r.grad.to(p.device)
+                    p.grad = g if p.grad is None else p.grad.add_(g)
+                    r.grad = None
+        if distributed():
+            grads = _all_reduce_mean([torch.zeros_like(p) if p.grad is None else p.grad
+                                      for p in params])
+            for p, g in zip(params, grads):
+                p.grad = g
+
+
+def distributed() -> bool:
+    """Whether a torch.distributed process group is up."""
+    return torch.distributed.is_available() and torch.distributed.is_initialized()
+
+
+def _all_reduce_mean(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The tensors averaged over the processes, by one all-reduce of their
+    concatenation."""
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+    flat = _flatten_dense_tensors(tensors)
+    torch.distributed.all_reduce(flat)
+    flat.div_(torch.distributed.get_world_size())
+    return list(_unflatten_dense_tensors(flat, tensors))
+
+
 def make_train_step(h: HiFiGANConfig, family: ModelFamily,
-                    compute_dtype: torch.dtype | None = None):
+                    compute_dtype: torch.dtype | None = None, mesh=None):
     """-> train_step(state, batch) -> metrics. batch: tensors on the state's
     device, feats (B, T, 1024), audio (B, T*hop), mel_loss (B, mels, T'),
     f0 (B, T, 1), harmonics (B, T, 49). The step updates `state` in place
     and returns 0-d tensors (no host sync): loss_gen_total, loss_disc_total,
-    mel_spec_error."""
+    mel_spec_error. mesh: a parallel.mesh.Mesh whose 'data' axis shards the
+    batch (B divisible by its size), the state on mesh.first; None runs on
+    the state's device alone. Under torch.distributed, `batch` is this
+    process's part of the global batch and the metrics are the global
+    batch's."""
+    from knnsvc_torch.parallel.mesh import data_sharding
+
+    sharding = None if mesh is None or mesh.shape["data"] == 1 else data_sharding(mesh)
+    cache: dict[str, _Replicas] = {}
 
     def train_step(state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
-        G, mpd, msd = state.generator, state.mpd, state.msd
+        reps = cache.get("reps")
+        if reps is None or reps.state is not state:
+            reps = cache["reps"] = _Replicas(state, [] if sharding is None else sharding.devices)
+        dev = next(state.generator.parameters()).device
         with record_function("knnsvc.train_step"):
             if compute_dtype is not None:
                 # the loss target and f0 stay fp32: bf16 would put Hz on a
                 # ~0.4% grid, a systematic pitch error in the excitation
                 batch = {k: v if k in ("mel_loss", "f0") else v.to(compute_dtype)
                          for k, v in batch.items()}
-            y = batch["audio"][:, None, :]
+            if sharding is None:
+                shards = [batch]
+            else:
+                parts = {k: sharding.put(v) for k, v in batch.items()}
+                shards = [{k: v[i] for k, v in parts.items()} for i in range(len(reps.rows))]
+            # each shard's loss weighted by its share of the batch (a mean
+            # over the batch is the weighted sum of the shards' means)
+            n = batch["audio"].shape[0]
+            weights = [None] if sharding is None else [s["audio"].shape[0] / n for s in shards]
+            work = list(zip(reps.rows, shards, weights))
+            weighted = lambda loss, w: loss if w is None else loss * w  # noqa: E731
+            spread = len(reps.rows) > 1 or distributed()
 
             with record_function("knnsvc.d_step"):
-                with torch.no_grad():
-                    y_hat = _generator_forward(G, family, batch, compute_dtype)
-                power_iterate(msd, compute_dtype)
-                y_df_r, y_df_g, _, _ = _call(mpd, compute_dtype, y, y_hat)
-                loss_f = discriminator_loss(y_df_r, y_df_g)[0]
-                y_ds_r, y_ds_g, _, _ = _call(msd, compute_dtype, y, y_hat)
-                loss_s = discriminator_loss(y_ds_r, y_ds_g)[0]
-                d_total = (loss_f + loss_s).float()
+                power_iterate(state.msd, compute_dtype)
+                reps.sync(slice(0, 3))
                 state.opt_d.zero_grad(set_to_none=True)
-                d_total.backward()
+                d_losses = []
+                for (G, mpd, msd), s, w in work:
+                    with torch.no_grad():
+                        y_hat = _generator_forward(G, family, s, compute_dtype)
+                    d = weighted(_d_loss(mpd, msd, s["audio"][:, None, :], y_hat,
+                                         compute_dtype), w)
+                    d.backward()
+                    d_losses.append(d.detach().to(dev))
+                if spread:
+                    reps.reduce_grads(slice(1, 3))
                 state.opt_d.step()
 
             with record_function("knnsvc.g_step"):
-                d_params = [*mpd.parameters(), *msd.parameters()]
+                reps.sync(slice(1, 3))
+                d_params = [p for row in reps.rows for m in row[1:] for p in m.parameters()]
                 for p in d_params:
                     p.requires_grad_(False)
                 try:
-                    y_hat = _generator_forward(G, family, batch, compute_dtype)
-                    y_hat_mel = _mel(h, y_hat[:, 0, :].float())
-                    loss_mel = torch.mean(torch.abs(batch["mel_loss"] - y_hat_mel)) * MEL_LOSS_WEIGHT
-                    _, y_df_g, fmap_f_r, fmap_f_g = _call(mpd, compute_dtype, y, y_hat)
-                    _, y_ds_g, fmap_s_r, fmap_s_g = _call(msd, compute_dtype, y, y_hat)
-                    loss_fm = feature_loss(fmap_f_r, fmap_f_g) + feature_loss(fmap_s_r, fmap_s_g)
-                    loss_gen_f = generator_loss(y_df_g)[0]
-                    loss_gen_s = generator_loss(y_ds_g)[0]
-                    g_total = (loss_gen_f + loss_gen_s + loss_fm).float() + loss_mel
                     state.opt_g.zero_grad(set_to_none=True)
-                    g_total.backward()
+                    g_losses, mel_losses = [], []
+                    for (G, mpd, msd), s, w in work:
+                        g, mel = _g_loss(h, family, G, mpd, msd, s, s["audio"][:, None, :],
+                                         compute_dtype)
+                        g = weighted(g, w)
+                        g.backward()
+                        g_losses.append(g.detach().to(dev))
+                        mel_losses.append(weighted(mel.detach(), w).to(dev))
+                    if spread:
+                        reps.reduce_grads(slice(0, 1))
                     state.opt_g.step()
                 finally:
                     for p in d_params:
                         p.requires_grad_(True)
             state.steps += 1
-        return {"loss_gen_total": g_total.detach(), "loss_disc_total": d_total.detach(),
-                "mel_spec_error": loss_mel.detach() / MEL_LOSS_WEIGHT}
+            metrics = [sum(g_losses[1:], g_losses[0]), sum(d_losses[1:], d_losses[0]),
+                       sum(mel_losses[1:], mel_losses[0]) / MEL_LOSS_WEIGHT]
+            if distributed():
+                metrics = _all_reduce_mean(metrics)
+        return dict(zip(("loss_gen_total", "loss_disc_total", "mel_spec_error"), metrics))
 
     return train_step
 

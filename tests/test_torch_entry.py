@@ -1,7 +1,9 @@
 """knnsvc_torch's entry points and guards on the CPU: the CLI driven end to
-end from `.knnsvc.pkl` files, no silent CPU fallback, the multi-device
-matchers give the dense matchers' waveforms, the unported options (orbax,
-mp3) raise, and no file of the port imports JAX or the JAX package."""
+end from `.knnsvc.pkl` files (and with --precision high), no silent CPU
+fallback, the multi-device matchers give the dense matchers' waveforms, the
+unported options (orbax, mp3) raise, no file of the port imports JAX or the
+JAX package, every module of the JAX package but those two has a
+counterpart, and each subpackage exports the JAX package's names."""
 
 import ast
 import json
@@ -54,23 +56,30 @@ def test_unported_options_raise(pair):
                          output_path=out)
 
 
+def _write_checkpoints(root):
+    """JAX-written `.knnsvc.pkl` files of the small models under `root`:
+    -> (WavLM cfg, WavLM params, generator params, the CLI's model flags)."""
+    wavlm_cfg = {**SMALL_WAVLM, "encoder_layers": 6}   # layer 6 is the served one
+    cfg, jcfg, wavlm_params = small_wavlm(overrides={"encoder_layers": 6})
+    _, _, _, _, gen_params = small_generator("mix")
+    save_params(str(root / "WavLM-small.knnsvc.pkl"), {"cfg": wavlm_cfg, "model": wavlm_params})
+    save_params(str(root / "g_00000001_mix.knnsvc.pkl"), {"generator": gen_params})
+    (root / "config.json").write_text(json.dumps(
+        {k: list(v) if isinstance(v, tuple) else v for k, v in SMALL_HIFIGAN.items()}))
+    flags = ["--ckpt_dir", str(root), "--ckpt_type", "mix",
+             "--wavlm_ckpt", str(root / "WavLM-small.knnsvc.pkl"),
+             "--config", str(root / "config.json")]
+    return cfg, wavlm_params, gen_params, flags
+
+
 def test_cli_loads_knnsvc_pkl_and_converts_on_cpu(pair, tmp_path):
     """`.knnsvc.pkl` files written by the JAX package (a {'cfg', 'model'}
     WavLM payload and a {'generator': ...} HiFi-GAN payload) drive the
     port's CLI end to end with --device cpu."""
     _, (src, ref) = pair
-    wavlm_cfg = {**SMALL_WAVLM, "encoder_layers": 6}   # layer 6 is the served one
-    cfg, jcfg, wavlm_params = small_wavlm(overrides={"encoder_layers": 6})
-    _, _, _, _, gen_params = small_generator("mix")
-    save_params(str(tmp_path / "WavLM-small.knnsvc.pkl"), {"cfg": wavlm_cfg, "model": wavlm_params})
-    save_params(str(tmp_path / "g_00000001_mix.knnsvc.pkl"), {"generator": gen_params})
-    (tmp_path / "config.json").write_text(json.dumps(
-        {k: list(v) if isinstance(v, tuple) else v for k, v in SMALL_HIFIGAN.items()}))
+    cfg, wavlm_params, gen_params, flags = _write_checkpoints(tmp_path)
     out = tmp_path / "cli.wav"
-    assert main([src, ref, "--ckpt_dir", str(tmp_path), "--ckpt_type", "mix",
-                 "--wavlm_ckpt", str(tmp_path / "WavLM-small.knnsvc.pkl"),
-                 "--config", str(tmp_path / "config.json"), "--fast", "true",
-                 "--device", "cpu", "--out", str(out)]) == 0
+    assert main([src, ref, *flags, "--fast", "true", "--device", "cpu", "--out", str(out)]) == 0
     codes = int16_codes(out)
     assert codes.shape == (50 * 320,) and np.abs(codes).max() > 0
 
@@ -93,6 +102,66 @@ def test_cuda_default_raises_without_a_card(monkeypatch, pair):
         main([src, ref, "--random_init", "true", "--fast", "true"])
 
 
+def test_cli_and_policy_take_the_jax_precision_names(pair, tmp_path):
+    """--precision high converts and leaves the policy at "high", as the
+    JAX CLI's choices allow; "default" is "fastest", as in the JAX
+    package's precision names."""
+    from knnsvc_torch.precision import get_precision, set_precision
+
+    _, (src, ref) = pair
+    *_, flags = _write_checkpoints(tmp_path)
+    out = tmp_path / "high.wav"
+    try:
+        assert main([src, ref, *flags, "--fast", "true", "--device", "cpu",
+                     "--precision", "high", "--out", str(out)]) == 0
+        assert get_precision() == "high" and int16_codes(out).shape == (50 * 320,)
+        set_precision("default")
+        assert get_precision() == "fastest"
+        assert torch.backends.cuda.matmul.allow_tf32
+        with pytest.raises(ValueError, match="precision must be one of"):
+            set_precision("bf16")
+    finally:
+        set_precision("highest")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+def test_new_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """initialize_distributed, the regression metrics, speaker similarity's
+    embedder, the Whisper transcriber and train()'s default mesh run on
+    device='cuda' unless told otherwise, and raise without a card."""
+    from knnsvc_torch.config import HiFiGANConfig
+    from knnsvc_torch.eval.intelligibility import default_whisper_transcriber
+    from knnsvc_torch.eval.regression import spectral_distance
+    from knnsvc_torch.eval.speaker_sim import compute_speaker_similarity, mfcc_stats_embedder
+    from knnsvc_torch.io.audio import save_audio
+    from knnsvc_torch.parallel.mesh import initialize_distributed, make_mesh
+    from knnsvc_torch.train.loop import train
+
+    from test_torch_common import TINY_H
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    wav = np.zeros(3200, np.float32)
+    save_audio(tmp_path / "a.wav", wav, 16000)
+    (tmp_path / "pairs.csv").write_text("src_speaker,tgt_speaker,x_path,y_path,label\n"
+                                        "s,t,a,a,0\ns,t,a,a,1\n")
+    calls = [
+        lambda: initialize_distributed(),
+        lambda: initialize_distributed("127.0.0.1:29500", 2, 0),
+        lambda: spectral_distance(str(tmp_path / "a.wav"), str(tmp_path / "a.wav")),
+        lambda: mfcc_stats_embedder(wav),
+        lambda: compute_speaker_similarity(str(tmp_path / "pairs.csv"), str(tmp_path),
+                                           str(tmp_path), result_dir=str(tmp_path)),
+        lambda: default_whisper_transcriber(str(tmp_path)),
+        lambda: train(HiFiGANConfig.from_dict(TINY_H), str(tmp_path), str(tmp_path),
+                      str(tmp_path), str(tmp_path), str(tmp_path / "ckpt")),
+        lambda: make_mesh(),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not torch.distributed.is_initialized()
+
+
 def _imported_roots(path: pathlib.Path) -> set[str]:
     roots = set()
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
@@ -104,14 +173,59 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    files = sorted((REPO / "knnsvc_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "knnsvc_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
+                                                             REPO / "tests" / "torch_dp_worker.py"]
     assert len(files) > 20
     names = {str(p.relative_to(REPO)) for p in files}
     assert {"knnsvc_torch/io/vad.py", "knnsvc_torch/match/quantized_pool.py",
             "knnsvc_torch/match/pipeline.py", "knnsvc_torch/match/pool.py",
             "knnsvc_torch/hub.py", "knnsvc_torch/cli/inference.py",
             "knnsvc_torch/models/wavlm/streaming.py", "knnsvc_torch/ops/concat_scan.py",
-            "knnsvc_torch/match/concat_cost.py"} <= names
+            "knnsvc_torch/match/concat_cost.py", "knnsvc_torch/eval/speaker_sim.py",
+            "knnsvc_torch/eval/regression.py", "knnsvc_torch/eval/intelligibility.py",
+            "knnsvc_torch/utils/profiling.py", "knnsvc_torch/utils/flops.py",
+            "knnsvc_torch/train/spectral_losses.py", "knnsvc_torch/models/hifigan/harm_head.py",
+            "knnsvc_torch/models/wavlm/masking.py", "knnsvc_torch/parallel/mesh.py",
+            "knnsvc_torch/train/legacy_audio_dataset.py", "tests/torch_dp_worker.py"} <= names
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "knnsvc_tpu"}
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
+
+
+def test_every_jax_module_has_a_counterpart():
+    """The JAX package's modules without a port are the two left out on
+    purpose: mp3 (pygame) and orbax (which imports JAX)."""
+    def modules(pkg):
+        return {str(p.relative_to(REPO / pkg)) for p in (REPO / pkg).rglob("*.py")}
+
+    assert modules("knnsvc_tpu") - modules("knnsvc_torch") == {"io/mp3.py", "io/orbax_ckpt.py"}
+
+
+SUBPACKAGES = ["", "ops", "models", "models.wavlm", "models.hifigan", "match", "io", "utils",
+               "dsp", "parallel", "eval", "train", "cli"]
+
+
+def _public(module) -> set[str]:
+    """__all__, or the names a package binds itself (not submodules)."""
+    import types
+
+    if hasattr(module, "__all__"):
+        return set(module.__all__)
+    return {n for n, v in vars(module).items()
+            if not n.startswith("_") and not isinstance(v, types.ModuleType)
+            and n not in ("annotations",)}
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_subpackage_exports_the_jax_names(sub):
+    """Each subpackage exports what its JAX counterpart exports, every name
+    bound; parallel adds Mesh, the port's grid of devices (JAX imports its
+    own from jax.sharding)."""
+    import importlib
+
+    jax_mod = importlib.import_module("knnsvc_tpu" + ("." + sub if sub else ""))
+    mod = importlib.import_module("knnsvc_torch" + ("." + sub if sub else ""))
+    extra = {"Mesh"} if sub == "parallel" else set()
+    assert _public(mod) == _public(jax_mod) | extra
+    for name in _public(mod):
+        assert getattr(mod, name) is not None, name

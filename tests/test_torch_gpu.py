@@ -569,3 +569,77 @@ def test_sharded_match_on_the_card_equals_dense(S):
                                use_harmonics=True, concat_weight=0.2, opt_enabled=False)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _tiny_train_run(device, mesh=None, n=3, batch_size=2):
+    """n tiny GAN steps from init_train_state(0) on `device` (or mesh):
+    -> (metrics per step, generator tree)."""
+    from knnsvc_torch.config import HiFiGANConfig, ModelFamily
+    from knnsvc_torch.io.jax_params import tree_from_module
+    from knnsvc_torch.train.trainer import init_train_state, make_train_step
+
+    h = HiFiGANConfig.from_dict(_TINY_H)
+    rng = np.random.default_rng(4)
+    T = h.segment_size // h.hop_size
+    batch = {"feats": rng.standard_normal((batch_size, T, 16)),
+             "audio": rng.standard_normal((batch_size, 1280)) * 0.1,
+             "mel_loss": np.full((batch_size, 80, 4), -5.0),
+             "f0": rng.random((batch_size, T, 1)) * 200,
+             "harmonics": rng.random((batch_size, T, 49)) * 0.05}
+    state = init_train_state(0, h, ModelFamily.MIX, disc_width_scale=8, device=device)
+    step = make_train_step(h, ModelFamily.MIX, mesh=mesh)
+    b = {k: torch.from_numpy(v.astype(np.float32)).to(device) for k, v in batch.items()}
+    metrics = [{k: float(v) for k, v in step(state, b).items()} for _ in range(n)]
+    return metrics, tree_from_module(state.generator)
+
+
+def _max_tree_diff(a, b) -> float:
+    if isinstance(a, dict):
+        return max(_max_tree_diff(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return max(_max_tree_diff(u, v) for u, v in zip(a, b))
+    return float(np.abs(a - b).max())
+
+
+@pytest.mark.gpu
+def test_data_parallel_step_on_logical_shards_of_the_card():
+    """The train step on a (2, 1) mesh of the card (two replicas, a batch
+    of 4 split in two) against the one-device step: metrics at rtol 1e-4,
+    the generator at 1e-5 (tests/test_training.py:101-120's bounds)."""
+    from knnsvc_torch.parallel.mesh import make_mesh
+
+    dev = _cuda()
+    set_precision("highest")
+    one_m, one_g = _tiny_train_run(dev, batch_size=4)
+    two_m, two_g = _tiny_train_run(dev, make_mesh(2, 1, devices=[dev] * 2), batch_size=4)
+    for a, b in zip(two_m, one_m):
+        for k in a:
+            assert abs(a[k] - b[k]) <= 1e-4 * abs(b[k]), (k, a[k], b[k])
+    assert _max_tree_diff(two_g, one_g) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_nccl_group_of_one_runs_the_all_reduce():
+    """initialize_distributed over NCCL with a world of 1 at 127.0.0.1: the
+    step all-reduces its gradients and metrics on the card and gives the
+    plain step's numbers; the group is torn down after."""
+    import socket
+
+    from knnsvc_torch.parallel.mesh import initialize_distributed
+
+    dev = _cuda()
+    set_precision("highest")
+    want_m, want_g = _tiny_train_run(dev, n=2)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    initialize_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        got_m, got_g = _tiny_train_run(dev, n=2)
+    finally:
+        torch.distributed.destroy_process_group()
+    for a, b in zip(got_m, want_m):
+        for k in a:
+            assert abs(a[k] - b[k]) <= 1e-6 * abs(b[k]), (k, a[k], b[k])
+    assert _max_tree_diff(got_g, want_g) <= 1e-6
