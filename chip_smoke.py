@@ -24,8 +24,10 @@ Phases (any failure exits non-zero, before the result line):
      streaming chunk (150 + 1 carried frames, 1500, 1024) with k = 4 and 8,
      10 chained chunks against the whole-utterance kernel, and its time;
      the f0 Viterbi kernel equal on every frame at
-     (1501, 482) on random costs, costs with injected ties and the real
-     costs of a sung 30-s wav, timed against its plain version; device f0
+     (1501, 482) on random costs, costs with injected ties, constant rows
+     and the real costs of a sung 30-s wav, timed against its plain
+     version, with ptxas's registers and spills for it (a spill fails the
+     run); device f0
      on the card against the CPU on that wav, and the time of one 30-s
      device_f0_tensor with its Viterbi share; the attention kernel and the
      Viterbi also at a streaming window's shape (T = 200); the concat
@@ -138,6 +140,7 @@ repository, it fails and prints no result.
 import json
 import logging
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -310,7 +313,8 @@ def sung_wav(seconds: float, hz: float, seed: int):
             f0_at(frames).astype(np.float32))
 
 
-def phase_build():
+def phase_build() -> dict[str, list[str]]:
+    """Builds every kernel; returns each one's ptxas lines."""
     from concurrent.futures import ThreadPoolExecutor
 
     from knnsvc_torch.ops.build import build_kernel
@@ -324,6 +328,35 @@ def phase_build():
         log(f"[build] {b.name}: {b.library.name}")
         for line in b.ptxas:
             log(f"[build] {b.name}: {line}")
+    return {b.name: b.ptxas for b in builds}
+
+
+def ptxas_usage(name: str, lines: list[str], function: str) -> tuple[int, int, int]:
+    """(registers, spill-store bytes, spill-load bytes) that ptxas reported
+    for `function` of csrc/<name>.cu. A build that reused a library printed
+    nothing: the source is then compiled again into a temporary directory
+    for the report."""
+    from knnsvc_torch.ops import build
+
+    if not lines:
+        with tempfile.TemporaryDirectory() as d:
+            proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o",
+                                   os.path.join(d, f"lib{name}.so"),
+                                   str(build.CSRC_DIR / f"{name}.cu")],
+                                  capture_output=True, text=True, timeout=build.BUILD_TIMEOUT_S)
+        lines = (proc.stdout + proc.stderr).splitlines()
+    regs = spills = None
+    mine = False
+    for ln in lines:
+        if "entry function" in ln or "Function properties for" in ln:
+            mine = function in ln
+        elif mine and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+            spills = int(m[1]), int(m[2])
+        elif mine and (m := re.search(r"Used (\d+) registers", ln)):
+            regs = int(m[1])
+    if regs is None or spills is None:
+        fail(f"ptxas reported no registers or spills for {function} in {name}.cu")
+    return regs, *spills
 
 
 def phase_kernels(dev):
@@ -625,7 +658,7 @@ def viterbi_bound_ms(N: int, C: int) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_viterbi_kernel(dev):
+def phase_viterbi_kernel(dev, ptxas: list[str]):
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -647,7 +680,9 @@ def phase_viterbi_kernel(dev):
     tied_v[1::4, 200:] = tied_v[1::4, 200:201]
     tied_v[2::5] = np.round(tied_v[2::5])
     tied_u[::7] = 1e3
-    cases = {"random": (cv, cu), "ties": (tied_v, tied_u), "sung 30-s wav": real[:2]}
+    const_v = np.repeat(cv[:, :1], C, axis=1)    # every row one value: the argmin ties at every level
+    cases = {"random": (cv, cu), "ties": (tied_v, tied_u), "constant rows": (const_v, cu),
+             "sung 30-s wav": real[:2]}
     max_err = 0
     for name, (a, b) in cases.items():
         a, b = torch.as_tensor(a).to(dev), torch.as_tensor(b).to(dev)
@@ -666,11 +701,15 @@ def phase_viterbi_kernel(dev):
     plain_ms = cuda_ms(lambda: viterbi_plain(cost_v, cost_u, lam_s, switch), iters=1, warmup=0)
     bound_ms, bound_by = viterbi_bound_ms(N, C)
     ptr_bound_ms = 1e3 * (4 * (N * C + 2 * N) + 2 * 2 * (N - 1) * (C + 1)) / PEAK_BYTES_PER_S
+    regs, spill_st, spill_ld = ptxas_usage("f0_viterbi", ptxas, "f0_viterbi_kernel")
     log(f"[kernel] f0_viterbi ({N}, {C}) sung costs: kernel {ms:.4f} ms "
-        f"({1e3 * ms / (N - 1):.3f} us per frame), plain {plain_ms:.1f} ms (one run), library "
+        f"({1e3 * ms / (N - 1):.4f} us per frame; ptxas: {regs} registers, {spill_st} bytes "
+        f"spill stores, {spill_ld} bytes spill loads), plain {plain_ms:.1f} ms (one run), library "
         f"none, bound {bound_ms:.4f} ms ({bound_by}; {ptr_bound_ms:.4f} ms with the int16 "
         f"pointers written and read back); latency-bound in fact: a chain of {N - 1} "
         f"dependent frames")
+    if spill_st or spill_ld:
+        fail(f"f0_viterbi_kernel spills: {spill_st} bytes stored, {spill_ld} loaded")
 
     # device f0 on the card against the CPU, on the same wav
     card = device_f0(wav, 16000, device=dev)
@@ -707,6 +746,7 @@ def phase_viterbi_kernel(dev):
             "launches": None, "max_abs_err": float(max_err), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "us_per_frame": 1e3 * ms / (N - 1), "device_f0_ms": tensor_ms,
+            "registers": regs, "spill_bytes": spill_st + spill_ld,
             "stream_shape": [n_win, C], "stream_ms": w_ms, "stream_plain_ms": w_plain_ms,
             "stream_bound_ms": w_bound_ms, "stream_bound_by": w_bound_by}
 
@@ -2759,10 +2799,10 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t_all = time.perf_counter()
-    phase_build()
+    ptxas = phase_build()
     records = {"gated_bias_attention": phase_kernels(dev),
                "concat_cost_pair": phase_concat_kernel(dev),
-               "f0_viterbi": phase_viterbi_kernel(dev)}
+               "f0_viterbi": phase_viterbi_kernel(dev, ptxas["f0_viterbi"])}
     records["concat_cost_pair"].update(phase_concat_sharded(dev))
     root = tempfile.mkdtemp(prefix="knnsvc_smoke_")
     try:

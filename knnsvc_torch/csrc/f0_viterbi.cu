@@ -24,186 +24,431 @@
 // least work is reading the (N, C) costs once and writing and reading the
 // pointers: ~4.4 MB, ~1.3 us at 3.35 TB/s, and ~5 M additions. Neither
 // limits it: frame t needs frame t-1's costs, so the kernel is a chain of N
-// dependent steps and bound by the latency of one step. The design keeps
-// that step inside one warp, with no block barrier on the chain:
-//   - one block of one warp per sequence; lane l holds states 16 l .. 16 l
-//     + 15 in registers (C + 1 <= 512). Each cumulative min is a serial
-//     pass over the lane's 16 values and a 5-level shuffle scan over the
-//     lanes; the left pass, the right pass and min/argmin(dv) are
-//     independent and interleave;
-//   - frame t+1's emission row is loaded into registers while frame t
-//     runs;
+// dependent steps, bound by the latency of one step on one SM. The design
+// spreads each step over the SM's four schedulers and keeps loads off it:
+//   - one block of WARPS = 4 chain warps, one per scheduler, and a producer
+//     warp. Chain thread i holds states PER i .. PER i + PER - 1 (PER = 4) in
+//     registers (C + 1 <= 512). Each cumulative min is a serial pass over the
+//     thread's PER values, a 5-level shuffle scan over the warp's lanes and a
+//     cross-warp level. A warp's first min/argmin of dv is two redux.sync on
+//     an order-preserving integer key (-0 and +0 share a key, so they tie as
+//     floats do);
+//   - two exchanges a frame through shared memory, each behind the chain's
+//     named barrier (bar.sync 1, 128; the producer never joins it): the
+//     warps' left totals, right totals and min/argmin of dv, then the warps'
+//     mins of new_dv for m. The second cannot fold into the next frame's
+//     first: dv is rounded after - m and before the next frame's - i lam_s.
+//     The slots are indexed by frame parity, so a slot is written again two
+//     barriers after it was read;
+//   - the producer warp stages the emission rows in a ring of RING = 8 rows
+//     in shared memory, up to RING frames ahead of the chain, by cp.async: 16
+//     bytes for a row's aligned interior and 4 for the up to 3 floats at
+//     either end and cost_u[t] (a row of C = 482 floats is 1928 B, not a
+//     multiple of 16, so neither cp.async.bulk nor a TMA tensor map addresses
+//     it in place, and padding cost_v would cost a copy). Each lane's
+//     cp.async.mbarrier.arrive completes a slot's `full` mbarrier when its
+//     copies have landed; thread 0 arrives on the slot's `empty` mbarrier once
+//     the chain has read it. The chain waits on `full` every WAIT_EVERY = 4
+//     frames, for the 4th row ahead: an arrive fires only when all of the
+//     lane's earlier copies have landed too. Copies issued by a chain warp
+//     stall it: that is why a warp of its own issues them;
 //   - the pointers go to global memory as int16 in rows of 512 (ptr_u in
-//     slot C, so the backtrack reads one table), 1 KB a frame, 1.5 MB for
-//     a 30-s chunk, which stays in L2. The backtrack stages 32 rows at a
-//     time into shared memory with all lanes, then lane 0 walks them.
-// Exactness: every cost operation is an __f*_rn intrinsic in the plain
-// version's order (no contracted multiply-add, e.g. of dv - i * lam_s), and
-// the ties follow the plain version, so the states equal it on every frame.
+//     slot C, so the backtrack reads one table), 1 KB a frame, 1.5 MB for a
+//     30-s chunk, which stays in L2; a frame's row is stored while the next
+//     frame scans. The backtrack stages blocks of BACK_ROWS = 32 rows into two
+//     shared buffers by 16-byte cp.async: warps 1-4 fetch block b + 1 while
+//     thread 0 walks block b, one dependent shared read a frame. The buffers
+//     alias the ring, drained by then.
+// Exactness, which no partition may break: every elementwise cost operation
+// is an __f*_rn intrinsic in the plain version's order (no contracted
+// multiply-add, e.g. of dv - i * lam_s); the min/argmin combines are exact
+// and associative, and every level (within a thread, across lanes, across
+// warps, the carries into a thread) keeps the plain version's ties:
+//   - the left scan keeps the leftmost index (the earlier segment wins on <=);
+//   - the right scan keeps the rightmost index (the later segment wins on <=);
+//   - left wins over right on <=;
+//   - argmin takes the first minimum;
+//   - ptr_v takes C on best > du + switch, and ptr_u takes C on
+//     du <= min(dv) + switch.
+// So the states equal the plain version's on every frame.
 
 #include <cuda_runtime.h>
 
-#include <cmath>
 #include <cstdint>
 
 namespace {
 
-constexpr int LANES = 32;
-constexpr int PER_LANE = 16;
-constexpr int MAX_STATES = LANES * PER_LANE;   // C + 1 <= 512
+constexpr int WARPS = 4;                       // chain warps, one per scheduler of the SM
+constexpr int CHAIN = 32 * WARPS;              // their threads
+constexpr int THREADS = CHAIN + 32;            // and the producer warp
+constexpr int MAX_STATES = 512;                // C + 1 <= 512
+constexpr int PER = MAX_STATES / CHAIN;        // states per chain thread
 constexpr int PTR_PITCH = 512;                 // int16 pointers per frame row
-constexpr int BACK_ROWS = 32;                  // pointer rows staged per backtrack step
+constexpr int RING = 8;                        // emission rows staged ahead
+constexpr int WAIT_EVERY = 4;                  // the chain checks the ring every 4 frames
+constexpr int ROW = MAX_STATES + 4;            // floats per ring row: a row starts at its
+                                               // offset from a 16-byte boundary
+constexpr int BACK_ROWS = 32;                  // pointer rows per backtrack block
 constexpr unsigned FULL = 0xffffffffu;
+static_assert(WARPS >= 1 && WARPS <= 4 && PER % 4 == 0, "exchange slots are 4 wide");
+static_assert(WAIT_EVERY <= RING, "the producer can run WAIT_EVERY rows ahead");
 
-__global__ void __launch_bounds__(LANES, 1)
+struct Ring {                                  // the forward pass's emission rows
+  float v[RING][ROW];
+  float u[RING];
+};
+struct Back {                                  // the backtrack's two pointer blocks
+  int16_t rows[2][BACK_ROWS][PTR_PITCH];
+};
+constexpr int SMEM_BYTES = sizeof(Back) > sizeof(Ring) ? (int)sizeof(Back) : (int)sizeof(Ring);
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// dst: an address in the shared window (smem_addr), computed once per kernel
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// the mbarrier completes its phase when this thread's cp.async so far have landed
+__device__ __forceinline__ void cp_async_arrive(unsigned bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n"
+      "}\n" ::"r"(bar), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void chain_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CHAIN) : "memory");
+}
+
+// a signed integer in the order of the floats, -0 and +0 both 0 (NaN excluded)
+__device__ __forceinline__ int order_key(float f) {
+  const int i = __float_as_int(f);
+  return i >= 0 ? i : -(i & 0x7fffffff);
+}
+
+__device__ __forceinline__ float key_value(int k) {
+  return __int_as_float(k >= 0 ? k : (-k) | (int)0x80000000);
+}
+
+__device__ __forceinline__ void load4(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+}
+
+__device__ __forceinline__ void load4(const int* p, int* out) {
+  const int4 v = *reinterpret_cast<const int4*>(p);
+  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
 f0_viterbi_kernel(const float* __restrict__ cost_v, const float* __restrict__ cost_u,
                   int16_t* ptrs, int* __restrict__ states, int N, int C,
                   float lam_s, float sw) {
-  __shared__ __align__(16) int16_t back[BACK_ROWS][PTR_PITCH];
-  const int lane = threadIdx.x;
-  const int base = lane * PER_LANE;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Ring& ring = *reinterpret_cast<Ring*>(smem);
+  Back& back = *reinterpret_cast<Back*>(smem);
+  // ring slot s holds frame f = s + 1 + n RING in its n-th use: `full` when
+  // the producer's copies have landed, `empty` when the chain has read it
+  __shared__ __align__(8) uint64_t full[RING], empty[RING];
+  // the chain's exchanges, [frame parity][field][warp]: the warps' left and
+  // right totals (float bits) and their indices, the key and index of each
+  // warp's first min of dv, and the key of each warp's min of new_dv
+  enum { X_LV, X_LI, X_RV, X_RI, X_MK, X_MI, X_NK, X_FIELDS = 8 };
+  __shared__ __align__(16) int xch[2][X_FIELDS][4];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float INF = __int_as_float(0x7f800000);
-
-  float shift[PER_LANE], dv[PER_LANE], ev[PER_LANE];
-#pragma unroll
-  for (int k = 0; k < PER_LANE; ++k) {
-    const int j = base + k;
-    shift[k] = __fmul_rn((float)j, lam_s);
-    dv[k] = j < C ? cost_v[j] : INF;
-    ev[k] = (N > 1 && j < C) ? cost_v[(size_t)C + j] : 0.f;
+  const unsigned v_words = (unsigned)(reinterpret_cast<uintptr_t>(cost_v) >> 2);
+  const unsigned full_s = smem_addr(&full[0]), empty_s = smem_addr(&empty[0]);
+  if (tid == 0) {
+    for (int i = 0; i < RING; ++i) {
+      mbar_init(full_s + 8 * i, 32);           // one cp.async arrival per producer lane
+      mbar_init(empty_s + 8 * i, 1);           // one arrival from the chain
+    }
   }
-  float du = cost_u[0];
+  __syncthreads();
+  // frame f's offset in floats from a 16-byte boundary
+  auto row_offset = [&](int f) { return (int)((v_words + (unsigned)f * (unsigned)C) & 3u); };
 
-  for (int t = 1; t < N; ++t) {
-    // next frame's emissions, in flight while this frame runs
-    float nx[PER_LANE];
-    const bool more = t + 1 < N;
+  int s = C;                                   // the last frame's state, in thread 0
+  if (warp == WARPS) {
+    // the producer: frame f's row to ring.v[slot][o + j], o = row_offset(f),
+    // by 16-byte copies of its aligned interior and one 4-byte copy per lane
+    // for the up to 3 floats at either ragged end and for cost_u[f]
+    const unsigned ring_v = smem_addr(&ring.v[0][0]), ring_u = smem_addr(&ring.u[0]);
+    for (int f = 1; f < N; ++f) {
+      const int slot = (f - 1) % RING, use = (f - 1) / RING;
+      if (use > 0) mbar_wait(empty_s + 8 * slot, (use - 1) & 1);
+      const int o = row_offset(f);
+      const int head = min((4 - o) & 3, C);
+      const int nq = (C - head) >> 2;
+      const float* src = cost_v + (size_t)f * C;
+      const unsigned dst = ring_v + (unsigned)(slot * ROW + o) * 4u;
 #pragma unroll
-    for (int k = 0; k < PER_LANE; ++k)
-      nx[k] = (more && base + k < C) ? __ldg(cost_v + (size_t)(t + 1) * C + base + k) : 0.f;
-    const float eu = __ldg(cost_u + t);
+      for (int r = 0; r < MAX_STATES / 4 / 32; ++r) {
+        const int q = lane + 32 * r;
+        if (q < nq) cp_async16(dst + 4u * (head + 4 * q), src + head + 4 * q);
+      }
+      const bool is_u = lane == 6;
+      const int j = lane < 3 ? lane : head + 4 * nq + lane - 3;
+      if (is_u || (lane < 3 ? lane < head : lane < 6 && j < C))
+        cp_async4(is_u ? ring_u + 4u * slot : dst + 4u * j, is_u ? cost_u + f : src + j);
+      cp_async_arrive(full_s + 8 * slot);
+    }
+  } else {
+    const int base = tid * PER;
+    float shift[PER], dv[PER];
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int j = base + k;
+      shift[k] = __fmul_rn((float)j, lam_s);
+      dv[k] = j < C ? cost_v[j] : INF;
+    }
+    float du = cost_u[0];
 
-    // min and first argmin of dv; left (leftmost) and right (rightmost)
-    // cumulative mins within the lane
+    uint32_t packed[PER / 2];                  // a frame's pointers, stored during the next
+    for (int t = 1; t < N; ++t) {
+      const int par = t & 1, slot = (t - 1) % RING;
+      // pointer row t-2 maps frame t-1's state to frame t-2's; slot C is ptr_u
+      if (t > 1) {
+        uint2* row = reinterpret_cast<uint2*>(ptrs + (size_t)(t - 2) * PTR_PITCH + base);
+#pragma unroll
+        for (int q = 0; q < PER / 4; ++q) row[q] = make_uint2(packed[2 * q], packed[2 * q + 1]);
+      }
+      if ((t - 1) % WAIT_EVERY == 0) {       // rows t .. t + WAIT_EVERY - 1 have landed
+        const int last = min(t + WAIT_EVERY - 1, N - 1);
+        mbar_wait(full_s + 8 * ((last - 1) % RING), ((last - 1) / RING) & 1);
+      }
+      const int o = row_offset(t);
+      float ev[PER];
+#pragma unroll
+      for (int k = 0; k < PER; ++k) ev[k] = ring.v[slot][o + base + k];
+      const float eu = ring.u[slot];
+
+      // within the thread: the left (leftmost) and right (rightmost)
+      // cumulative mins and the first min of dv, interleaved
+      float mv = dv[0];
+      int mi = base;
+      float lv[PER], rv[PER];
+      int li[PER], ri[PER];
+      lv[0] = __fsub_rn(dv[0], shift[0]);
+      li[0] = base;
+      rv[PER - 1] = __fadd_rn(dv[PER - 1], shift[PER - 1]);
+      ri[PER - 1] = base + PER - 1;
+#pragma unroll
+      for (int k = 1; k < PER; ++k) {
+        if (dv[k] < mv) { mv = dv[k]; mi = base + k; }
+        const float a = __fsub_rn(dv[k], shift[k]);
+        if (lv[k - 1] <= a) { lv[k] = lv[k - 1]; li[k] = li[k - 1]; }
+        else { lv[k] = a; li[k] = base + k; }
+        const int q = PER - 1 - k;
+        const float b = __fadd_rn(dv[q], shift[q]);
+        if (rv[q + 1] <= b) { rv[q] = rv[q + 1]; ri[q] = ri[q + 1]; }
+        else { rv[q] = b; ri[q] = base + q; }
+      }
+      // across the warp's lanes: inclusive prefix (left) and suffix (right)
+      // scans of the thread totals, the earlier (left) or later (right)
+      // segment winning ties; the first min by redux on its key
+      float lt = lv[PER - 1], rt = rv[0];
+      int lti = li[PER - 1], rti = ri[0];
+      const int mkey = order_key(mv);
+      const int wkey = __reduce_min_sync(FULL, mkey);
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        // a lane with no source lane gets its own value back: no change
+        const float ol = __shfl_up_sync(FULL, lt, off);
+        const int oli = __shfl_up_sync(FULL, lti, off);
+        const float orr = __shfl_down_sync(FULL, rt, off);
+        const int ori = __shfl_down_sync(FULL, rti, off);
+        if (ol <= lt) { lt = ol; lti = oli; }
+        if (orr <= rt) { rt = orr; rti = ori; }
+      }
+      const int widx = __reduce_min_sync(FULL, mkey == wkey ? mi : 0x7fffffff);
+      if (lane == 31) {
+        xch[par][X_LV][warp] = __float_as_int(lt);
+        xch[par][X_LI][warp] = lti;
+      }
+      if (lane == 0) {
+        xch[par][X_RV][warp] = __float_as_int(rt);
+        xch[par][X_RI][warp] = rti;
+        xch[par][X_MK][warp] = wkey;
+        xch[par][X_MI][warp] = widx;
+      }
+      // the lanes before and after this one, while the barrier waits
+      const float pl = __shfl_up_sync(FULL, lt, 1);
+      const int pli = __shfl_up_sync(FULL, lti, 1);
+      const float pr = __shfl_down_sync(FULL, rt, 1);
+      const int pri = __shfl_down_sync(FULL, rti, 1);
+      chain_sync();
+      if (tid == 0) mbar_arrive(empty_s + 8 * slot);   // every chain thread has read it
+
+      float wl[4], wr[4];
+      int wli[4], wri[4], wk[4], wmi[4];
+      load4(reinterpret_cast<const float*>(xch[par][X_LV]), wl); load4(xch[par][X_LI], wli);
+      load4(reinterpret_cast<const float*>(xch[par][X_RV]), wr); load4(xch[par][X_RI], wri);
+      load4(xch[par][X_MK], wk); load4(xch[par][X_MI], wmi);
+      // the left carry into this thread: the warps before it, then the lanes
+      // before it (the earlier wins ties); with neither, its own first value,
+      // which no lv[k] loses to
+      float sl = wl[0];
+      int sli = wli[0];
+#pragma unroll
+      for (int w = 1; w < WARPS - 1; ++w)
+        if (w < warp && wl[w] < sl) { sl = wl[w]; sli = wli[w]; }
+      const bool take_wl = warp > 0 && (lane == 0 || sl <= pl);
+      const float cl = take_wl ? sl : (lane > 0 ? pl : lv[0]);
+      const int cli = take_wl ? sli : (lane > 0 ? pli : base);
+      // the right carry: the lanes after it, then the warps after it (the
+      // later wins ties); with neither, its own last value
+      float sr = wr[WARPS - 1];
+      int sri = wri[WARPS - 1];
+#pragma unroll
+      for (int w = WARPS - 2; w > 0; --w)
+        if (w > warp && wr[w] < sr) { sr = wr[w]; sri = wri[w]; }
+      const bool take_wr = warp < WARPS - 1 && (lane == 31 || sr <= pr);
+      const float cr = take_wr ? sr : (lane < 31 ? pr : rv[PER - 1]);
+      const int cri = take_wr ? sri : (lane < 31 ? pri : base + PER - 1);
+      // the first min of dv: the earlier warp wins ties
+      int gkey = wk[0], gmi = wmi[0];
+#pragma unroll
+      for (int w = 1; w < WARPS; ++w)
+        if (wk[w] < gkey) { gkey = wk[w]; gmi = wmi[w]; }
+
+      const float stay_u = __fadd_rn(du, sw);
+      float nd[PER];
+      int ptr[PER];
+      float mloc = INF;
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        float l = lv[k], r = rv[k];
+        int il = li[k], ir = ri[k];
+        if (cl <= l) { l = cl; il = cli; }
+        if (cr <= r) { r = cr; ir = cri; }
+        l = __fadd_rn(l, shift[k]);
+        r = __fsub_rn(r, shift[k]);
+        const bool take_l = l <= r;
+        const float best = take_l ? l : r;
+        const int arg = take_l ? il : ir;
+        nd[k] = base + k < C ? __fadd_rn(fminf(best, stay_u), ev[k]) : INF;
+        ptr[k] = best <= stay_u ? arg : C;
+        mloc = fminf(mloc, nd[k]);
+      }
+      const int nkey = __reduce_min_sync(FULL, order_key(mloc));
+      if (lane == 0) xch[par][X_NK][warp] = nkey;
+      const float from_v = __fadd_rn(key_value(gkey), sw);
+      const float new_du = __fadd_rn(fminf(du, from_v), eu);
+      const int ptr_u = du <= from_v ? C : gmi;
+#pragma unroll
+      for (int k = 0; k < PER; k += 2) {
+        const int p0 = base + k == C ? ptr_u : ptr[k];
+        const int p1 = base + k + 1 == C ? ptr_u : ptr[k + 1];
+        packed[k / 2] = (uint32_t)(uint16_t)p0 | ((uint32_t)(uint16_t)p1 << 16);
+      }
+      chain_sync();
+
+      int mk[4];
+      load4(xch[par][X_NK], mk);
+      int mkmin = mk[0];
+#pragma unroll
+      for (int w = 1; w < WARPS; ++w) mkmin = min(mkmin, mk[w]);
+      const float m = fminf(key_value(mkmin), new_du);
+#pragma unroll
+      for (int k = 0; k < PER; ++k) dv[k] = __fsub_rn(nd[k], m);   // pads stay INF
+      du = __fsub_rn(new_du, m);
+    }
+    if (N > 1) {
+      uint2* row = reinterpret_cast<uint2*>(ptrs + (size_t)(N - 2) * PTR_PITCH + base);
+#pragma unroll
+      for (int q = 0; q < PER / 4; ++q) row[q] = make_uint2(packed[2 * q], packed[2 * q + 1]);
+    }
+
+    // the last frame's state: first argmin of dv, or unvoiced
     float mv = dv[0];
     int mi = base;
-    float lv[PER_LANE], rv[PER_LANE];
-    int li[PER_LANE], ri[PER_LANE];
-    lv[0] = __fsub_rn(dv[0], shift[0]);
-    li[0] = base;
-    rv[PER_LANE - 1] = __fadd_rn(dv[PER_LANE - 1], shift[PER_LANE - 1]);
-    ri[PER_LANE - 1] = base + PER_LANE - 1;
 #pragma unroll
-    for (int k = 1; k < PER_LANE; ++k) {
+    for (int k = 1; k < PER; ++k)
       if (dv[k] < mv) { mv = dv[k]; mi = base + k; }
-      const float a = __fsub_rn(dv[k], shift[k]);
-      if (lv[k - 1] <= a) { lv[k] = lv[k - 1]; li[k] = li[k - 1]; }
-      else { lv[k] = a; li[k] = base + k; }
-      const int q = PER_LANE - 1 - k;
-      const float b = __fadd_rn(dv[q], shift[q]);
-      if (rv[q + 1] <= b) { rv[q] = rv[q + 1]; ri[q] = ri[q + 1]; }
-      else { rv[q] = b; ri[q] = base + q; }
-    }
-    // across lanes: argmin by butterfly; prefix (left) and suffix (right)
-    // scans of the lane totals, the earlier segment winning ties
-    float lt = lv[PER_LANE - 1], rt = rv[0];
-    int lti = li[PER_LANE - 1], rti = ri[0];
+    const int par = N & 1;
+    const int mkey = order_key(mv);
+    const int wkey = __reduce_min_sync(FULL, mkey);
+    const int widx = __reduce_min_sync(FULL, mkey == wkey ? mi : 0x7fffffff);
+    if (lane == 0) { xch[par][X_MK][warp] = wkey; xch[par][X_MI][warp] = widx; }
+    chain_sync();
+    int wk[4], wmi[4];
+    load4(xch[par][X_MK], wk); load4(xch[par][X_MI], wmi);
+    int gkey = wk[0];
+    mi = wmi[0];
 #pragma unroll
-    for (int off = 1; off < LANES; off <<= 1) {
-      const float om = __shfl_xor_sync(FULL, mv, off);
-      const int omi = __shfl_xor_sync(FULL, mi, off);
-      const float ol = __shfl_up_sync(FULL, lt, off);
-      const int oli = __shfl_up_sync(FULL, lti, off);
-      const float orr = __shfl_down_sync(FULL, rt, off);
-      const int ori = __shfl_down_sync(FULL, rti, off);
-      if (om < mv || (om == mv && omi < mi)) { mv = om; mi = omi; }
-      if (lane >= off && ol <= lt) { lt = ol; lti = oli; }
-      if (lane + off < LANES && orr <= rt) { rt = orr; rti = ori; }
-    }
-    const float pl = __shfl_up_sync(FULL, lt, 1);
-    const int pli = __shfl_up_sync(FULL, lti, 1);
-    const float pr = __shfl_down_sync(FULL, rt, 1);
-    const int pri = __shfl_down_sync(FULL, rti, 1);
-
-    const float stay_u = __fadd_rn(du, sw);
-    float nd[PER_LANE];
-    int ptr[PER_LANE];
-    float mloc = INF;
-#pragma unroll
-    for (int k = 0; k < PER_LANE; ++k) {
-      float l = lv[k], r = rv[k];
-      int il = li[k], ir = ri[k];
-      if (lane > 0 && pl <= l) { l = pl; il = pli; }
-      if (lane < LANES - 1 && pr <= r) { r = pr; ir = pri; }
-      l = __fadd_rn(l, shift[k]);
-      r = __fsub_rn(r, shift[k]);
-      const bool take_l = l <= r;
-      const float best = take_l ? l : r;
-      const int arg = take_l ? il : ir;
-      nd[k] = base + k < C ? __fadd_rn(fminf(best, stay_u), ev[k]) : INF;
-      ptr[k] = best <= stay_u ? arg : C;
-      mloc = fminf(mloc, nd[k]);
-    }
-    const float from_v = __fadd_rn(mv, sw);
-    const float new_du = __fadd_rn(fminf(du, from_v), eu);
-    const int ptr_u = du <= from_v ? C : mi;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) mloc = fminf(mloc, __shfl_xor_sync(FULL, mloc, off));
-    const float m = fminf(mloc, new_du);
-
-    // pointer row t-1 maps frame t's state to frame t-1's; slot C is ptr_u
-    uint32_t packed[PER_LANE / 2];
-#pragma unroll
-    for (int k = 0; k < PER_LANE; k += 2) {
-      const int p0 = base + k == C ? ptr_u : ptr[k];
-      const int p1 = base + k + 1 == C ? ptr_u : ptr[k + 1];
-      packed[k / 2] = (uint32_t)(uint16_t)p0 | ((uint32_t)(uint16_t)p1 << 16);
-    }
-    uint4* row = reinterpret_cast<uint4*>(ptrs + (size_t)(t - 1) * PTR_PITCH + base);
-    row[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
-    row[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
-
-#pragma unroll
-    for (int k = 0; k < PER_LANE; ++k) {
-      dv[k] = base + k < C ? __fsub_rn(nd[k], m) : INF;
-      ev[k] = nx[k];
-    }
-    du = __fsub_rn(new_du, m);
+    for (int w = 1; w < WARPS; ++w)
+      if (wk[w] < gkey) { gkey = wk[w]; mi = wmi[w]; }
+    s = key_value(gkey) <= du ? mi : C;
+    if (tid == 0) states[N - 1] = s;
   }
+  // the ring is drained (the chain waited for every row the producer
+  // copied) and the pointer rows are written
+  __syncthreads();
+  if (N < 2) return;
 
-  // the last frame's state: first argmin of dv, or unvoiced
-  float mv = dv[0];
-  int mi = base;
-#pragma unroll
-  for (int k = 1; k < PER_LANE; ++k)
-    if (dv[k] < mv) { mv = dv[k]; mi = base + k; }
-#pragma unroll
-  for (int off = 1; off < LANES; off <<= 1) {
-    const float om = __shfl_xor_sync(FULL, mv, off);
-    const int omi = __shfl_xor_sync(FULL, mi, off);
-    if (om < mv || (om == mv && omi < mi)) { mv = om; mi = omi; }
-  }
-  int s = mv <= du ? mi : C;
-  if (lane == 0) states[N - 1] = s;
-
-  // backtrack: stage BACK_ROWS pointer rows in shared memory, then walk them
-  __syncwarp();
-  constexpr int ROW_VECS = PTR_PITCH * 2 / 16;   // uint4 per row
-  for (int hi = N - 2; hi >= 0; hi -= BACK_ROWS) {
+  // backtrack: block b holds pointer rows hi_b - BACK_ROWS + 1 .. hi_b, hi_b =
+  // N - 2 - b BACK_ROWS; warps 1.. fetch block b + 1 while thread 0 walks b
+  const int nblk = (N - 1 + BACK_ROWS - 1) / BACK_ROWS;
+  const bool fetcher = warp > 0;
+  const int ftid = tid - 32;
+  constexpr int FTHREADS = THREADS - 32;
+  constexpr int ROW_VECS = PTR_PITCH * 2 / 16;   // 16-byte pieces per row
+  const unsigned back_s = smem_addr(&back.rows[0][0][0]);
+  auto fetch = [&](int b) {
+    const int hi = N - 2 - b * BACK_ROWS;
     const int lo = hi - BACK_ROWS + 1 > 0 ? hi - BACK_ROWS + 1 : 0;
     const int n = (hi - lo + 1) * ROW_VECS;
     const uint4* src = reinterpret_cast<const uint4*>(ptrs + (size_t)lo * PTR_PITCH);
-    uint4* dst = reinterpret_cast<uint4*>(&back[0][0]);
-    for (int i = lane; i < n; i += LANES) dst[i] = src[i];
-    __syncwarp();
-    if (lane == 0) {
+    const unsigned dst = back_s + (unsigned)(b & 1) * (unsigned)sizeof(back.rows[0]);
+    for (int i = ftid; i < n; i += FTHREADS) cp_async16(dst + 16u * i, src + i);
+    cp_async_commit();
+  };
+  if (fetcher) fetch(0);
+  for (int b = 0; b < nblk; ++b) {
+    if (fetcher) cp_async_wait_all();          // block b has landed
+    __syncthreads();                           // for all; and the walk of b - 1 is over
+    if (fetcher && b + 1 < nblk) fetch(b + 1);
+    if (tid == 0) {
+      const int hi = N - 2 - b * BACK_ROWS;
+      const int lo = hi - BACK_ROWS + 1 > 0 ? hi - BACK_ROWS + 1 : 0;
+      const int16_t* rows = &back.rows[b & 1][0][0];
       for (int t = hi; t >= lo; --t) {
-        s = back[t - lo][s];
+        s = rows[(t - lo) * PTR_PITCH + s];
         states[t] = s;
       }
     }
-    s = __shfl_sync(FULL, s, 0);
-    __syncwarp();
   }
 }
 
@@ -217,7 +462,11 @@ extern "C" {
 int f0_viterbi_f32(const float* cost_v, const float* cost_u, int16_t* ptrs, int* states, int N,
                    int C, float lam_s, float sw, cudaStream_t stream) {
   if (N < 1 || C < 1 || C + 1 > MAX_STATES) return (int)cudaErrorInvalidValue;
-  f0_viterbi_kernel<<<1, LANES, 0, stream>>>(cost_v, cost_u, ptrs, states, N, C, lam_s, sw);
+  const cudaError_t err = cudaFuncSetAttribute(
+      f0_viterbi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  f0_viterbi_kernel<<<1, THREADS, SMEM_BYTES, stream>>>(cost_v, cost_u, ptrs, states, N, C,
+                                                        lam_s, sw);
   return (int)cudaGetLastError();
 }
 

@@ -36,7 +36,7 @@ import ctypes
 import torch
 
 KERNEL = "f0_viterbi"
-MAX_STATES = 512    # C + 1 states the kernel holds: 16 per lane of one warp
+MAX_STATES = 512    # C + 1 states the kernel holds: 4 per thread of 4 warps
 PTR_PITCH = 512     # int16 pointers per frame in the kernel's scratch
 
 

@@ -55,7 +55,9 @@ def _costs(N, C, seed, ties=False):
     rng = np.random.default_rng(seed)
     cost_v = rng.standard_normal((N, C)).astype(np.float32)
     cost_u = (rng.standard_normal(N) * 0.5).astype(np.float32)
-    if ties:
+    if ties == "const":                                    # every row one value
+        cost_v[:] = cost_v[:, :1]
+    elif ties:
         cost_v[::3] = 1e3                                  # silent frames
         cost_v[1::4, 5:] = cost_v[1::4, 5:6]               # flat runs
         cost_v[2::5] = np.round(cost_v[2::5])              # repeated values
@@ -207,7 +209,10 @@ def test_features_match_jax():
 
 
 @pytest.mark.parametrize("N,C,ties", [(300, 482, False), (300, 482, True), (40, 9, True),
-                                      (1, 482, False), (2, 1, True)])
+                                      (1, 482, False), (2, 1, True),
+                                      # the CUDA kernel's widest and warp-edge C, and
+                                      # constant rows (the argmin ties at every level)
+                                      (300, 511, True), (300, 128, True), (300, 482, "const")])
 def test_plain_viterbi_states_identical_to_jax(N, C, ties):
     cost_v, cost_u = _costs(N, C, seed=N + C, ties=ties)
     want = np.asarray(jax.jit(jax_f0._viterbi)(jnp.asarray(cost_v), jnp.asarray(cost_u),

@@ -221,7 +221,9 @@ def _viterbi_costs(N, C, seed, ties, device):
     rng = np.random.default_rng(seed)
     cost_v = rng.standard_normal((N, C)).astype(np.float32)
     cost_u = (rng.standard_normal(N) * 0.5).astype(np.float32)
-    if ties:
+    if ties == "const":                                    # every row one value
+        cost_v[:] = cost_v[:, :1]
+    elif ties:
         cost_v[::3] = 1e3                                  # silent frames
         cost_v[1::4, C // 2:] = cost_v[1::4, C // 2:C // 2 + 1]   # flat runs
         cost_v[2::5] = np.round(cost_v[2::5])              # repeated values
@@ -234,6 +236,12 @@ def _viterbi_costs(N, C, seed, ties, device):
     *[(N, C, True) for N in (1, 2, 1501) for C in (1, 9, 482)],
     (1501, 482, False),     # the main path's shape: one 30-s chunk, 482 candidates
     (300, MAX_STATES - 1, True),
+    # C + 1 on either side of a thread's (4 states) and a warp's (128) boundary
+    *[(70, C, True) for C in (3, 4, 5, 127, 128, 129, 255, 256, 511)],
+    # N around the emission ring (8 rows) and the backtrack block (32 rows)
+    *[(N, 482, True) for N in (7, 8, 9, 32, 33, 64, 65)],
+    # every cost_v row constant: the argmin ties at every level
+    (1501, 482, "const"), (65, MAX_STATES - 1, "const"), (33, 5, "const"),
 ])
 def test_viterbi_kernel_matches_plain(N, C, ties):
     cost_v, cost_u = _viterbi_costs(N, C, seed=N + C, ties=ties, device=_cuda())
