@@ -57,6 +57,15 @@ Phases (any failure exits non-zero, before the result line):
      uploads (2 Viterbi launches per pair, no host f0), new-pair and repeat
      medians beside the host-f0 ones and a traced new pair; one
      wavlm_only_original conversion, its vocoder against the CPU;
+     then [mp3], mp3 inputs on the same model: the committed fixtures of
+     tools/make_mp3_fixtures.py (a 30-s 16-kHz mono source, a 30-s
+     44.1-kHz joint-stereo target with a LAME tag) decoded by the port's
+     decoder, built from csrc/mp3dec.cc (host times, PCM digests held to
+     the recorded ones); convert_pair(fast=True) on the mp3 pair as a new
+     pair, then without and with post_opt_0.2 in turns with its 16-bit WAV
+     twins (12 attention launches, 1 concat with post_opt; waveforms
+     bit-equal); one fast bulk_convert over 2 singers whose folders mix
+     .mp3 and .wav, bit-equal to the all-WAV twin;
   5. the host-pool and bulk paths at full width (the same mix model, random
      weights from seed 0, "highest"): convert_pair(fast=False) against
      convert_pair(fast=True) on a 30-s pair with f0 sidecars (12 attention
@@ -1084,6 +1093,173 @@ def phase_original(src: str, ref: str, out: str, run, dev) -> None:
     if not rel <= WAV_REL_TOL:
         fail(f"wavlm_only_original vocoder differs between cuda and cpu: rel {rel}")
     del oknn, cpu_voc
+
+
+MP3_FIXTURES = os.path.join("tests", "torch_data", "mp3_fixtures.json")
+MP3_DECODE_RUNS = 5                     # timed decodes of each fixture
+MP3_PAIR_RUNS = 3                       # no_post_opt mp3 pairs and WAV twins, in turns
+
+
+def write_wav16(path: str, pcm, sr: int) -> None:
+    """A 16-bit PCM WAV of int16 (channels, T): load_audio reads it back as
+    pcm / 32768, the floats decode_mp3 gives for the same samples."""
+    import struct
+
+    import numpy as np
+
+    body = np.ascontiguousarray(pcm.T).astype("<i2").tobytes()
+    ch = pcm.shape[0]
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 36 + len(body)) + b"WAVE" + b"fmt "
+                + struct.pack("<IHHIIHH", 16, 1, ch, sr, sr * ch * 2, ch * 2, 16)
+                + b"data" + struct.pack("<I", len(body)) + body)
+
+
+def phase_mp3(root: str, knn, repo: str) -> None:
+    """[mp3] The committed mp3 fixtures (tools/make_mp3_fixtures.py: a 30-s
+    16-kHz mono source, a 30-s 44.1-kHz joint-stereo target with a LAME tag)
+    decoded by the port's decoder (built from csrc/mp3dec.cc), their PCM
+    digests held to the ones recorded where they were made;
+    convert_pair(fast=True) on the mp3 pair without and with post_opt,
+    counted (12 attention launches, 1 concat launch with post_opt) and
+    bit-equal to the same call on 16-bit WAVs of the decode; one fast
+    bulk_convert over speaker folders that mix .mp3 and .wav, bit-equal to
+    the all-WAV twin; where libmp3lame loads, an .mp3 output decoded back."""
+    import glob
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from knnsvc_torch.io.audio import load_audio
+    from knnsvc_torch.io.mp3 import decode_mp3
+    from knnsvc_torch.ops.attention import gated_bias_attention
+    from knnsvc_torch.ops.build import build_host_library
+    from knnsvc_torch.ops.concat_scan import concat_cost_pair
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    lib = build_host_library("mp3dec")
+    log(f"[mp3] decoder {lib.name} ready in {time.perf_counter() - t0:.2f} s (c++ -O2, "
+        f"built at first use)")
+    with open(os.path.join(repo, MP3_FIXTURES)) as f:
+        fixtures = json.load(f)
+    mp3_dir, wav_dir = os.path.join(root, "mp3"), os.path.join(root, "mp3_wav")
+    os.makedirs(mp3_dir)
+    os.makedirs(wav_dir)
+    paths = {}
+    for key, rec in fixtures.items():
+        src = os.path.join(repo, rec["file"])
+        x, sr = decode_mp3(src, normalize=False)
+        pcm = x.astype(np.int16)
+        times = []
+        for _ in range(MP3_DECODE_RUNS):
+            t0 = time.perf_counter()
+            decode_mp3(src)
+            times.append(time.perf_counter() - t0)
+        digest = hashlib.sha256(pcm.tobytes()).hexdigest()
+        if (sr, pcm.shape[0], pcm.shape[1], digest) != (
+                rec["sample_rate"], rec["channels"], rec["samples"], rec["pcm_sha256"]):
+            fail(f"mp3 {rec['file']}: {sr} Hz x {pcm.shape[0]}, {pcm.shape[1]} samples, PCM "
+                 f"sha256 {digest}; recorded {rec}")
+        med = statistics.median(times)
+        log(f"[mp3] decode {rec['file']} ({sr} Hz x {pcm.shape[0]}, "
+            f"{pcm.shape[1] / sr:.2f} s): host median {1e3 * med:.1f} ms, min "
+            f"{1e3 * min(times):.1f} ms ({MP3_DECODE_RUNS} runs), {pcm.shape[1] / sr / med:.0f} "
+            f"audio-s/s; PCM sha256 equal to the recorded one")
+        paths[key] = shutil.copy(src, os.path.join(mp3_dir, f"{key}.mp3"))
+        write_wav16(os.path.join(wav_dir, f"{key}.wav"), pcm, sr)
+
+    def pair(d, ext, post_opt):
+        """convert_pair with the kernels' counts set to 0 just before and
+        read just after."""
+        gated_bias_attention.launches = 0
+        concat_cost_pair.launches = 0
+        t0 = time.perf_counter()
+        out = knn.convert_pair(os.path.join(d, f"src.{ext}"), os.path.join(d, f"ref.{ext}"),
+                               fast=True, post_opt=post_opt,
+                               output_path=os.path.join(d, f"out_{post_opt}.wav"))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = (gated_bias_attention.launches, concat_cost_pair.launches)
+        want = (LAUNCHES_PER_PAIR, 0 if post_opt == "no_post_opt" else 1)
+        if launches != want:
+            fail(f"convert_pair on the {ext} pair ({post_opt}) launched (attention, concat) "
+                 f"{launches} times, expected {want}")
+        y, sr = load_audio(out)
+        if sr != 16000 or not np.isfinite(y).all():
+            fail(f"convert_pair on the {ext} pair ({post_opt}): sr {sr}, finite "
+                 f"{bool(np.isfinite(y).all())}")
+        return dt, launches, y
+
+    # the mp3 pair as a new pair: its f0 is extracted (and cached beside it);
+    # the same tracks then serve the WAV twins
+    new_s, launches, first = pair(mp3_dir, "mp3", "no_post_opt")
+    for side in glob.glob(os.path.join(mp3_dir, "*_f0*.npy")):
+        shutil.copy(side, wav_dir)
+    log(f"[mp3] convert_pair(fast=True) on the mp3 pair as a new pair (f0 extracted) in "
+        f"{new_s:.3f} s; launches (attention, concat) {launches}")
+    for post_opt, runs in (("no_post_opt", MP3_PAIR_RUNS), (POST_OPT, 1)):
+        times, outs = {"mp3": [], "wav": []}, {}
+        for _ in range(runs):  # in turns, f0 cached
+            for d, ext in ((mp3_dir, "mp3"), (wav_dir, "wav")):
+                dt, launches, outs[ext] = pair(d, ext, post_opt)
+                times[ext].append(dt)
+        got, want = outs["mp3"], outs["wav"]
+        if got.shape != want.shape or not np.array_equal(got, want) or (
+                post_opt == "no_post_opt" and not np.array_equal(first, want)):
+            fail(f"convert_pair on the mp3 pair ({post_opt}): waveform {got.shape} differs "
+                 f"from the WAV twins' {want.shape}")
+        log(f"[mp3] convert_pair(fast=True, {post_opt!r}), f0 cached, s ({runs} in turns): "
+            f"mp3 pair {', '.join(f'{t:.4f}' for t in times['mp3'])} (median "
+            f"{statistics.median(times['mp3']):.4f}), WAV twins "
+            f"{', '.join(f'{t:.4f}' for t in times['wav'])} (median "
+            f"{statistics.median(times['wav']):.4f}); launches (attention, concat) "
+            f"{launches} each; waveform bit-equal to the WAV twins'")
+
+    # speaker folders that mix .mp3 and .wav, and their all-WAV twin
+    trees = {}
+    for tag, src_dir, ext in (("mixed", mp3_dir, "mp3"), ("wav", wav_dir, "wav")):
+        data = os.path.join(root, f"mp3_bulk_{tag}")
+        for key, (name, hz, seed) in zip(("src", "ref"), BULK_SINGERS):
+            os.makedirs(os.path.join(data, name))
+            shutil.copy(os.path.join(src_dir, f"{key}.{ext}"), os.path.join(data, name))
+            for side in glob.glob(os.path.join(src_dir, f"{key}_f0*.npy")):
+                shutil.copy(side, os.path.join(data, name))
+            wav, f0 = sung_wav(BULK_SECONDS[0], hz, seed)
+            save_path = os.path.join(data, name, f"{name}_0.wav")
+            write_wav16(save_path, np.round(wav * 32767).astype(np.int16)[None], 16000)
+            np.save(os.path.splitext(save_path)[0] + "_f0.npy", f0)
+        out_dir = os.path.join(root, f"mp3_bulk_out_{tag}")
+        gated_bias_attention.launches = 0
+        t0 = time.perf_counter()
+        written = knn.bulk_convert(data, data, out_dir, fast=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if len(written) != 4 or gated_bias_attention.launches == 0:
+            fail(f"bulk_convert over the {tag} folders wrote {len(written)} files (want 4) "
+                 f"with {gated_bias_attention.launches} attention launches")
+        trees[tag] = read_tree(out_dir)
+        log(f"[mp3] bulk_convert(fast=True) over 2 singers x (one 30-s {ext}, one "
+            f"{BULK_SECONDS[0]:.0f}-s wav): {len(written)} conversions in {dt:.3f} s, "
+            f"{gated_bias_attention.launches} attention launches")
+    if trees["mixed"].keys() != trees["wav"].keys() or any(
+            not np.array_equal(trees["mixed"][k], trees["wav"][k]) for k in trees["wav"]):
+        fail("bulk_convert over the mixed mp3/wav folders differs from the all-WAV twin")
+    log("[mp3] bulk_convert outputs bit-equal to the all-WAV twin's")
+
+    try:
+        from knnsvc_torch.io.mp3 import _load_lame
+
+        _load_lame()
+    except NotImplementedError:
+        log("[mp3] libmp3lame is not on this host: no .mp3 output written")
+    else:
+        out = knn.convert_pair(paths["src"], paths["ref"], fast=True,
+                               output_path=os.path.join(root, "converted.mp3"))
+        y, sr = decode_mp3(out)
+        log(f"[mp3] convert_pair wrote {out}, decoded back: {sr} Hz, {y.shape}")
+    log(f"[mp3] phase in {time.perf_counter() - t_phase:.1f} s")
 
 
 def chunks_of(n_samples: int) -> int:
@@ -2810,6 +2986,7 @@ def main() -> int:
         phase_stream_slice(root, knn, cpu)
         del cpu
         phase_full(root, knn, records, dev)
+        phase_mp3(root, knn, repo)
         bulk = phase_bulk(root, knn, records, dev)
         phase_stream(root, knn, records, dev)
         phase_sharded(root, knn, records, dev, bulk)

@@ -5,8 +5,10 @@ The reference reads audio with torchaudio/librosa (libsndfile/ffmpeg) and
 writes PCM_32 WAV via soundfile (ref lib_ongaku_test.py:89-143). Here WAV I/O
 is implemented directly on the RIFF container (numpy), supporting PCM
 8/16/24/32-bit and IEEE float. FLAC reads and writes go through the
-clean-room native codec (native/flacdec, io/flac.py). mp3 raises: the JAX
-package decodes it through pygame, which the card's machine does not have.
+clean-room native codec (native/flacdec, io/flac.py). mp3 reads go through
+the port's clean-room Layer III decoder (csrc/mp3dec.cc, io/mp3.py) and mp3
+writes through libmp3lame via ctypes (the codec the reference's
+pydub/ffmpeg export bottoms out in).
 
 Output convention matches the reference exactly: float waveforms are peak-
 normalized only if |x|>1, scaled by 2^31-1 and written as PCM_32
@@ -39,11 +41,14 @@ def load_audio(path: Union[str, os.PathLike], normalize: bool = True) -> tuple[n
         from knnsvc_torch.io.flac import decode_flac  # native decoder
 
         return decode_flac(path, normalize=normalize)
+    if ext == ".mp3":
+        from knnsvc_torch.io.mp3 import decode_mp3  # clean-room Layer III decoder
+
+        return decode_mp3(path, normalize=normalize)
     if ext != ".wav":
         raise NotImplementedError(
-            f"knnsvc_torch decodes WAV and FLAC (got {ext}); mp3 is not ported: the "
-            "JAX package decodes it through pygame, which the port does not depend on "
-            "— decode to wav first."
+            f"Only WAV/FLAC/mp3 decoding is available in this environment (got {ext}); "
+            "decode to wav first."
         )
     with open(path, "rb") as f:
         data = f.read()
@@ -136,10 +141,18 @@ def save_audio(filename: Union[str, os.PathLike], waveform, sample_rate: int) ->
         # FLAC quantizer
         encode_flac(filename, waveform.astype(np.float64) / (2 ** 31 - 1), sample_rate)
         return
+    if ext == ".mp3":
+        from knnsvc_torch.io.mp3 import encode_mp3  # libmp3lame via ctypes
+
+        # int32 PCM re-enters as [-1,1] float for the codec, at the
+        # reference's 320k request (clamped by the MPEG bitrate table for
+        # 16 kHz audio exactly as ffmpeg clamps it — lib_ongaku_test.py:118)
+        encode_mp3(filename, waveform.astype(np.float64) / (2 ** 31 - 1),
+                   sample_rate, bitrate_kbps=320)
+        return
     if ext not in _SUPPORTED_WRITE_EXT:
         raise NotImplementedError(
-            f"knnsvc_torch encodes WAV and FLAC (got {ext}); mp3 is not ported "
-            "(its encoder is libmp3lame, which the port does not depend on)."
+            f"Only WAV/FLAC/mp3 encoding is available in this environment (got {ext})."
         )
 
     if waveform.ndim == 1:

@@ -1,5 +1,6 @@
 """Builds a hand-written CUDA kernel (knnsvc_torch/csrc/<name>.cu) at first
-use and loads it with ctypes.
+use and loads it with ctypes; build_host_library does the same for host C++
+(knnsvc_torch/csrc/<name>.cc, the mp3 decoder) with the host compiler.
 
 The source is compiled by nvcc for Hopper (sm_90a) into a shared library
 with a plain C interface — no PyTorch headers, so a build takes seconds, not
@@ -22,6 +23,9 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC_DIR / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# host C++: no -ffast-math, and no fused multiply-add contraction, so every
+# host computes the same bits
+HOST_CXX_FLAGS = ("-O2", "-fPIC", "-shared", "-std=c++17", "-ffp-contract=off")
 BUILD_TIMEOUT_S = 600
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -65,6 +69,28 @@ def build_kernel(name: str) -> KernelBuild:
     os.replace(tmp, lib)
     ptxas = [ln.strip() for ln in log.splitlines() if "ptxas" in ln or "spill" in ln]
     return KernelBuild(name, lib, ptxas)
+
+
+def build_host_library(name: str) -> Path:
+    """Compile csrc/<name>.cc with `c++` from PATH unless an up-to-date
+    library exists. Raises RuntimeError with the compiler's output if the
+    build fails."""
+    src = CSRC_DIR / f"{name}.cc"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(HOST_CXX_FLAGS).encode()).hexdigest()
+    lib = BUILD_DIR / f"lib{name}_{digest[:12]}.so"
+    if lib.exists():
+        return lib
+    cxx = shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError(f"{name}: no C++ compiler (`c++` on PATH) to build {src}")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".tmp{os.getpid()}")
+    proc = subprocess.run([cxx, *HOST_CXX_FLAGS, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{name}: c++ exit {proc.returncode}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
 
 
 def load_kernel(name: str) -> ctypes.CDLL:

@@ -33,7 +33,9 @@ def _f0_track(T, seed):
 def test_audio_io_matches_jax(tmp_path):
     """The port's numpy copy of io/audio.py: a stereo 22.05 kHz WAV written
     by the JAX package reads, downmixes and resamples to 16 kHz identically;
-    mp3 is refused (FLAC: test_torch_io.py)."""
+    mp3 is written with the JAX package's bytes and read as the JAX package
+    reads it, to within one int16 step (FLAC: test_torch_io.py; mp3 in
+    depth: test_torch_mp3.py)."""
     from knnsvc_tpu.io import audio as jax_audio
     from knnsvc_torch.io import audio
 
@@ -46,10 +48,14 @@ def test_audio_io_matches_jax(tmp_path):
     np.testing.assert_array_equal(
         audio.resample(audio.to_mono(got), 22050, 16000),
         jax_audio.resample(jax_audio.to_mono(want), 22050, 16000))
-    with pytest.raises(NotImplementedError, match="mp3"):
-        audio.load_audio(tmp_path / "x.mp3")
-    with pytest.raises(NotImplementedError, match="mp3"):
-        audio.save_audio(tmp_path / "x.mp3", stereo, 22050)
+    audio.save_audio(tmp_path / "port.mp3", stereo, 22050)
+    jax_audio.save_audio(tmp_path / "jax.mp3", stereo, 22050)
+    assert (tmp_path / "port.mp3").read_bytes() == (tmp_path / "jax.mp3").read_bytes()
+    (want, want_sr), (got, got_sr) = (jax_audio.load_audio(tmp_path / "jax.mp3"),
+                                      audio.load_audio(tmp_path / "jax.mp3"))
+    assert got_sr == want_sr == 22050 and got.shape == want.shape
+    steps = np.abs(got.astype(np.float64) - want) * 32768
+    assert steps.max() <= 1 and np.mean(steps == 0) >= 0.99
 
 
 def test_get_f0_yin_and_sidecars_match_jax(tmp_path, monkeypatch):

@@ -1,9 +1,10 @@
 """knnsvc_torch's entry points and guards on the CPU: the CLI driven end to
 end from `.knnsvc.pkl` files (and with --precision high), no silent CPU
-fallback, the multi-device matchers give the dense matchers' waveforms, the
-unported options (orbax, mp3) raise, no file of the port imports JAX or the
-JAX package, every module of the JAX package but those two has a
-counterpart, and each subpackage exports the JAX package's names."""
+fallback, the multi-device matchers give the dense matchers' waveforms, an
+`.mp3` output path writes an mp3, the unported option (orbax directories)
+raises, no file of the port imports JAX or the JAX package, every module of
+the JAX package but io/orbax_ckpt.py has a counterpart, and each subpackage
+exports the JAX package's names."""
 
 import ast
 import json
@@ -16,6 +17,7 @@ import torch
 from knnsvc_tpu.io.checkpoints import save_params
 from knnsvc_torch.cli.inference import main
 from knnsvc_torch.hub import KnnSvc
+from knnsvc_torch.io.audio import load_audio
 from knnsvc_torch.utils.layer_weights import generate_matrix_from_index
 
 from test_torch_common import (SMALL_HIFIGAN, SMALL_WAVLM, int16_codes, small_generator,
@@ -45,8 +47,22 @@ def test_unported_options_raise(pair):
         want = pair(fast, dense, f"{dense}_{fast}.wav")
         got = pair(fast, "sharded" if dense == "exact" else "sharded_int8", "sharded.wav")
         np.testing.assert_array_equal(got, want)
-    with pytest.raises(NotImplementedError, match="mp3"):
-        knn.convert_pair(src, ref, fast=True, output_path=str(root / "unported.mp3"))
+    # an .mp3 output path: libmp3lame's CBR file (160 kbit/s at 16 kHz), which
+    # decodes back near the WAV output, at tests/test_io_audio.py's 15 dB, in
+    # the band that LAME keeps at this rate (its low-pass is at ~7.2 kHz; this
+    # random-weight output holds 4% of its energy above 7 kHz)
+    wav = load_audio(knn.convert_pair(src, ref, fast=True, output_path=str(root / "out.wav")))[0][0]
+    decoded, sr = load_audio(knn.convert_pair(src, ref, fast=True,
+                                              output_path=str(root / "out.mp3")))
+    assert sr == 16000 and decoded.shape[0] == 1
+    lag = int(np.argmax(np.correlate(decoded[0][:len(wav) // 2 + 2000], wav[:len(wav) // 2],
+                                     "valid")))
+    n = min(len(wav), len(decoded[0]) - lag)
+    assert lag == 576 + 529 and n == len(wav)  # LAME's encoder delay, the decoder's
+    want, got = np.fft.rfft(wav[:n]), np.fft.rfft(decoded[0][lag:lag + n])
+    band = np.fft.rfftfreq(n, 1 / 16000) < 7000
+    snr = 10 * np.log10(np.sum(np.abs(want[band]) ** 2) / np.sum(np.abs(got - want)[band] ** 2))
+    assert snr > 15.0, f"mp3 output SNR {snr:.1f} dB below 7 kHz"
     orbax = root / "orbax_only"
     (orbax / "orbax").mkdir(parents=True, exist_ok=True)
     with pytest.raises(NotImplementedError, match="orbax"):
@@ -193,12 +209,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_every_jax_module_has_a_counterpart():
-    """The JAX package's modules without a port are the two left out on
-    purpose: mp3 (pygame) and orbax (which imports JAX)."""
+    """The JAX package's one module without a port is the one left out on
+    purpose: orbax (which imports JAX; its checkpoints reach the port as the
+    pickle the JAX package exports)."""
     def modules(pkg):
         return {str(p.relative_to(REPO / pkg)) for p in (REPO / pkg).rglob("*.py")}
 
-    assert modules("knnsvc_tpu") - modules("knnsvc_torch") == {"io/mp3.py", "io/orbax_ckpt.py"}
+    assert modules("knnsvc_tpu") - modules("knnsvc_torch") == {"io/orbax_ckpt.py"}
 
 
 SUBPACKAGES = ["", "ops", "models", "models.wavlm", "models.hifigan", "match", "io", "utils",
