@@ -66,6 +66,13 @@ Phases (any failure exits non-zero, before the result line):
      twins (12 attention launches, 1 concat with post_opt; waveforms
      bit-equal); one fast bulk_convert over 2 singers whose folders mix
      .mp3 and .wav, bit-equal to the all-WAV twin;
+     then [orbax], orbax checkpoints without orbax (io/orbax_ckpt.py, its
+     zstd and CRC-32C codecs built from csrc/orbax_io.cc): the committed
+     JAX-written checkpoint of tools/make_orbax_fixtures.py restored, every
+     leaf's SHA-256 held to the JAX package's restore; a directory holding
+     only orbax/ (a full-width mix TrainState) served by KnnSvc.load through
+     convert_pair(fast=True, post_opt_0.2) (12 attention launches, 1 concat
+     launch), bit-equal to its .knnsvc.pkl twin; phase 7 adds the rest;
   5. the host-pool and bulk paths at full width (the same mix model, random
      weights from seed 0, "highest"): convert_pair(fast=False) against
      convert_pair(fast=True) on a 30-s pair with f0 sidecars (12 attention
@@ -109,6 +116,10 @@ Phases (any failure exits non-zero, before the result line):
      knnsvc.d_step / g_step spans; train() for 11 steps with validation every 5 (best-val
      retention), resume_from continuing the step count, and the trained g_
      served by KnnSvc.load(ckpt_dir, "mix") with convert_pair(fast=True);
+     [orbax] the real-config TrainState after the warm steps written with
+     save_train_state and read back bit-equal (bytes, GB/s each way), then
+     train(resume_from=, checkpoint_backend='orbax') from it: the restored
+     state bit-equal to the written one, and one step with finite metrics;
   8. the multi-device matchers (knnsvc_torch/parallel) on logical shards of
      the card, the same model: an hour-scale pool (180 000 x 1024, seeded)
      at 1 and 4 shards, sharded_knn_topk against knn_topk and
@@ -148,6 +159,7 @@ repository, it fails and prints no result.
 
 import json
 import logging
+import math
 import os
 import re
 import shutil
@@ -1260,6 +1272,246 @@ def phase_mp3(root: str, knn, repo: str) -> None:
         y, sr = decode_mp3(out)
         log(f"[mp3] convert_pair wrote {out}, decoded back: {sr} Hz, {y.shape}")
     log(f"[mp3] phase in {time.perf_counter() - t_phase:.1f} s")
+
+
+# orbax checkpoints (knnsvc_torch/io/orbax_ckpt.py)
+ORBAX_FIXTURE = os.path.join("tests", "torch_data", "orbax_tiny")
+ORBAX_FIXTURES = os.path.join("tests", "torch_data", "orbax_fixtures.json")
+ORBAX_RESUME_DIR = "orbax_resume"        # (c)'s checkpoint, which (e) resumes
+ORBAX_DECODE_PASSES = 20                 # (b): the decoder's rate on orbax's frames
+
+
+def path_leaves(tree, prefix: str = "") -> list:
+    """[(dotted path, leaf)] of a tree's array leaves (None leaves and empty
+    dicts have none), in key order."""
+    out = []
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            out += path_leaves(tree[k], f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, sub in enumerate(tree):
+            out += path_leaves(sub, f"{prefix}{i}.")
+    elif tree is not None:
+        out.append((prefix[:-1], tree))
+    return out
+
+
+def leaf_digests(tree) -> dict:
+    """{dotted path: {dtype, shape, sha256}} of a tree's array leaves, as
+    tools/make_orbax_fixtures.py records them."""
+    import hashlib
+
+    import numpy as np
+
+    out = {}
+    for path, leaf in path_leaves(tree):
+        a = np.ascontiguousarray(np.asarray(leaf))
+        out[path] = {"dtype": str(a.dtype), "shape": list(a.shape),
+                     "sha256": hashlib.sha256(a.tobytes()).hexdigest()}
+    return out
+
+
+def trees_bit_equal(a, b) -> bool:
+    """The same array leaves at the same paths, of the same dtypes, shapes
+    and bytes."""
+    import numpy as np
+
+    la, lb = path_leaves(a), path_leaves(b)
+    if [p for p, _ in la] != [p for p, _ in lb]:
+        return False
+    for (_, x), (_, y) in zip(la, lb):
+        x, y = np.ascontiguousarray(np.asarray(x)), np.ascontiguousarray(np.asarray(y))
+        if x.dtype != y.dtype or x.shape != y.shape or x.tobytes() != y.tobytes():
+            return False
+    return True
+
+
+def phase_orbax(root: str, repo: str, dev) -> None:
+    """[orbax] Orbax checkpoints without orbax (io/orbax_ckpt.py, its codecs
+    in csrc/orbax_io.cc):
+    (a) the codec library built with the host compiler, timed;
+    (b) the committed JAX-written checkpoint (tools/make_orbax_fixtures.py:
+        a tiny TrainState and a multi-block leaf, written by the JAX
+        package's save_train_state) restored on this host, every leaf's
+        SHA-256 equal to the one the JAX package's restore gave; and the
+        zstd decoder's rate on its level-1 frames, in memory;
+    (d) a directory holding only orbax/: the full-width mix TrainState
+        (init_train_state at HiFiGANConfig()) written by save_train_state,
+        served by KnnSvc.load(dir, "mix") through convert_pair(fast=True,
+        post_opt_0.2) on a 30-s pair (12 attention launches, 1 concat
+        launch), its waveform bit-equal to the same generator loaded from a
+        .knnsvc.pkl.
+    (c) and (e) run in the training phase, on its real-config TrainState."""
+    import numpy as np
+    import torch
+
+    from knnsvc_torch.config import HiFiGANConfig, ModelFamily, WavLMConfig
+    from knnsvc_torch.hub import KnnSvc
+    from knnsvc_torch.io.checkpoints import save_params
+    from knnsvc_torch.io import ocdbt, zarr2
+    from knnsvc_torch.io.jax_params import train_state_to_numpy
+    from knnsvc_torch.io.orbax_ckpt import restore_train_state, save_train_state
+    from knnsvc_torch.models.wavlm.model import init_wavlm_params
+    from knnsvc_torch.ops.attention import gated_bias_attention
+    from knnsvc_torch.ops.build import build_host_library
+    from knnsvc_torch.ops.concat_scan import concat_cost_pair
+    from knnsvc_torch.train.trainer import init_train_state
+
+    t_phase = time.perf_counter()
+    # (a)
+    t0 = time.perf_counter()
+    lib = build_host_library("orbax_io")
+    log(f"[orbax] (a) codecs {lib.name} ready in {time.perf_counter() - t0:.2f} s (c++ -O2, "
+        f"built at first use)")
+    # (b)
+    with open(os.path.join(repo, ORBAX_FIXTURES)) as f:
+        record = json.load(f)
+    t0 = time.perf_counter()
+    tree, step, epoch = restore_train_state(os.path.join(repo, ORBAX_FIXTURE))
+    read_s = time.perf_counter() - t0
+    digests = leaf_digests(tree)
+    n_bytes = sum(np.asarray(v).nbytes for _, v in path_leaves(tree))
+    if (step, epoch) != (record["step"], record["epoch"]) or digests != record["leaves"]:
+        bad = sorted(k for k in record["leaves"] if digests.get(k) != record["leaves"][k])
+        fail(f"orbax fixture: step {step}, epoch {epoch} (recorded {record['step']}, "
+             f"{record['epoch']}); {len(bad)} leaves differ, e.g. {bad[:3]}; "
+             f"{len(digests)} leaves read, {len(record['leaves'])} recorded")
+    log(f"[orbax] (b) the JAX-written fixture {ORBAX_FIXTURE} (step {step}, epoch {epoch}): "
+        f"{len(digests)} array leaves, {n_bytes} bytes, restored in {read_s:.3f} s; every "
+        f"leaf's SHA-256 equal to the JAX package's restore")
+    # the decoder alone on orbax's own (entropy-coded, level-1) frames: every
+    # chunk of the fixture, already in memory, decoded ORBAX_DECODE_PASSES times
+    db = ocdbt.Database(os.path.join(repo, ORBAX_FIXTURE, str(step), "default"))
+    frames = []
+    for key in db.keys():
+        if key.endswith(b"/.zarray"):
+            meta = zarr2.parse_zarray(db.read(key))
+            size = math.prod(meta["chunks"]) * (2 if meta["dtype"] == zarr2.BFLOAT16
+                                                else np.dtype(meta["dtype"]).itemsize)
+            name = key[: -len(b"/.zarray")]
+            frames += [(db.read(k), np.empty(size, np.uint8)) for k in db.keys()
+                       if k.startswith(name + b"/") and k != key]
+    t0 = time.perf_counter()
+    for _ in range(ORBAX_DECODE_PASSES):
+        for frame, out in frames:
+            ocdbt.zstd_decode_into(frame, out)
+    decode_s = time.perf_counter() - t0
+    coded, decoded = sum(len(f) for f, _ in frames), sum(o.nbytes for _, o in frames)
+    log(f"[orbax] (b) the zstd decoder on the fixture's level-1 frames ({len(frames)} frames, "
+        f"{coded} bytes coded, {decoded} decoded; in memory, one thread, "
+        f"{ORBAX_DECODE_PASSES} passes): {decode_s:.3f} s = "
+        f"{ORBAX_DECODE_PASSES * decoded / decode_s / 1e9:.3f} GB/s decoded")
+    # (d) an orbax-only directory served, against its .knnsvc.pkl twin
+    h = HiFiGANConfig()
+    state = train_state_to_numpy(init_train_state(h.seed, h, ModelFamily.MIX, device="cpu"))
+    serve_dir = os.path.join(root, "orbax_serve")
+    t0 = time.perf_counter()
+    save_train_state(os.path.join(serve_dir, "only", "orbax"), 0, state)
+    write_s = time.perf_counter() - t0
+    os.makedirs(os.path.join(serve_dir, "pkl"))
+    save_params(os.path.join(serve_dir, "pkl", "g_mix_00000000.knnsvc.pkl"),
+                {"generator": state["g_params"]})
+    wavlm_pkl = os.path.join(serve_dir, "wavlm.knnsvc.pkl")
+    save_params(wavlm_pkl, {"cfg": {}, "model": init_wavlm_params(
+        WavLMConfig(), torch.Generator().manual_seed(0))})
+    src, ref = write_pair(serve_dir, FULL_SECONDS, sidecars=True)
+    t0 = time.perf_counter()
+    served = KnnSvc.load(os.path.join(serve_dir, "only"), "mix", wavlm_ckpt=wavlm_pkl, device=dev)
+    load_s = time.perf_counter() - t0
+    twin = KnnSvc.load(os.path.join(serve_dir, "pkl"), "mix", wavlm_ckpt=wavlm_pkl, device=dev)
+    gated_bias_attention.launches = 0
+    concat_cost_pair.launches = 0
+    out = served.convert_pair(src, ref, fast=True, post_opt=POST_OPT,
+                              output_path=os.path.join(serve_dir, "served.wav"))
+    torch.cuda.synchronize()
+    launches = (gated_bias_attention.launches, concat_cost_pair.launches)
+    if launches != (LAUNCHES_PER_PAIR, 1):
+        fail(f"KnnSvc.load on an orbax-only directory: convert_pair launched (attention, "
+             f"concat) {launches} times, expected ({LAUNCHES_PER_PAIR}, 1)")
+    waves = [m.convert_waveform(src, ref, post_opt=POST_OPT).cpu().numpy() for m in (served, twin)]
+    if not (np.isfinite(waves[0]).all() and np.abs(waves[0]).max() > 0
+            and waves[0].tobytes() == waves[1].tobytes() and os.path.getsize(out) > 44):
+        fail("the orbax-served model's waveform differs from its .knnsvc.pkl twin's")
+    log(f"[orbax] (d) a full-width mix TrainState ({len(path_leaves(state))} array leaves) "
+        f"written in {write_s:.2f} s; KnnSvc.load on the directory holding only orbax/ in "
+        f"{load_s:.2f} s; convert_pair(fast=True, {POST_OPT!r}) on the {FULL_SECONDS:.0f}-s pair: "
+        f"launches (attention, concat) {launches}; pre-quantize waveform {waves[0].shape}, peak "
+        f"{np.abs(waves[0]).max():.3e}, bit-equal to the .knnsvc.pkl twin's")
+    del served, twin, state
+    shutil.rmtree(serve_dir, ignore_errors=True)
+    log(f"[orbax] phase in {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_orbax_train_state(root: str, state) -> None:
+    """[orbax] (c) The training phase's real-config TrainState (HiFiGANConfig(),
+    full MPD and MSD, after its warm steps: live moments) written with
+    save_train_state and read back bit-equal, the bytes and GB/s of each
+    way (host: to and from the card's machine's temporary directory)."""
+    import numpy as np
+
+    from knnsvc_torch.io.jax_params import train_state_to_numpy
+    from knnsvc_torch.io.orbax_ckpt import restore_train_state, save_train_state
+
+    t0 = time.perf_counter()
+    tree = train_state_to_numpy(state)
+    host_s = time.perf_counter() - t0
+    leaves = path_leaves(tree)
+    n_bytes = sum(np.asarray(v).nbytes for _, v in leaves)
+    directory = os.path.join(root, ORBAX_RESUME_DIR, "orbax")
+    step = int(state.steps)
+    t0 = time.perf_counter()
+    save_train_state(directory, step, tree)
+    write_s = time.perf_counter() - t0
+    on_disk = sum(os.path.getsize(os.path.join(d, n)) for d, _, names in os.walk(directory)
+                  for n in names)
+    t0 = time.perf_counter()
+    back, got_step, epoch = restore_train_state(directory)
+    read_s = time.perf_counter() - t0
+    if not (got_step == step and epoch == 0 and trees_bit_equal(back, tree)):
+        fail(f"orbax: the real-config TrainState does not read back bit-equal (step {got_step})")
+    log(f"[orbax] (c) the real-config TrainState at step {step}: {len(leaves)} array leaves, "
+        f"{n_bytes} bytes ({n_bytes / 1e9:.3f} GB; {on_disk} on disk), taken off the card in "
+        f"{host_s:.2f} s; save_train_state {write_s:.2f} s = {n_bytes / write_s / 1e9:.2f} GB/s, "
+        f"restore_train_state {read_s:.2f} s = {n_bytes / read_s / 1e9:.2f} GB/s; bit-equal")
+
+
+def phase_orbax_resume(root: str, h, roots_kw: dict, dev) -> None:
+    """[orbax] (e) train(..., resume_from=, checkpoint_backend='orbax') from
+    (c)'s directory at the real config: the restored state (parameters,
+    moments, AdamW step counts, learning rates, steps) bit-equal to what was
+    written, then one step with finite metrics."""
+    import numpy as np
+
+    from knnsvc_torch.io.jax_params import train_state_to_numpy
+    from knnsvc_torch.io.orbax_ckpt import restore_train_state
+    from knnsvc_torch.train.loop import train
+
+    resume = os.path.join(root, ORBAX_RESUME_DIR)
+    written, step, _ = restore_train_state(os.path.join(resume, "orbax"))
+    kw = dict(training_epochs=1000, validation_interval=1000, summary_interval=1,
+              stdout_interval=1000, device=dev, resume_from=resume,
+              checkpoint_backend="orbax", **roots_kw)
+    t0 = time.perf_counter()
+    state = train(h, checkpoint_path=os.path.join(root, "orbax_run0"), max_steps=step, **kw)
+    restore_s = time.perf_counter() - t0
+    if not trees_bit_equal(train_state_to_numpy(state), written):
+        fail("train(resume_from=, checkpoint_backend='orbax'): the restored state differs from "
+             "the one written")
+    del state
+    t0 = time.perf_counter()
+    state = train(h, checkpoint_path=os.path.join(root, "orbax_run1"), max_steps=step + 1, **kw)
+    step_s = time.perf_counter() - t0
+    with open(os.path.join(root, "orbax_run1", "logs", "train_log.jsonl")) as fh:
+        logged = [json.loads(line) for line in fh]
+    metrics = [s for s in logged if "loss_gen_total" in s]
+    if not (len(metrics) == 1 and metrics[0]["step"] == step + 1 and state.steps == step + 1
+            and all(np.isfinite(v) for k, v in metrics[0].items() if k != "step")):
+        fail(f"train() resumed from orbax: logged {metrics}, state.steps {state.steps}")
+    log(f"[orbax] (e) train(resume_from=, checkpoint_backend='orbax') from step {step}: the "
+        f"restored state bit-equal to the written one (parameters, moments, AdamW counts, "
+        f"learning rates, steps; train() call {restore_s:.2f} s), then step {step + 1} in a "
+        f"{step_s:.2f}-s train() call: {json.dumps({k: v for k, v in metrics[0].items()})}")
+    del state
 
 
 def chunks_of(n_samples: int) -> int:
@@ -2397,6 +2649,7 @@ def phase_train(root: str, records, dev) -> None:
                 torch, compute_dtype), top=label == "highest")
         finally:
             set_precision("highest")
+    phase_orbax_train_state(root, state)
     del state, batches
     phase_dp_train(host_batches, dev)
 
@@ -2451,6 +2704,8 @@ def phase_train(root: str, records, dev) -> None:
     if not (bool(torch.isfinite(wav).all()) and float(wav.abs().max()) > 0
             and gated_bias_attention.launches == 2 * LAUNCHES_PER_PAIR):
         fail("the trained checkpoint does not serve")
+    del knn
+    phase_orbax_resume(root, h_loop, roots_kw, dev)
     log(f"[train] training phase in {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -2987,6 +3242,7 @@ def main() -> int:
         del cpu
         phase_full(root, knn, records, dev)
         phase_mp3(root, knn, repo)
+        phase_orbax(root, repo, dev)
         bulk = phase_bulk(root, knn, records, dev)
         phase_stream(root, knn, records, dev)
         phase_sharded(root, knn, records, dev, bulk)

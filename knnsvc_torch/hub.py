@@ -384,7 +384,9 @@ class KnnSvc:
         folded on load) or a `.knnsvc.pkl` pytree written by the JAX
         package. The WavLM file is `wavlm_ckpt` (default
         <ckpt_dir>/WavLM-Large.pt): a torch `.pt` ({'cfg', 'model'}) or a
-        `.knnsvc.pkl`. Orbax directories are not read: orbax imports JAX."""
+        `.knnsvc.pkl`. A directory with no such file but an `orbax/`
+        checkpoint directory (train(checkpoint_backend='orbax') of either
+        package) serves the generator of its newest TrainState."""
         from knnsvc_torch.io.checkpoints import load_hifigan_checkpoint, load_wavlm_checkpoint
 
         h = HiFiGANConfig() if config_path is None else HiFiGANConfig.from_json(config_path)
@@ -394,13 +396,13 @@ class KnnSvc:
                    and model_family_for_ckpt_type(os.path.basename(p)) == family]
         cp_g = sorted(matches)[-1] if matches else None
         if cp_g is None:
-            if os.path.isdir(os.path.join(ckpt_dir, "orbax")):
-                raise NotImplementedError(
-                    f"{ckpt_dir}/orbax: orbax checkpoints are not read by knnsvc_torch "
-                    "(orbax imports JAX); export the generator to .knnsvc.pkl with the "
-                    "JAX package's save_params")
-            raise FileNotFoundError(f"no checkpoint matching *{ckpt_type}* in {ckpt_dir}")
-        if cp_g.endswith(".knnsvc.pkl"):
+            orbax_dir = os.path.join(ckpt_dir, "orbax")
+            if not os.path.isdir(orbax_dir):
+                raise FileNotFoundError(f"no checkpoint matching *{ckpt_type}* in {ckpt_dir}")
+            from knnsvc_torch.io.orbax_ckpt import restore_params
+
+            hifigan_params, _ = restore_params(orbax_dir, "g_params")
+        elif cp_g.endswith(".knnsvc.pkl"):
             payload = load_params(cp_g)
             # trained g_ checkpoints wrap the params as {'generator': ...}
             hifigan_params = payload.get("generator", payload)

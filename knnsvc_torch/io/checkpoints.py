@@ -15,13 +15,16 @@ load only checkpoints from a trusted source.
 both packages: a pickled tree of dicts, lists and numpy arrays, so a
 `g_<type>_<steps>.knnsvc.pkl` written by either package loads in both.
 `load_numpy_params` reads one with an unpickler that admits numpy and
-builtins only: a JAX-written `do_` file holds optax's state classes, which
-the port neither has nor imports.
+builtins only, and, by name, the optax state NamedTuples that a JAX-written
+`do_` file holds: each becomes a plain stand-in NamedTuple with optax's
+fields (the port neither has nor imports optax), which
+io/jax_params.adamw_from_optax reads.
 """
 
 from __future__ import annotations
 
 import pickle
+from collections import namedtuple
 from typing import Any, Mapping
 
 import numpy as np
@@ -286,15 +289,29 @@ class ForeignPickleError(ValueError):
     """The pickle names a class from outside numpy and the builtins."""
 
 
+# the optax classes in a do_ pickle of the JAX package's training loop (its
+# inject_hyperparams(adamw) state), each with its fields
+_OPTAX_STATES = {
+    ("optax.schedules._inject", "InjectStatefulHyperparamsState"):
+        ("count", "hyperparams", "hyperparams_states", "inner_state"),
+    ("optax._src.transform", "ScaleByAdamState"): ("count", "mu", "nu"),
+    ("optax._src.base", "EmptyState"): (),
+}
+_STAND_INS = {key: namedtuple(key[1], fields) for key, fields in _OPTAX_STATES.items()}
+
+
 class _NumpyUnpickler(pickle.Unpickler):
     def find_class(self, module: str, name: str):
         if module.split(".")[0] in ("numpy", "builtins", "collections", "copyreg"):
             return super().find_class(module, name)
+        if (module, name) in _STAND_INS:
+            return _STAND_INS[(module, name)]
         raise ForeignPickleError(f"{module}.{name}")
 
 
 def load_numpy_params(path: str) -> Any:
-    """load_params that admits only numpy arrays and builtin containers;
-    any other class raises ForeignPickleError (a ValueError) naming it."""
+    """load_params that admits only numpy arrays, builtin containers and
+    stand-ins for optax's AdamW state classes; any other class raises
+    ForeignPickleError (a ValueError) naming it."""
     with open(path, "rb") as f:
         return _NumpyUnpickler(f).load()

@@ -258,3 +258,140 @@ def train_state_from_numpy(g_params: dict[str, Any], mpd_params: dict[str, Any],
         _adam_state(opt_d, {"mpd": mpd, "msd": msd}, {"mpd": mu[0], "msd": mu[1]},
                     {"mpd": nu[0], "msd": nu[1]}, int(adam_d["count"]))
     return TrainState(generator, mpd, msd, opt_g, opt_d, family, steps)
+
+
+# ------------------------------------------------- optax's AdamW state, both ways
+
+_OPTAX_HYPERPARAMS = ("b1", "b2", "eps", "eps_root", "learning_rate", "weight_decay")
+
+
+def optax_tree(state):
+    """optax state as plain containers: a NamedTuple (or a pickle's stand-in
+    for one) becomes a dict of its fields, an empty one (EmptyState) None, a
+    tuple a list — the form orbax restores without a template."""
+    if hasattr(state, "_fields"):
+        return {f: optax_tree(getattr(state, f)) for f in state._fields} if state._fields \
+            else None
+    if isinstance(state, dict):
+        return {k: optax_tree(v) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return [optax_tree(v) for v in state]
+    return state
+
+
+def adamw_from_optax(state) -> dict[str, Any]:
+    """optax.inject_hyperparams(optax.adamw) state (count, hyperparams
+    {b1, b2, eps, eps_root, learning_rate, weight_decay}, hyperparams_states,
+    inner_state = (ScaleByAdamState(count, mu, nu), EmptyState(),
+    EmptyState())), as NamedTuples or plain containers -> {"mu", "nu",
+    "count", "learning_rate", "b1", "b2", "eps", "weight_decay"}."""
+    tree = optax_tree(state)
+    if not isinstance(tree, dict) or not {"count", "hyperparams", "inner_state"} <= set(tree):
+        raise ValueError("not an optax inject_hyperparams state")
+    hyper = tree["hyperparams"]
+    missing = set(_OPTAX_HYPERPARAMS) - set(hyper)
+    if missing:
+        raise ValueError(f"optax state lacks the AdamW hyperparameters {sorted(missing)}")
+    inner = tree["inner_state"]
+    if not isinstance(inner, list) or not isinstance(inner[0], dict) \
+            or not {"count", "mu", "nu"} <= set(inner[0]) or any(s is not None for s in inner[1:]):
+        raise ValueError("optax state is not adamw's (scale_by_adam, then two stateless "
+                         "transforms)")
+    if float(np.asarray(hyper["eps_root"])) != 0.0:
+        raise ValueError("optax AdamW with eps_root != 0 has no torch AdamW equivalent")
+    out = {k: float(np.asarray(hyper[k])) for k in _OPTAX_HYPERPARAMS if k != "eps_root"}
+    return {"mu": inner[0]["mu"], "nu": inner[0]["nu"], "count": int(np.asarray(inner[0]["count"])),
+            **out}
+
+
+def _set_hyperparams(optimizer: torch.optim.Optimizer, adam: dict[str, Any]) -> None:
+    """optax keeps the hyperparameters as float32: a stored value that is
+    the float32 rounding of the optimizer's own (the config's) keeps the
+    config's value, so a saved and restored state steps as one never saved;
+    any other stored value is taken as it is."""
+    def pick(current: float, stored: float) -> float:
+        return current if np.float32(current) == np.float32(stored) else stored
+
+    for group in optimizer.param_groups:
+        b1, b2 = group["betas"]
+        group.update(lr=pick(group["lr"], adam["learning_rate"]),
+                     betas=(pick(b1, adam["b1"]), pick(b2, adam["b2"])),
+                     eps=pick(group["eps"], adam["eps"]),
+                     weight_decay=pick(group["weight_decay"], adam["weight_decay"]))
+
+
+def _check_buffer_moments(tree, path: str = "") -> None:
+    """The spectral-norm buffers u / v_pow get no gradient in the JAX step,
+    so their Adam moments stay 0; torch's AdamW keeps none for buffers."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if k in ("u", "v_pow") and np.any(np.asarray(v)):
+                raise ValueError(f"optax state: nonzero Adam moment of the buffer {path}{k}")
+            _check_buffer_moments(v, f"{path}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _check_buffer_moments(v, f"{path}{i}.")
+
+
+def train_state_from_jax(tree: dict[str, Any], h: HiFiGANConfig, family: ModelFamily,
+                         device: str | torch.device = "cpu"):
+    """The JAX package's TrainState as a tree ({"g_params", "mpd_params",
+    "msd_params", "opt_g", "opt_d", "steps"}, the optimizer states optax's
+    inject_hyperparams(adamw)) -> train.trainer.TrainState on `device`, with
+    the Adam moments, the AdamW step count, learning rate and
+    hyperparameters, and the global step count."""
+    adam_g, adam_d = adamw_from_optax(tree["opt_g"]), adamw_from_optax(tree["opt_d"])
+    for adam in (adam_g, adam_d):
+        for moment in (adam["mu"], adam["nu"]):
+            _check_buffer_moments(moment)
+    state = train_state_from_numpy(tree["g_params"], tree["mpd_params"], tree["msd_params"], h,
+                                   family, device, adam_g=adam_g, adam_d=adam_d,
+                                   steps=int(np.asarray(tree["steps"])))
+    _set_hyperparams(state.opt_g, adam_g)
+    _set_hyperparams(state.opt_d, adam_d)
+    return state
+
+
+def _moments(module: nn.Module, optimizer: torch.optim.Optimizer, key: str) -> dict[str, Any]:
+    """An Adam moment of each parameter of `module` as a JAX-layout tree;
+    the spectral-norm buffers, which optax's tree holds too but which never
+    receive a gradient, are zeros, as in every state the JAX step makes."""
+    params = dict(module.named_parameters())
+    named = {}
+    for name, t in module.state_dict().items():
+        st = optimizer.state.get(params[name]) if name in params else None
+        named[name] = st[key] if st else torch.zeros_like(t)
+    return tree_from_tensors(named)
+
+
+def _optax_adamw(optimizer: torch.optim.Optimizer, modules: list[nn.Module]) -> dict[str, Any]:
+    group = optimizer.param_groups[0]
+    steps = [float(s["step"]) for s in optimizer.state.values() if "step" in s]
+    count = np.asarray(int(steps[0]) if steps else 0, np.int32)
+    mu = [_moments(m, optimizer, "exp_avg") for m in modules]
+    nu = [_moments(m, optimizer, "exp_avg_sq") for m in modules]
+    f32 = lambda v: np.asarray(v, np.float32)  # noqa: E731
+    return {"count": count.copy(),
+            "hyperparams": {"b1": f32(group["betas"][0]), "b2": f32(group["betas"][1]),
+                            "eps": f32(group["eps"]), "eps_root": f32(0.0),
+                            "learning_rate": f32(group["lr"]),
+                            "weight_decay": f32(group["weight_decay"])},
+            "hyperparams_states": {},
+            "inner_state": [{"count": count.copy(), "mu": mu[0] if len(mu) == 1 else mu,
+                             "nu": nu[0] if len(nu) == 1 else nu}, None, None]}
+
+
+def train_state_to_numpy(state) -> dict[str, Any]:
+    """The inverse of train_state_from_jax: the port's TrainState -> the JAX
+    package's TrainState as a tree of numpy arrays (g_params with live
+    {"g", "v"}, the discriminators with their spectral-norm u / v_pow, each
+    optimizer as optax's inject_hyperparams(adamw) state, the D optimizer's
+    moments as JAX's (mpd, msd) pair, steps as int32), the tree that the JAX
+    package's restore_train_state takes under its init_train_state
+    template."""
+    return {"g_params": tree_from_module(state.generator),
+            "mpd_params": tree_from_module(state.mpd),
+            "msd_params": tree_from_module(state.msd),
+            "opt_g": _optax_adamw(state.opt_g, [state.generator]),
+            "opt_d": _optax_adamw(state.opt_d, [state.mpd, state.msd]),
+            "steps": np.asarray(state.steps, np.int32)}

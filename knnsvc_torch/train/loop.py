@@ -12,14 +12,17 @@ mesh (one device, or the batch sharded over the mesh's 'data' axis).
   do_<type>_<steps>.knnsvc.pkl {mpd, msd, optim_g, optim_d, steps, epoch}
   in the JAX package's layout (the trees; the optimizer states are the
   port's AdamW moments as plain numpy dicts), so a g_ written by either
-  package serves in both; checkpoint_backend="torch" instead saves the whole
-  TrainState with torch.save (in the role of the JAX package's orbax
-  backend) and export_servable_checkpoint turns it into the g_/do_ pair;
+  package serves in both; checkpoint_backend="orbax" instead saves the whole
+  TrainState as an orbax checkpoint under <checkpoint_path>/orbax, in the
+  JAX package's TrainState layout (io/orbax_ckpt.py, which needs neither
+  orbax nor JAX), so either package resumes the other's, and
+  export_servable_checkpoint turns it into the g_/do_ pair;
 - metrics go to logs/train_log.jsonl with the reference's scalars
   (ref :281-284,336), and the first val_artifacts validation utterances'
   audio and mel to logs/.
 Resuming from a g_/do_ pair keeps the step count continuous; a do_ written
-by the JAX package holds optax's state and raises a ValueError.
+by the JAX package holds optax's AdamW state, which maps onto the port's
+AdamW (io/jax_params.adamw_from_optax).
 Under torch.distributed (parallel/mesh.initialize_distributed) every process
 draws the same global batches and trains on its rank's contiguous part of
 each (the step averages the gradients over the processes); process 0 alone
@@ -38,15 +41,17 @@ import numpy as np
 import torch
 
 from knnsvc_torch.config import HiFiGANConfig, ModelFamily
-from knnsvc_torch.io.checkpoints import (ForeignPickleError, load_numpy_params, save_params)
-from knnsvc_torch.io.jax_params import train_state_from_numpy, tree_from_module, tree_from_tensors
+from knnsvc_torch.io.checkpoints import load_numpy_params, save_params
+from knnsvc_torch.io.jax_params import (train_state_from_jax, train_state_from_numpy,
+                                        train_state_to_numpy, tree_from_module)
+from knnsvc_torch.io.orbax_ckpt import restore_train_state, save_train_state
 from knnsvc_torch.train.dataset import BATCH_KEYS, MelDataset, batch_iterator
 from knnsvc_torch.train.trainer import (TrainState, distributed, eval_bucket, eval_step_padded,
                                         init_train_state, make_train_step, set_learning_rate)
 
 MAX_STEPS = 1_000_000  # ref ddsp_train.py:172
 OPTIM_FORMAT = "knnsvc_torch.adamw"
-TORCH_STATE_DIR = "torch_state"
+ORBAX_DIR = "orbax"
 
 
 def _family(h: HiFiGANConfig, with_harm: bool | None) -> ModelFamily:
@@ -108,40 +113,25 @@ def _resume_pair(resume_from: str, h: HiFiGANConfig, family: ModelFamily,
         os.path.join(resume_from, "*do_*"))
     if not (cp_g and cp_do):
         return None
-    try:
-        do = load_numpy_params(cp_do)
-    except ForeignPickleError as e:
-        raise ValueError(
-            f"{cp_do} holds {e}: a do_ checkpoint written by the JAX package keeps "
-            "optax's optimizer state, which knnsvc_torch does not read; resume it with "
-            "knnsvc_tpu, or start knnsvc_torch from its g_ file alone") from e
+    do = load_numpy_params(cp_do)
     g = load_numpy_params(cp_g)["generator"]
     steps = int(do.get("steps", 0))
-    state = train_state_from_numpy(g, do["mpd"], do["msd"], h, family, dev, steps=steps)
-    names_g, names_d = _param_names(state)
-    for key, opt, names in (("optim_g", state.opt_g, names_g), ("optim_d", state.opt_d, names_d)):
-        if key in do:
-            _optimizer_from_numpy(opt, names, do[key])
+    jax_written = "optim_g" in do and not (isinstance(do["optim_g"], dict)
+                                           and do["optim_g"].get("format") == OPTIM_FORMAT)
+    if jax_written:
+        # the JAX loop's pair: optax's inject_hyperparams(adamw) states
+        state = train_state_from_jax({"g_params": g, "mpd_params": do["mpd"],
+                                      "msd_params": do["msd"], "opt_g": do["optim_g"],
+                                      "opt_d": do["optim_d"], "steps": steps}, h, family, dev)
+    else:
+        state = train_state_from_numpy(g, do["mpd"], do["msd"], h, family, dev, steps=steps)
+        names_g, names_d = _param_names(state)
+        for key, opt, names in (("optim_g", state.opt_g, names_g),
+                                ("optim_d", state.opt_d, names_d)):
+            if key in do:
+                _optimizer_from_numpy(opt, names, do[key])
     print(f"restored from {cp_g} / {cp_do} at step {steps + 1}", flush=True)
     return state, steps + 1, int(do.get("epoch", -1)) + 1
-
-
-def _save_torch_state(path: str, state: TrainState, steps: int, epoch: int) -> None:
-    names_g, names_d = _param_names(state)
-    os.makedirs(path, exist_ok=True)
-    target = os.path.join(path, f"state_{steps:08d}.pt")
-    torch.save({"generator": state.generator.state_dict(), "mpd": state.mpd.state_dict(),
-                "msd": state.msd.state_dict(), "opt_g": state.opt_g.state_dict(),
-                "opt_d": state.opt_d.state_dict(), "names_g": names_g, "names_d": names_d,
-                "steps": steps, "epoch": epoch}, target)
-    for old in glob.glob(os.path.join(path, "state_*.pt")):
-        if old != target:
-            os.remove(old)
-
-
-def _load_torch_state(path: str, dev: torch.device) -> dict | None:
-    latest = _latest(os.path.join(path, "state_*.pt"))
-    return None if latest is None else torch.load(latest, map_location=dev, weights_only=True)
 
 
 def train(h: HiFiGANConfig, audio_root_train: str, feat_root_train: str, audio_root_valid: str,
@@ -162,9 +152,10 @@ def train(h: HiFiGANConfig, audio_root_train: str, feat_root_train: str, audio_r
     this process's card under torch.distributed) that divides the batch
     size.
     compute_dtype='bfloat16' runs the bf16 step (the reference's fp16 AMP
-    analogue, ref ddsp_train.py:153-155). checkpoint_backend='torch' keeps
-    the best-val TrainState as one torch.save file under
-    <checkpoint_path>/torch_state instead of the g_/do_ pair. val_artifacts:
+    analogue, ref ddsp_train.py:153-155). checkpoint_backend='orbax' keeps
+    the best-val TrainState as an orbax checkpoint under
+    <checkpoint_path>/orbax (the JAX package's layout: either package
+    resumes the other's) instead of the g_/do_ pair. val_artifacts:
     the first N validation utterances' generated audio and mel go to logs/
     at each validation (ref ddsp_train.py:320-336)."""
     from knnsvc_torch.dsp.stft import log_mel_spectrogram
@@ -173,9 +164,9 @@ def train(h: HiFiGANConfig, audio_root_train: str, feat_root_train: str, audio_r
     from knnsvc_torch.parallel.mesh import make_mesh
     from knnsvc_torch.precision import apply_precision
 
-    if checkpoint_backend not in ("pickle", "torch"):
-        raise ValueError(f"checkpoint_backend must be 'pickle' or 'torch', not "
-                         f"{checkpoint_backend!r} (orbax imports JAX)")
+    if checkpoint_backend not in ("pickle", "orbax"):
+        raise ValueError(f"checkpoint_backend must be 'pickle' or 'orbax', not "
+                         f"{checkpoint_backend!r}")
     dev = resolve_device(device)
     world, rank = 1, 0
     if distributed():
@@ -203,16 +194,17 @@ def train(h: HiFiGANConfig, audio_root_train: str, feat_root_train: str, audio_r
     state = init_train_state(h.seed if seed is None else seed, h, family,
                              disc_width_scale=disc_width_scale, device=dev)
     start_epoch, start_steps = 0, 0
-    if resume_from is not None and checkpoint_backend == "torch":
-        saved = _load_torch_state(os.path.join(resume_from, TORCH_STATE_DIR), dev)
-        if saved is not None:
-            for key in ("generator", "mpd", "msd"):
-                getattr(state, key).load_state_dict(saved[key])
-            state.opt_g.load_state_dict(saved["opt_g"])
-            state.opt_d.load_state_dict(saved["opt_d"])
-            state.steps = int(saved["steps"])
-            start_steps, start_epoch = state.steps + 1, int(saved["epoch"]) + 1
-            print(f"restored torch checkpoint at step {start_steps} (epoch {start_epoch})",
+    if resume_from is not None and checkpoint_backend == "orbax":
+        try:
+            tree, start_steps, ckpt_epoch = restore_train_state(
+                os.path.join(resume_from, ORBAX_DIR), template=train_state_to_numpy(state))
+        except FileNotFoundError:
+            pass
+        else:
+            state = train_state_from_jax(tree, h, family, dev)
+            start_steps += 1
+            start_epoch = ckpt_epoch + 1
+            print(f"restored orbax checkpoint at step {start_steps} (epoch {start_epoch})",
                   flush=True)
     elif resume_from is not None:
         resumed = _resume_pair(resume_from, h, family, dev)
@@ -287,9 +279,9 @@ def train(h: HiFiGANConfig, audio_root_train: str, feat_root_train: str, audio_r
                 prev_min_val_err, prev_min_val_err_step = val_err, steps
                 if rank:
                     return
-                if checkpoint_backend == "torch":
-                    _save_torch_state(os.path.join(checkpoint_path, TORCH_STATE_DIR), state,
-                                      steps, epoch)
+                if checkpoint_backend == "orbax":
+                    save_train_state(os.path.join(checkpoint_path, ORBAX_DIR), steps,
+                                     train_state_to_numpy(state), keep=1, epoch=epoch)
                     cur_best_ckpts = []
                 else:
                     names_g, names_d = _param_names(state)
@@ -339,22 +331,21 @@ def train(h: HiFiGANConfig, audio_root_train: str, feat_root_train: str, audio_r
 def export_servable_checkpoint(checkpoint_path: str, h: HiFiGANConfig,
                                with_harm: bool | None = None, ckpt_type: str | None = None,
                                out_dir: str | None = None) -> tuple[str, str]:
-    """Turn the best-val TrainState of checkpoint_backend='torch' into the
-    g_/do_ pair, servable by `KnnSvc.load(out_dir, ckpt_type)` and resumable
-    by `train(resume_from=out_dir)` (the deploy artifact of
-    ref ddsp_train.py:352-367). Returns (g_path, do_path)."""
+    """Turn the best-val TrainState of checkpoint_backend='orbax' (the
+    newest step under <checkpoint_path>/orbax, whichever package wrote it)
+    into the g_/do_ pair, servable by `KnnSvc.load(out_dir, ckpt_type)` and
+    resumable by `train(resume_from=out_dir)` (the deploy artifact of
+    ref ddsp_train.py:352-367). Returns (g_path, do_path); FileNotFoundError
+    when orbax/ holds no step."""
     family = _family(h, with_harm)
     if ckpt_type is None:
         ckpt_type = "mix" if family == ModelFamily.MIX else "wavlm_only"
-    saved = _load_torch_state(os.path.join(checkpoint_path, TORCH_STATE_DIR),
-                              torch.device("cpu"))
-    if saved is None:
-        raise FileNotFoundError(f"no {TORCH_STATE_DIR}/state_*.pt under {checkpoint_path}")
     out_dir = checkpoint_path if out_dir is None else out_dir
+    tree, steps, epoch = restore_train_state(os.path.join(checkpoint_path, ORBAX_DIR))
+    state = train_state_from_jax(tree, h, family, "cpu")
+    names_g, names_d = _param_names(state)
     os.makedirs(out_dir, exist_ok=True)
-    g_path, do_path = _save_pair(
-        out_dir, ckpt_type, int(saved["steps"]), int(saved["epoch"]),
-        tree_from_tensors(saved["generator"]), tree_from_tensors(saved["mpd"]),
-        tree_from_tensors(saved["msd"]), optimizer_to_numpy(saved["opt_g"], saved["names_g"]),
-        optimizer_to_numpy(saved["opt_d"], saved["names_d"]))
-    return g_path, do_path
+    return tuple(_save_pair(
+        out_dir, ckpt_type, steps, epoch, tree["g_params"], tree["mpd_params"],
+        tree["msd_params"], optimizer_to_numpy(state.opt_g.state_dict(), names_g),
+        optimizer_to_numpy(state.opt_d.state_dict(), names_d)))

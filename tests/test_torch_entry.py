@@ -1,10 +1,10 @@
 """knnsvc_torch's entry points and guards on the CPU: the CLI driven end to
 end from `.knnsvc.pkl` files (and with --precision high), no silent CPU
 fallback, the multi-device matchers give the dense matchers' waveforms, an
-`.mp3` output path writes an mp3, the unported option (orbax directories)
-raises, no file of the port imports JAX or the JAX package, every module of
-the JAX package but io/orbax_ckpt.py has a counterpart, and each subpackage
-exports the JAX package's names."""
+`.mp3` output path writes an mp3, a directory holding only an orbax
+checkpoint serves, no file of the port imports JAX, the JAX package, orbax
+or tensorstore, every module of the JAX package has a counterpart, and each
+subpackage exports the JAX package's names."""
 
 import ast
 import json
@@ -63,10 +63,22 @@ def test_unported_options_raise(pair):
     band = np.fft.rfftfreq(n, 1 / 16000) < 7000
     snr = 10 * np.log10(np.sum(np.abs(want[band]) ** 2) / np.sum(np.abs(got - want)[band] ** 2))
     assert snr > 15.0, f"mp3 output SNR {snr:.1f} dB below 7 kHz"
+    # a directory holding only orbax/ (a training run's TrainState) serves
+    # its generator: the same waveform as the model built from the same trees
+    from knnsvc_torch.io.checkpoints import save_params as port_save_params
+    from knnsvc_torch.io.orbax_ckpt import save_train_state
+
     orbax = root / "orbax_only"
-    (orbax / "orbax").mkdir(parents=True, exist_ok=True)
-    with pytest.raises(NotImplementedError, match="orbax"):
-        KnnSvc.load(str(orbax), "mix", device="cpu")
+    save_train_state(str(orbax / "orbax"), 7, {"g_params": gen_params, "steps": np.int32(7)})
+    port_save_params(str(root / "wavlm_small.knnsvc.pkl"), {"cfg": SMALL_WAVLM,
+                                                            "model": wavlm_params})
+    (root / "small_config.json").write_text(json.dumps(SMALL_HIFIGAN))
+    served = KnnSvc.load(str(orbax), "mix", wavlm_ckpt=str(root / "wavlm_small.knnsvc.pkl"),
+                         config_path=str(root / "small_config.json"), device="cpu")
+    served.weighting = knn.weighting
+    np.testing.assert_array_equal(
+        int16_codes(served.convert_pair(src, ref, fast=True, output_path=str(root / "ob.wav"))),
+        pair(True, "exact", "exact_orbax_twin.wav"))
     with pytest.raises(ValueError, match="no_post_opt"):
         knn.convert_pair(src, ref, fast=True, matcher="sharded_int8", post_opt="post_opt_0.2",
                          output_path=out)
@@ -202,20 +214,22 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "knnsvc_torch/utils/profiling.py", "knnsvc_torch/utils/flops.py",
             "knnsvc_torch/train/spectral_losses.py", "knnsvc_torch/models/hifigan/harm_head.py",
             "knnsvc_torch/models/wavlm/masking.py", "knnsvc_torch/parallel/mesh.py",
-            "knnsvc_torch/train/legacy_audio_dataset.py", "tests/torch_dp_worker.py"} <= names
+            "knnsvc_torch/train/legacy_audio_dataset.py", "tests/torch_dp_worker.py",
+            "knnsvc_torch/io/orbax_ckpt.py", "knnsvc_torch/io/ocdbt.py",
+            "knnsvc_torch/io/zarr2.py"} <= names
     for path in files:
-        bad = _imported_roots(path) & {"jax", "jaxlib", "knnsvc_tpu"}
+        bad = _imported_roots(path) & {"jax", "jaxlib", "knnsvc_tpu", "orbax", "tensorstore"}
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
 
 
 def test_every_jax_module_has_a_counterpart():
-    """The JAX package's one module without a port is the one left out on
-    purpose: orbax (which imports JAX; its checkpoints reach the port as the
-    pickle the JAX package exports)."""
+    """Every module of the JAX package has a counterpart in the port, orbax
+    checkpoints too (io/orbax_ckpt.py, which reads and writes their format
+    without orbax)."""
     def modules(pkg):
         return {str(p.relative_to(REPO / pkg)) for p in (REPO / pkg).rglob("*.py")}
 
-    assert modules("knnsvc_tpu") - modules("knnsvc_torch") == {"io/orbax_ckpt.py"}
+    assert modules("knnsvc_tpu") - modules("knnsvc_torch") == set()
 
 
 SUBPACKAGES = ["", "ops", "models", "models.wavlm", "models.hifigan", "match", "io", "utils",

@@ -2,8 +2,8 @@
 tiny world (tests/test_train_loop.py's WavLM, TINY_H, sung audio,
 prematched by the port): the JSONL log lines, validation artifacts,
 best-val retention (the one pair left is the best validation's), resume
-that continues the step count, the ValueError on a JAX-written do_, the
-torch.save backend with its export to a g_/do_ pair, a port-trained g_
+that continues the step count, resume from a JAX-written g_/do_ pair, the
+orbax backend with the bf16 step and its export to a g_/do_ pair, a port-trained g_
 served by the port's KnnSvc.load(device="cpu") and by the JAX package's
 KnnSvc.load (the same waveform at 2e-4), and the train CLI with
 --precision high."""
@@ -99,55 +99,97 @@ def test_resume_continues_steps(world, trained, tmp_path):
 
 
 def test_resume_from_jax_do_raises(world, tmp_path):
-    """A do_ written by the JAX package holds optax's state: a ValueError
-    that says so, not a fresh start."""
-    import jax.numpy as jnp
+    """A g_/do_ pair as the JAX package's loop writes it (optax's
+    inject_hyperparams(adamw) state in the do_, its NamedTuples pickled)
+    resumes in the port: the state is train_state_from_numpy(..., adam_g=,
+    adam_d=) of the same trees, with the JAX state's step count and
+    learning rate. (The name is kept from when the port refused such a
+    pair with a ValueError.)"""
+    import jax
     import torch
 
     from knnsvc_tpu.config import HiFiGANConfig as JaxHiFiGANConfig
     from knnsvc_tpu.io.checkpoints import save_params as jax_save_params
     from knnsvc_tpu.train.trainer import make_optimizers
     from knnsvc_torch.config import ModelFamily
+    from knnsvc_torch.io.jax_params import train_state_from_numpy
     from knnsvc_torch.models.hifigan.discriminator import init_mpd_params, init_msd_params
     from knnsvc_torch.models.hifigan.generator import init_generator_params
 
+    from test_torch_common import adam_moments
+
+    h = HiFiGANConfig.from_dict(TINY_H)
     gen = torch.Generator().manual_seed(0)
-    g = init_generator_params(HiFiGANConfig.from_dict(TINY_H), ModelFamily.MIX, gen,
-                              weight_norm_parametrized=True)
+    g = init_generator_params(h, ModelFamily.MIX, gen, weight_norm_parametrized=True)
     mpd = init_mpd_params(gen, width_scale=DISC_WIDTH_SCALE)
     msd = init_msd_params(gen, width_scale=DISC_WIDTH_SCALE)
-    # the JAX trainer's optimizer state (optax NamedTuples), as its loop pickles it
+    # the JAX trainer's optimizer states after 4 steps, as its loop pickles them
+    rng = np.random.default_rng(3)
+
+    def stepped(opt, params, lr):
+        state = jax.device_get(jax.jit(opt.init)(params))
+        adam = state.inner_state[0]
+        moment = lambda path, p: np.zeros_like(p) if {"u", "v_pow"} & {  # noqa: E731
+            getattr(k, "key", None) for k in path} else (
+            1e-3 * np.abs(rng.standard_normal(p.shape))).astype(np.float32)
+        count = np.asarray(4, np.int32)
+        state = state._replace(count=count, inner_state=(adam._replace(
+            count=count, mu=jax.tree_util.tree_map_with_path(moment, adam.mu),
+            nu=jax.tree_util.tree_map_with_path(moment, adam.nu)),) + state.inner_state[1:])
+        state.hyperparams["learning_rate"] = np.asarray(lr, np.float32)
+        return state
+
     opt_g, opt_d = make_optimizers(JaxHiFiGANConfig.from_dict(TINY_H))
+    optim_g, optim_d = stepped(opt_g, g, 1.5e-4), stepped(opt_d, (mpd, msd), 1.5e-4)
     jax_save_params(str(tmp_path / "g_mix_00000004.knnsvc.pkl"), {"generator": g})
     jax_save_params(str(tmp_path / "do_mix_00000004.knnsvc.pkl"), {
-        "mpd": mpd, "msd": msd, "optim_g": opt_g.init({"w": jnp.zeros(3)}),
-        "optim_d": opt_d.init({"w": jnp.zeros(3)}), "steps": 4, "epoch": 0})
-    with pytest.raises(ValueError, match="optax"):
-        train(HiFiGANConfig.from_dict(TINY_H), checkpoint_path=str(tmp_path / "out"),
-              max_steps=5, device="cpu", disc_width_scale=DISC_WIDTH_SCALE,
-              resume_from=str(tmp_path), **_roots(world))
+        "mpd": mpd, "msd": msd, "optim_g": optim_g, "optim_d": optim_d, "steps": 4,
+        "epoch": 0})
+    # max_steps below the next step: the restored state, no step taken
+    state = train(h, checkpoint_path=str(tmp_path / "out"), max_steps=4, device="cpu",
+                  disc_width_scale=DISC_WIDTH_SCALE, resume_from=str(tmp_path), **_roots(world))
+    want = train_state_from_numpy(g, mpd, msd, h, ModelFamily.MIX, "cpu",
+                                  adam_g=adam_moments(optim_g), adam_d=adam_moments(optim_d),
+                                  steps=4)
+    assert state.steps == want.steps == 4
+    for key in ("generator", "mpd", "msd"):
+        got_sd, want_sd = getattr(state, key).state_dict(), getattr(want, key).state_dict()
+        assert got_sd.keys() == want_sd.keys()
+        assert all(torch.equal(got_sd[k], want_sd[k]) for k in want_sd)
+    for got_opt, want_opt in ((state.opt_g, want.opt_g), (state.opt_d, want.opt_d)):
+        got_params = [p for grp in got_opt.param_groups for p in grp["params"]]
+        want_params = [p for grp in want_opt.param_groups for p in grp["params"]]
+        assert len(got_params) == len(want_params)
+        for p, q in zip(got_params, want_params):
+            a, b = got_opt.state[p], want_opt.state[q]
+            assert float(a["step"]) == float(b["step"]) == 4.0
+            assert torch.equal(a["exp_avg"], b["exp_avg"])
+            assert torch.equal(a["exp_avg_sq"], b["exp_avg_sq"])
+        assert got_opt.param_groups[0]["lr"] == float(np.float32(1.5e-4))
 
 
 def test_torch_backend_bf16_and_export(world, tmp_path):
-    """checkpoint_backend='torch' (with the bf16 step): one torch.save file,
-    a resume from it that continues the steps, and its export to a g_/do_
-    pair that resumes and serves."""
+    """The port's checkpoint_backend='orbax' with the bf16 step: fp32
+    parameters, one checkpoint kept, a resume from it that continues the
+    steps, and its export to a g_/do_ pair that resumes and serves. (The
+    name is kept from the port's torch.save backend, which orbax replaced.)"""
     from knnsvc_torch.hub import KnnSvc
+    from knnsvc_torch.io.orbax_ckpt import checkpoint_steps
 
     h = HiFiGANConfig.from_dict(TINY_H)
     kw = dict(validation_interval=1, summary_interval=1, stdout_interval=100, with_harm=True,
               max_val_items=1, device="cpu", disc_width_scale=DISC_WIDTH_SCALE, val_artifacts=0,
-              checkpoint_backend="torch", **_roots(world))
+              checkpoint_backend="orbax", **_roots(world))
     run1 = tmp_path / "run1"
     state = train(h, checkpoint_path=str(run1), training_epochs=2, max_steps=1,
                   compute_dtype="bfloat16", **kw)
     assert all(p.dtype.is_floating_point and p.dtype.itemsize == 4
                for p in state.generator.parameters())
-    assert len(glob.glob(str(run1 / "torch_state" / "state_*.pt"))) == 1
+    assert len(checkpoint_steps(str(run1 / "orbax"))) == 1
     assert not glob.glob(str(run1 / "g_*"))
     state2 = train(h, checkpoint_path=str(tmp_path / "run2"), training_epochs=4,
                    max_steps=3, resume_from=str(run1), **kw)
-    saved_step = int(glob.glob(str(run1 / "torch_state" / "state_*.pt"))[0][-11:-3])
+    saved_step = checkpoint_steps(str(run1 / "orbax"))[0]
     assert [s["step"] for s in _log(tmp_path / "run2") if "loss_gen_total" in s][0] == saved_step + 1
     assert state2.steps > saved_step
 
@@ -155,6 +197,11 @@ def test_torch_backend_bf16_and_export(world, tmp_path):
                                                  out_dir=str(tmp_path / "exported"))
     assert "g_mix_" in g_path and {"mpd", "msd", "optim_g", "optim_d", "steps", "epoch"} <= set(
         load_params(do_path))
+    train(h, checkpoint_path=str(tmp_path / "run3"), training_epochs=4, max_steps=saved_step + 1,
+          resume_from=str(tmp_path / "exported"), **{**kw, "checkpoint_backend": "pickle"})
+    assert [s["step"] for s in _log(tmp_path / "run3") if "loss_gen_total" in s] == [saved_step + 1]
+    with pytest.raises(FileNotFoundError):
+        export_servable_checkpoint(str(tmp_path / "run3"), h, with_harm=True)
     knn = KnnSvc.load(str(tmp_path / "exported"), "mix", wavlm_ckpt=str(world / "wavlm.knnsvc.pkl"),
                       config_path=str(world / "config.json"), device="cpu")
     y = knn.vocode(np.zeros((6, 16), np.float32), np.full(6, 200.0, np.float32),
