@@ -10,9 +10,13 @@ Phases (any failure exits non-zero, before the result line):
   2. each kernel against its plain PyTorch version on the card, with
      CUDA-event times of the kernel, the plain version and (where one
      exists) one PyTorch library call, beside the kernel's bound on an
-     H100: the attention kernel (bias given as its (H, 2T-1) diagonal
-     table) at the main path's shape and at ragged shapes, and its
-     one-pass TF32 instance ("fastest" precision) at the main shape; the
+     H100: the attention kernel's diagonal entry (bias given as its
+     (H, 2T-1) diagonal table) at the main path's shape and at ragged
+     shapes, and its one-pass TF32 instance ("fastest" precision) at the
+     main shape; its full-bias entry (a random (H, T, T) bias, the TPU
+     kernel's form) at the ragged, main and streaming shapes and in one
+     TF32 pass, and a Toeplitz bias through it bit-equal to the diagonal
+     entry; the
      concat-cost kernel exactly equal at (37, 53, 128), on
      random ids and on ids at row P-1 with duplicate candidates, at k = 4
      and k in CONCAT_KS, and at (300, 400, 1024) with k = 8 (its rows read
@@ -143,8 +147,12 @@ Phases (any failure exits non-zero, before the result line):
      the CPU: EERs equal, embeddings within EMBED_ATOL; spectral_distance
      and max_waveform_deviation between phase 3's card and CPU waveforms),
      the harm head, sss_loss, stft_magnitude and harmonic_synth_zero_phase
-     on the card against the CPU, and a StageTimer with format_mfu_table
-     around one 30-s pair; after phase 7, data-parallel training at its
+     on the card against the CPU, a StageTimer with format_mfu_table
+     around one 30-s pair, and the last slice's surface: six layers of
+     ops.gated_bias_attention with full biases at (16, 1500, 64) (its
+     launches counted there), weighted_cosine_distance,
+     knn_cosine_similarity, compute_shift and interp_f0_candidates at a
+     30-s pair's shape card vs CPU; after phase 7, data-parallel training at its
      full-width config on a (2, 1) logical mesh of the card against the
      one-device step over 3 steps: in float64 at rtol 1e-4 (metrics) and
      1e-5 (parameters), in float32 the metrics at rtol 1e-4 and the
@@ -152,7 +160,8 @@ Phases (any failure exits non-zero, before the result line):
      step under initialize_distributed on a world of 1 over NCCL (the
      all-reduces on the card);
  10. the card's name and power limit (nvidia-smi).
-The line before the last is the kernels' JSON record; the last line is
+A "kernels:" line lists each entry's launches on its path; the line
+before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside the
 repository, it fails and prints no result.
 """
@@ -277,6 +286,8 @@ DP_PARAM_ATOL = 1e-5
 DP_GRAD_RTOL = 1e-6                     # float64 gradients, summed in another order
 EMBED_ATOL = 1e-4                       # mfcc_stats embeddings, card vs CPU
 HARM_HIDDEN = 256                       # the harm head's hidden width
+SURFACE_LAYERS = 6                      # full-bias attention layers in the [rest] surface drive
+SURFACE_ATOL = 1e-5                     # card vs CPU: fp32 sums of D = 1024 terms, other orders
 
 
 def fail(msg: str) -> None:
@@ -304,13 +315,15 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(H: int, T: int, d: int, passes: int = 3) -> tuple[float, str]:
+def attention_bound_ms(H: int, T: int, d: int, passes: int = 3,
+                       full: bool = False) -> tuple[float, str]:
     """Least time for the kernel's work on an H100: `passes` TF32
     tensor-core passes of the two products (2 flops per multiply-add,
-    4*H*T^2*d each); bytes = q, k, v, the (H, 2T-1) diagonal and gate read
-    once and out written once."""
+    4*H*T^2*d each); bytes = q, k, v, the bias (its (H, 2T-1) diagonal, or
+    the (H, T, T) tensor when full) and gate read once and out written
+    once."""
     ops = passes * 4 * H * T * T * d
-    nbytes = 4 * (4 * H * T * d + H * (2 * T - 1) + H * T)
+    nbytes = 4 * (4 * H * T * d + (H * T * T if full else H * (2 * T - 1)) + H * T)
     t_ops, t_bytes = ops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -380,88 +393,96 @@ def ptxas_usage(name: str, lines: list[str], function: str) -> tuple[int, int, i
     return regs, *spills
 
 
+def attention_inputs(gen, dev, H, T, d, gate_value=None, full=False):
+    """q, k, v, the bias (its (H, 2T-1) diagonal table, or with full a random
+    (H, T, T) bias, not Toeplitz), gate"""
+    import torch
+
+    q, k, v = (torch.randn(H, T, d, generator=gen) for _ in range(3))
+    bias = torch.randn((H, T, T) if full else (H, 2 * T - 1), generator=gen)
+    gate = (torch.rand(H, T, generator=gen) * 2 if gate_value is None
+            else torch.full((H, T), gate_value))
+    return [t.to(dev) for t in (q, k, v, bias, gate)]
+
+
 def phase_kernels(dev):
+    """The attention kernel's diagonal entry (the served encoder's)."""
     import torch
     import torch.nn.functional as F
 
-    from knnsvc_torch.ops.attention import (gated_bias_attention, reference_attention,
-                                            toeplitz_bias)
+    from knnsvc_torch.ops.attention import (gated_bias_attention_diag,
+                                            reference_attention, toeplitz_bias)
     from knnsvc_torch.precision import set_precision
 
     gen = torch.Generator().manual_seed(1)
 
     def inputs(H, T, d, gate_value=None):
-        """q, k, v, the bias's (H, 2T-1) diagonal table, gate"""
-        q, k, v = (torch.randn(H, T, d, generator=gen) for _ in range(3))
-        diag = torch.randn(H, 2 * T - 1, generator=gen)
-        gate = (torch.rand(H, T, generator=gen) * 2 if gate_value is None
-                else torch.full((H, T), gate_value))
-        return [t.to(dev) for t in (q, k, v, diag, gate)]
+        return attention_inputs(gen, dev, H, T, d, gate_value)
 
     for H, T, d, g in ATTN_RAGGED:
         args = inputs(H, T, d, g)
-        err = float((gated_bias_attention(*args) - reference_attention(*args)).abs().max())
+        err = float((gated_bias_attention_diag(*args) - reference_attention(*args)).abs().max())
         torch.cuda.synchronize()
-        log(f"[kernel] gated_bias_attention ({H},{T},{d}) gate={g}: max_abs_err={err:.3e} "
+        log(f"[kernel] gated_bias_attention_diag ({H},{T},{d}) gate={g}: max_abs_err={err:.3e} "
             f"(atol {ATTN_ATOL_RAGGED})")
         if not err <= ATTN_ATOL_RAGGED:
-            fail(f"gated_bias_attention disagrees at ({H},{T},{d}) gate={g}: {err}")
+            fail(f"gated_bias_attention_diag disagrees at ({H},{T},{d}) gate={g}: {err}")
 
     H, T, d = ATTN_MAIN
     args = inputs(H, T, d)
-    out = gated_bias_attention(*args)
+    out = gated_bias_attention_diag(*args)
     torch.cuda.synchronize()
     want = reference_attention(*args)
     err = float((out - want).abs().max())
-    log(f"[kernel] gated_bias_attention ({H},{T},{d}): max_abs_err={err:.3e} "
+    log(f"[kernel] gated_bias_attention_diag ({H},{T},{d}): max_abs_err={err:.3e} "
         f"(atol {ATTN_ATOL_MAIN})")
     if not (err <= ATTN_ATOL_MAIN and bool(torch.isfinite(out).all())):
-        fail(f"gated_bias_attention disagrees at the main shape: {err}")
+        fail(f"gated_bias_attention_diag disagrees at the main shape: {err}")
 
     q, k, v, diag, gate = args
     bias = toeplitz_bias(diag).contiguous()      # the library call's mask, expanded untimed
-    ms = cuda_ms(lambda: gated_bias_attention(*args))
+    ms = cuda_ms(lambda: gated_bias_attention_diag(*args))
     plain_ms = cuda_ms(lambda: reference_attention(*args))
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q[None], k[None], v[None], attn_mask=(gate[..., None] * bias)[None]))
     bound_ms, bound_by = attention_bound_ms(H, T, d)
-    log(f"[kernel] gated_bias_attention ({H},{T},{d}), 3xTF32: kernel {ms:.4f} ms, plain "
+    log(f"[kernel] gated_bias_attention_diag ({H},{T},{d}), 3xTF32: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, library (sdpa + mask product) {library_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}); roofline share {bound_ms / ms:.1%}")
 
     set_precision("fastest")
     try:
-        tf32_out = gated_bias_attention(*args)
+        tf32_out = gated_bias_attention_diag(*args)
         torch.cuda.synchronize()
-        tf32_ms = cuda_ms(lambda: gated_bias_attention(*args))
+        tf32_ms = cuda_ms(lambda: gated_bias_attention_diag(*args))
     finally:
         set_precision("highest")
     tf32_err = float((tf32_out - want).abs().max())
     tf32_bound_ms, _ = attention_bound_ms(H, T, d, passes=1)
-    log(f"[kernel] gated_bias_attention ({H},{T},{d}), one TF32 pass (fastest): "
+    log(f"[kernel] gated_bias_attention_diag ({H},{T},{d}), one TF32 pass (fastest): "
         f"max_abs_err={tf32_err:.3e} (atol {ATTN_ATOL_TF32}), kernel {tf32_ms:.4f} ms, bound "
         f"{tf32_bound_ms:.4f} ms; roofline share {tf32_bound_ms / tf32_ms:.1%}")
     if not (tf32_err <= ATTN_ATOL_TF32 and bool(torch.isfinite(tf32_out).all())):
-        fail(f"gated_bias_attention's TF32 instance disagrees at the main shape: {tf32_err}")
+        fail(f"gated_bias_attention_diag's TF32 instance disagrees at the main shape: {tf32_err}")
     # a streaming window's shape (encoder='windowed' at the CLI defaults)
     H, T, d = ATTN_STREAM
     sargs = inputs(H, T, d)
-    s_err = float((gated_bias_attention(*sargs) - reference_attention(*sargs)).abs().max())
+    s_err = float((gated_bias_attention_diag(*sargs) - reference_attention(*sargs)).abs().max())
     torch.cuda.synchronize()
     q, k, v, diag, gate = sargs
     s_bias = toeplitz_bias(diag).contiguous()
-    s_ms = cuda_ms(lambda: gated_bias_attention(*sargs), iters=50)
+    s_ms = cuda_ms(lambda: gated_bias_attention_diag(*sargs), iters=50)
     s_plain_ms = cuda_ms(lambda: reference_attention(*sargs), iters=50)
     s_library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q[None], k[None], v[None], attn_mask=(gate[..., None] * s_bias)[None]), iters=50)
     s_bound_ms, s_bound_by = attention_bound_ms(H, T, d)
-    log(f"[kernel] gated_bias_attention {ATTN_STREAM} (a streaming window), 3xTF32: "
+    log(f"[kernel] gated_bias_attention_diag {ATTN_STREAM} (a streaming window), 3xTF32: "
         f"max_abs_err={s_err:.3e} (atol {ATTN_ATOL_RAGGED}); kernel {s_ms:.4f} ms, plain "
         f"{s_plain_ms:.4f} ms, library (sdpa + mask product) {s_library_ms:.4f} ms, bound "
         f"{s_bound_ms:.4f} ms ({s_bound_by}); roofline share {s_bound_ms / s_ms:.1%}")
     if not s_err <= ATTN_ATOL_RAGGED:
-        fail(f"gated_bias_attention disagrees at the streaming shape: {s_err}")
-    return {"name": "gated_bias_attention", "route": "cuda",
+        fail(f"gated_bias_attention_diag disagrees at the streaming shape: {s_err}")
+    return {"name": "gated_bias_attention_diag", "route": "cuda",
             "source": "knnsvc_torch/csrc/gated_bias_attention.cu",
             "replaces": "knnsvc_tpu/ops/attention.py:82",
             "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -470,6 +491,99 @@ def phase_kernels(dev):
             "stream_shape": list(ATTN_STREAM), "stream_max_abs_err": s_err, "stream_ms": s_ms,
             "stream_plain_ms": s_plain_ms, "stream_library_ms": s_library_ms,
             "stream_bound_ms": s_bound_ms, "stream_bound_by": s_bound_by}
+
+
+def phase_attention_full(dev):
+    """The attention kernel's full-bias entry (the TPU kernel's own form, a
+    random (H, T, T) bias): against the plain version at the ragged, main
+    and streaming shapes, one TF32 pass at the main shape, a Toeplitz bias
+    against the diagonal entry (one inner loop: bit-equal), and times beside
+    the plain version, the library call and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from knnsvc_torch.ops.attention import (gated_bias_attention, gated_bias_attention_diag,
+                                            reference_attention, toeplitz_bias)
+    from knnsvc_torch.precision import set_precision
+
+    gen = torch.Generator().manual_seed(2)
+    card = card_label()
+    for H, T, d, g in ATTN_RAGGED:
+        args = attention_inputs(gen, dev, H, T, d, g, full=True)
+        err = float((gated_bias_attention(*args) - reference_attention(*args)).abs().max())
+        torch.cuda.synchronize()
+        log(f"[kernel] gated_bias_attention (full bias) ({H},{T},{d}) gate={g}: "
+            f"max_abs_err={err:.3e} (atol {ATTN_ATOL_RAGGED})")
+        if not err <= ATTN_ATOL_RAGGED:
+            fail(f"gated_bias_attention disagrees at ({H},{T},{d}) gate={g}: {err}")
+
+    rec = {"name": "gated_bias_attention", "route": "cuda",
+           "source": "knnsvc_torch/csrc/gated_bias_attention.cu",
+           "replaces": "knnsvc_tpu/ops/attention.py:82", "launches": None}
+    for label, shape, atol, iters in (("", ATTN_MAIN, ATTN_ATOL_MAIN, 20),
+                                      ("stream_", ATTN_STREAM, ATTN_ATOL_RAGGED, 50)):
+        H, T, d = shape
+        args = attention_inputs(gen, dev, H, T, d, full=True)
+        out = gated_bias_attention(*args)
+        torch.cuda.synchronize()
+        want = reference_attention(*args)
+        err = float((out - want).abs().max())
+        q, k, v, bias, gate = args
+        ms = cuda_ms(lambda: gated_bias_attention(*args), iters=iters)
+        plain_ms = cuda_ms(lambda: reference_attention(*args), iters=iters)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], attn_mask=(gate[..., None] * bias)[None]), iters=iters)
+        bound_ms, bound_by = attention_bound_ms(H, T, d, full=True)
+        log(f"[kernel] gated_bias_attention (full bias) {shape}, 3xTF32: max_abs_err={err:.3e} "
+            f"(atol {atol}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (sdpa + mask "
+            f"product) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); roofline "
+            f"share {bound_ms / ms:.1%}; card {card}")
+        if not (err <= atol and bool(torch.isfinite(out).all())):
+            fail(f"gated_bias_attention disagrees at {shape}: {err}")
+        rec.update({f"{label}max_abs_err": err, f"{label}ms": ms, f"{label}plain_ms": plain_ms,
+                    f"{label}bound_ms": bound_ms, f"{label}bound_by": bound_by,
+                    f"{label}library_ms": library_ms})
+        if not label:
+            main_args, main_want = args, want
+    rec["stream_shape"] = list(ATTN_STREAM)
+
+    H, T, d = ATTN_MAIN
+    set_precision("fastest")
+    try:
+        tf32_out = gated_bias_attention(*main_args)
+        torch.cuda.synchronize()
+        tf32_ms = cuda_ms(lambda: gated_bias_attention(*main_args))
+    finally:
+        set_precision("highest")
+    tf32_err = float((tf32_out - main_want).abs().max())
+    tf32_bound_ms, tf32_bound_by = attention_bound_ms(H, T, d, passes=1, full=True)
+    log(f"[kernel] gated_bias_attention (full bias) {ATTN_MAIN}, one TF32 pass (fastest): "
+        f"max_abs_err={tf32_err:.3e} (atol {ATTN_ATOL_TF32}), kernel {tf32_ms:.4f} ms, bound "
+        f"{tf32_bound_ms:.4f} ms ({tf32_bound_by}); roofline share "
+        f"{tf32_bound_ms / tf32_ms:.1%}; card {card}")
+    if not (tf32_err <= ATTN_ATOL_TF32 and bool(torch.isfinite(tf32_out).all())):
+        fail(f"gated_bias_attention's TF32 instance disagrees at the main shape: {tf32_err}")
+    rec.update({"tf32_ms": tf32_ms, "tf32_max_abs_err": tf32_err, "tf32_bound_ms": tf32_bound_ms})
+
+    # a Toeplitz bias through the full entry against the diagonal entry
+    for mode in ("highest", "fastest"):
+        set_precision(mode)
+        try:
+            for shape in (ATTN_MAIN, ATTN_STREAM):
+                q, k, v, diag, gate = attention_inputs(gen, dev, *shape)
+                full = gated_bias_attention(q, k, v, toeplitz_bias(diag).contiguous(), gate)
+                diagonal = gated_bias_attention_diag(q, k, v, diag, gate)
+                torch.cuda.synchronize()
+                diff = float((full - diagonal).abs().max())
+                log(f"[kernel] gated_bias_attention {shape} {mode}: a Toeplitz bias through the "
+                    f"full entry vs the diagonal entry: max |diff| {diff:.3e}, bit-equal "
+                    f"{torch.equal(full, diagonal)}")
+                if not torch.equal(full, diagonal):
+                    fail(f"the full entry differs from the diagonal entry on a Toeplitz bias at "
+                         f"{shape} ({mode}): {diff}")
+        finally:
+            set_precision("highest")
+    return rec
 
 
 def concat_bound_ms(T: int, P: int, D: int, lanes: int, k: int) -> tuple[float, str]:
@@ -911,7 +1025,7 @@ def phase_full(root: str, knn, records, dev):
     from knnsvc_torch.io.audio import load_audio
     from knnsvc_torch.match.serve import quantize_int16
     from knnsvc_torch.models.wavlm.model import frame_count
-    from knnsvc_torch.ops.attention import gated_bias_attention
+    from knnsvc_torch.ops.attention import gated_bias_attention_diag
     from knnsvc_torch.ops.concat_scan import concat_cost_pair
     from knnsvc_torch.ops.viterbi import f0_viterbi
 
@@ -923,7 +1037,7 @@ def phase_full(root: str, knn, records, dev):
         """One convert_pair, its counts set to 0 just before and read just
         after: 12 attention launches, one concat-cost launch with post_opt,
         and one Viterbi launch per pool with device f0."""
-        gated_bias_attention.launches = 0
+        gated_bias_attention_diag.launches = 0
         concat_cost_pair.launches = 0
         f0_viterbi.launches = 0
         t0 = time.perf_counter()
@@ -931,7 +1045,7 @@ def phase_full(root: str, knn, records, dev):
                                   output_path=out, upload_dtype=upload_dtype)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches = (gated_bias_attention.launches, concat_cost_pair.launches,
+        launches = (gated_bias_attention_diag.launches, concat_cost_pair.launches,
                     f0_viterbi.launches)
         want = (LAUNCHES_PER_PAIR, 0 if post_opt == "no_post_opt" else 1,
                 2 if model.f0_method == "device" else 0)
@@ -997,9 +1111,9 @@ def phase_full(root: str, knn, records, dev):
     pairs = sorted({tuple(steps.steps[i:i + 2]) for i in range(0, len(steps.steps), 2)})
     log(f"[post_opt] optimizer steps per conversion (wavlm, harmonics): {pairs}")
     log(f"[post_opt] peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
-    records["gated_bias_attention"]["launches"] = launches[0]
+    records["gated_bias_attention_diag"]["launches"] = launches[0]
     records["concat_cost_pair"]["launches"] = launches[1]
-    log(f"kernels: gated_bias_attention={launches[0]} concat_cost_pair={launches[1]} "
+    log(f"kernels: gated_bias_attention_diag={launches[0]} concat_cost_pair={launches[1]} "
         f"f0_viterbi={launches[2]} (one {POST_OPT} mix conversion, host f0)")
     y, sr = load_audio(path)
     wav = knn.convert_waveform(src, ref, post_opt=POST_OPT)
@@ -1040,7 +1154,7 @@ def phase_full(root: str, knn, records, dev):
             f"{statistics.median(fresh_np):.4f} s, repeat median "
             f"{statistics.median(cached_np):.4f} s")
         log(f"[device_f0] peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
-        log(f"kernels: gated_bias_attention={launches[0]} concat_cost_pair={launches[1]} "
+        log(f"kernels: gated_bias_attention_diag={launches[0]} concat_cost_pair={launches[1]} "
             f"f0_viterbi={launches[2]} (one no_post_opt mix conversion, device f0, int16 uploads)")
         y, sr = load_audio(path)
         wav = knn.convert_waveform(src, ref, upload_dtype="int16")
@@ -1145,7 +1259,7 @@ def phase_mp3(root: str, knn, repo: str) -> None:
 
     from knnsvc_torch.io.audio import load_audio
     from knnsvc_torch.io.mp3 import decode_mp3
-    from knnsvc_torch.ops.attention import gated_bias_attention
+    from knnsvc_torch.ops.attention import gated_bias_attention_diag
     from knnsvc_torch.ops.build import build_host_library
     from knnsvc_torch.ops.concat_scan import concat_cost_pair
 
@@ -1185,7 +1299,7 @@ def phase_mp3(root: str, knn, repo: str) -> None:
     def pair(d, ext, post_opt):
         """convert_pair with the kernels' counts set to 0 just before and
         read just after."""
-        gated_bias_attention.launches = 0
+        gated_bias_attention_diag.launches = 0
         concat_cost_pair.launches = 0
         t0 = time.perf_counter()
         out = knn.convert_pair(os.path.join(d, f"src.{ext}"), os.path.join(d, f"ref.{ext}"),
@@ -1193,7 +1307,7 @@ def phase_mp3(root: str, knn, repo: str) -> None:
                                output_path=os.path.join(d, f"out_{post_opt}.wav"))
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches = (gated_bias_attention.launches, concat_cost_pair.launches)
+        launches = (gated_bias_attention_diag.launches, concat_cost_pair.launches)
         want = (LAUNCHES_PER_PAIR, 0 if post_opt == "no_post_opt" else 1)
         if launches != want:
             fail(f"convert_pair on the {ext} pair ({post_opt}) launched (attention, concat) "
@@ -1243,18 +1357,18 @@ def phase_mp3(root: str, knn, repo: str) -> None:
             write_wav16(save_path, np.round(wav * 32767).astype(np.int16)[None], 16000)
             np.save(os.path.splitext(save_path)[0] + "_f0.npy", f0)
         out_dir = os.path.join(root, f"mp3_bulk_out_{tag}")
-        gated_bias_attention.launches = 0
+        gated_bias_attention_diag.launches = 0
         t0 = time.perf_counter()
         written = knn.bulk_convert(data, data, out_dir, fast=True)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        if len(written) != 4 or gated_bias_attention.launches == 0:
+        if len(written) != 4 or gated_bias_attention_diag.launches == 0:
             fail(f"bulk_convert over the {tag} folders wrote {len(written)} files (want 4) "
-                 f"with {gated_bias_attention.launches} attention launches")
+                 f"with {gated_bias_attention_diag.launches} attention launches")
         trees[tag] = read_tree(out_dir)
         log(f"[mp3] bulk_convert(fast=True) over 2 singers x (one 30-s {ext}, one "
             f"{BULK_SECONDS[0]:.0f}-s wav): {len(written)} conversions in {dt:.3f} s, "
-            f"{gated_bias_attention.launches} attention launches")
+            f"{gated_bias_attention_diag.launches} attention launches")
     if trees["mixed"].keys() != trees["wav"].keys() or any(
             not np.array_equal(trees["mixed"][k], trees["wav"][k]) for k in trees["wav"]):
         fail("bulk_convert over the mixed mp3/wav folders differs from the all-WAV twin")
@@ -1352,7 +1466,7 @@ def phase_orbax(root: str, repo: str, dev) -> None:
     from knnsvc_torch.io.jax_params import train_state_to_numpy
     from knnsvc_torch.io.orbax_ckpt import restore_train_state, save_train_state
     from knnsvc_torch.models.wavlm.model import init_wavlm_params
-    from knnsvc_torch.ops.attention import gated_bias_attention
+    from knnsvc_torch.ops.attention import gated_bias_attention_diag
     from knnsvc_torch.ops.build import build_host_library
     from knnsvc_torch.ops.concat_scan import concat_cost_pair
     from knnsvc_torch.train.trainer import init_train_state
@@ -1419,12 +1533,12 @@ def phase_orbax(root: str, repo: str, dev) -> None:
     served = KnnSvc.load(os.path.join(serve_dir, "only"), "mix", wavlm_ckpt=wavlm_pkl, device=dev)
     load_s = time.perf_counter() - t0
     twin = KnnSvc.load(os.path.join(serve_dir, "pkl"), "mix", wavlm_ckpt=wavlm_pkl, device=dev)
-    gated_bias_attention.launches = 0
+    gated_bias_attention_diag.launches = 0
     concat_cost_pair.launches = 0
     out = served.convert_pair(src, ref, fast=True, post_opt=POST_OPT,
                               output_path=os.path.join(serve_dir, "served.wav"))
     torch.cuda.synchronize()
-    launches = (gated_bias_attention.launches, concat_cost_pair.launches)
+    launches = (gated_bias_attention_diag.launches, concat_cost_pair.launches)
     if launches != (LAUNCHES_PER_PAIR, 1):
         fail(f"KnnSvc.load on an orbax-only directory: convert_pair launched (attention, "
              f"concat) {launches} times, expected ({LAUNCHES_PER_PAIR}, 1)")
@@ -1594,7 +1708,7 @@ def phase_bulk(root: str, knn, records, dev):
     from knnsvc_torch.match.knn import knn_topk
     from knnsvc_torch.match.quantized_pool import (int8_dot, knn_topk_quantized,
                                                    quantize_pool, quantize_rows)
-    from knnsvc_torch.ops.attention import gated_bias_attention
+    from knnsvc_torch.ops.attention import gated_bias_attention_diag
     from knnsvc_torch.ops.concat_scan import concat_cost_pair
 
     t_phase = time.perf_counter()
@@ -1602,13 +1716,13 @@ def phase_bulk(root: str, knn, records, dev):
     def counted(fn):
         """fn() with both kernels' counts set to 0 just before and read just
         after: (wall s, result, (attention, concat) launches)."""
-        gated_bias_attention.launches = 0
+        gated_bias_attention_diag.launches = 0
         concat_cost_pair.launches = 0
         t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
         return (time.perf_counter() - t0, result,
-                (gated_bias_attention.launches, concat_cost_pair.launches))
+                (gated_bias_attention_diag.launches, concat_cost_pair.launches))
 
     # the host-pool pair against the fast pair, both on the f0 sidecars
     pair_dir = os.path.join(root, "pair6")
@@ -1664,7 +1778,7 @@ def phase_bulk(root: str, knn, records, dev):
             fail(f"bulk loop {name}: {len(written)} written, {len(tree)} files, launches "
                  f"{launches}, peak {peak}")
         trees[name] = tree
-    records["gated_bias_attention"]["bulk_launches"] = want_attention
+    records["gated_bias_attention_diag"]["bulk_launches"] = want_attention
     if not (set(trees["host"]) == set(trees["fast"]) == set(trees["fast_batch2"])):
         fail("the bulk loops wrote different files")
     diff = max(float(np.abs(trees["fast"][k] - trees["fast_batch2"][k]).max())
@@ -1732,7 +1846,7 @@ def phase_bulk(root: str, knn, records, dev):
     rng = np.random.default_rng(8)
     pool_np = rng.standard_normal((P, D)).astype(np.float32)
     query = torch.from_numpy(rng.standard_normal((Q, D)).astype(np.float32))
-    cpu_pool, card_pool = quantize_pool(pool_np), quantize_pool(pool_np, dev)
+    cpu_pool, card_pool = quantize_pool(pool_np, device="cpu"), quantize_pool(pool_np, dev)
     q8, _ = quantize_rows(query)
     q8_card, _ = quantize_rows(query.to(dev))
     dots_equal = bool(torch.equal(int8_dot(q8_card, card_pool.values).cpu(),
@@ -1870,20 +1984,20 @@ def stream_counted(knn, src: str, ref: str, kw: dict):
     chunk and read after it: (chunks, host seconds per chunk, (attention,
     concat, viterbi) launches per chunk). Chunk 0 includes the target pool's
     build; each chunk ends with its int16 download, a sync."""
-    from knnsvc_torch.ops.attention import gated_bias_attention
+    from knnsvc_torch.ops.attention import gated_bias_attention_diag
     from knnsvc_torch.ops.concat_scan import concat_cost_pair
     from knnsvc_torch.ops.viterbi import f0_viterbi
 
     gen = knn.stream_convert_chunks(src, ref, **kw)
     chunks, times, launches = [], [], []
     while True:
-        gated_bias_attention.launches = concat_cost_pair.launches = f0_viterbi.launches = 0
+        gated_bias_attention_diag.launches = concat_cost_pair.launches = f0_viterbi.launches = 0
         t0 = time.perf_counter()
         chunk = next(gen, None)
         if chunk is None:
             return chunks, times, launches
         times.append(time.perf_counter() - t0)
-        launches.append((gated_bias_attention.launches, concat_cost_pair.launches,
+        launches.append((gated_bias_attention_diag.launches, concat_cost_pair.launches,
                          f0_viterbi.launches))
         chunks.append(chunk)
 
@@ -1946,9 +2060,10 @@ def phase_stream(root: str, knn, records, dev) -> None:
             f"{1e3 * times[0]:.2f} ms; warm stream {wall:.3f} s = {FULL_SECONDS / wall:.2f} "
             f"audio-s/s; peak device memory {peak / 2 ** 30:.3f} GiB; launches (attention, "
             f"concat, viterbi) chunk 0 {launches[0]}, then {launches[1]} per chunk")
-        rec = {"a": "gated_bias_attention", "b": "concat_cost_pair", "e": "f0_viterbi"}.get(tag)
+        rec = {"a": ("gated_bias_attention_diag", 0), "b": ("concat_cost_pair", 1),
+               "e": ("f0_viterbi", 2)}.get(tag)
         if rec is not None:
-            records[rec]["stream_launches_per_chunk"] = launches[1][KERNELS.index(rec)]
+            records[rec[0]]["stream_launches_per_chunk"] = launches[1][rec[1]]
 
     phase_cached_step(knn, src, dev)
 
@@ -2250,7 +2365,7 @@ def phase_sharded_pair(root: str, knn, records, dev) -> None:
     import torch
 
     from knnsvc_torch.io.audio import load_audio
-    from knnsvc_torch.ops.attention import gated_bias_attention
+    from knnsvc_torch.ops.attention import gated_bias_attention_diag
     from knnsvc_torch.ops.concat_scan import concat_cost_pair
 
     pair_dir = os.path.join(root, "sharded_pair")
@@ -2260,13 +2375,13 @@ def phase_sharded_pair(root: str, knn, records, dev) -> None:
 
     def run(name, **kw):
         out = os.path.join(pair_dir, f"{name}.wav")
-        gated_bias_attention.launches = concat_cost_pair.launches = 0
+        gated_bias_attention_diag.launches = concat_cost_pair.launches = 0
         t0 = time.perf_counter()
         knn.convert_pair(src, ref, output_path=out, **kw)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         po = kw.get("post_opt", "no_post_opt")
-        launches = (gated_bias_attention.launches, concat_cost_pair.launches)
+        launches = (gated_bias_attention_diag.launches, concat_cost_pair.launches)
         want = (LAUNCHES_PER_PAIR, 0 if po == "no_post_opt" else 1)
         if launches != want:
             fail(f"convert_pair({kw}) launched (attention, concat) {launches}, expected {want}")
@@ -2336,7 +2451,7 @@ def phase_sharded_bulk(root: str, knn, dev, data: str, want_attention: int, audi
     import numpy as np
     import torch
 
-    from knnsvc_torch.ops.attention import gated_bias_attention
+    from knnsvc_torch.ops.attention import gated_bias_attention_diag
     from knnsvc_torch.ops.concat_scan import concat_cost_pair
 
     loops = (("host sharded", {"matcher": "sharded"}),
@@ -2352,12 +2467,12 @@ def phase_sharded_bulk(root: str, knn, dev, data: str, want_attention: int, audi
              for name, _ in BULK_LOOPS}
     for i, (name, kw) in enumerate(loops):
         out_dir = os.path.join(root, f"bulk_sharded_{i}")
-        gated_bias_attention.launches = concat_cost_pair.launches = 0
+        gated_bias_attention_diag.launches = concat_cost_pair.launches = 0
         t0 = time.perf_counter()
         written = knn.bulk_convert(data, data, out_dir, **kw)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches = (gated_bias_attention.launches, concat_cost_pair.launches)
+        launches = (gated_bias_attention_diag.launches, concat_cost_pair.launches)
         trees[name] = read_tree(out_dir)
         log(f"[sharded] bulk {name}: {len(written)} conversions of {audio_s:.0f} s in {dt:.3f} s "
             f"= {audio_s / dt:.2f} audio-s/s (pools built in the pass); launches (attention, "
@@ -2489,7 +2604,7 @@ def phase_train(root: str, records, dev) -> None:
     from knnsvc_torch.io.checkpoints import save_params
     from knnsvc_torch.io.jax_params import tree_from_module
     from knnsvc_torch.models.wavlm.model import init_wavlm_params
-    from knnsvc_torch.ops.attention import gated_bias_attention
+    from knnsvc_torch.ops.attention import gated_bias_attention_diag
     from knnsvc_torch.precision import set_precision
     from knnsvc_torch.train import prematch as prematch_mod
     from knnsvc_torch.train.dataset import BATCH_KEYS, MelDataset
@@ -2518,14 +2633,14 @@ def phase_train(root: str, records, dev) -> None:
     try:
         for split in ("train", "valid"):
             speaker_s.clear()
-            gated_bias_attention.launches = 0
+            gated_bias_attention_diag.launches = 0
             with OptimizerSteps() as opt:
                 t0 = time.perf_counter()
                 rc = prematch_cli.main(["--librispeech_path", roots[split], "--out_path",
                                         feats[split], "--prematch", "--seed", str(PREMATCH_SEED),
                                         "--device", dev.type])
                 wall = time.perf_counter() - t0
-            launches, want = gated_bias_attention.launches, 6 * n_utts[split]
+            launches, want = gated_bias_attention_diag.launches, 6 * n_utts[split]
             per_utt = [s / len(TRAIN_SECONDS if split == "train" else VALID_SECONDS)
                        for s in speaker_s]
             log(f"[train] (a) prematch {split}: {n_utts[split]} utterances of "
@@ -2538,7 +2653,7 @@ def phase_train(root: str, records, dev) -> None:
                 fail(f"prematch {split}: rc {rc}, {launches} attention launches (want {want}), "
                      f"{len(opt.steps)} optimizations")
             if split == "train":
-                records["gated_bias_attention"]["prematch_launches"] = launches
+                records["gated_bias_attention_diag"]["prematch_launches"] = launches
     finally:
         prematch_mod._extract_speaker = real_extract
 
@@ -2692,17 +2807,17 @@ def phase_train(root: str, records, dev) -> None:
     knn = KnnSvc.load(ckpt, "mix", wavlm_ckpt=wavlm_pkl, device=dev)
     src = os.path.join(roots["valid"], VALID_SINGERS[0][0], f"{VALID_SINGERS[0][0]}_0.wav")
     ref = os.path.join(roots["train"], singer, f"{singer}_1.wav")
-    gated_bias_attention.launches = 0
+    gated_bias_attention_diag.launches = 0
     wav = knn.convert_waveform(src, ref)
     torch.cuda.synchronize()
     out = os.path.join(root, "train_data", "served.wav")
     knn.convert_pair(src, ref, fast=True, output_path=out)
     log(f"[train] (d) KnnSvc.load(ckpt_dir, 'mix') on the trained g_: convert_pair(fast=True) "
         f"wrote {os.path.getsize(out)} bytes; pre-quantize waveform {tuple(wav.shape)}, peak "
-        f"{float(wav.abs().max()):.3e}, attention launches {gated_bias_attention.launches} "
+        f"{float(wav.abs().max()):.3e}, attention launches {gated_bias_attention_diag.launches} "
         f"for two conversions")
     if not (bool(torch.isfinite(wav).all()) and float(wav.abs().max()) > 0
-            and gated_bias_attention.launches == 2 * LAUNCHES_PER_PAIR):
+            and gated_bias_attention_diag.launches == 2 * LAUNCHES_PER_PAIR):
         fail("the trained checkpoint does not serve")
     del knn
     phase_orbax_resume(root, h_loop, roots_kw, dev)
@@ -2872,15 +2987,16 @@ def phase_dp_train(host_batches, dev) -> None:
     log(f"[rest] dp_train phase in {time.perf_counter() - t_phase:.1f} s")
 
 
-def phase_rest(root: str, knn, dev, bulk) -> None:
+def phase_rest(root: str, knn, records, dev, bulk) -> None:
     """[rest] The modules the JAX package has beside the served and trained
     paths, on the card: the eval harnesses over phase 5's bulk output, the
-    training-side modules against the CPU, and the StageTimer / MFU table
-    around a 30-s pair."""
+    training-side modules against the CPU, the StageTimer / MFU table
+    around a 30-s pair, and the public functions of the last slice."""
     t_phase = time.perf_counter()
     phase_eval(root, dev, bulk[0])
     phase_side_modules(dev)
     phase_stage_timer(root, knn, dev)
+    phase_surface(records, dev)
     log(f"[rest] serving-side phase in {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -3013,7 +3129,7 @@ def phase_stage_timer(root: str, knn, dev) -> None:
 
     from knnsvc_torch import HOP_LENGTH
     from knnsvc_torch.match.pool import load_utterance
-    from knnsvc_torch.ops.attention import gated_bias_attention
+    from knnsvc_torch.ops.attention import gated_bias_attention_diag
     from knnsvc_torch.utils.flops import (conv_frontend_flops, format_mfu_table, hifigan_flops,
                                           wavlm_encoder_flops)
     from knnsvc_torch.utils.profiling import StageTimer
@@ -3030,7 +3146,7 @@ def phase_stage_timer(root: str, knn, dev) -> None:
     knn.convert_pair(src, ref, fast=True, output_path=out)      # warm
     rng = np.random.default_rng(13)
     timer = StageTimer()
-    gated_bias_attention.launches = 0
+    gated_bias_attention_diag.launches = 0
     with torch.no_grad():
         feats = []
         for wav in wavs:
@@ -3045,7 +3161,7 @@ def phase_stage_timer(root: str, knn, dev) -> None:
                 timer.observe(knn.vocoder(feats[0], f0, harm))
         with timer.stage("convert_pair"):
             knn.convert_pair(src, ref, fast=True, output_path=out)
-    launches = gated_bias_attention.launches
+    launches = gated_bias_attention_diag.launches
     cfg, h = knn.wavlm_cfg, knn.h
     enc = sum(conv_frontend_flops(cfg.conv_feature_layers, w.shape[1])[0]
               + wavlm_encoder_flops(cfg.encoder_embed_dim, cfg.encoder_ffn_embed_dim, 6,
@@ -3061,6 +3177,106 @@ def phase_stage_timer(root: str, knn, dev) -> None:
         f"sheet; card {card_label()}):\n{table}")
     if not (launches == 4 * 6 and timer.counts["wavlm"] == 2 and timer.counts["vocoder"] == 2):
         fail(f"StageTimer pair: {launches} attention launches, counts {dict(timer.counts)}")
+
+
+def phase_surface(records, dev) -> None:
+    """The last slice's public functions on the card. Its path: six layers
+    of `knnsvc_torch.ops.gated_bias_attention` with a general (H, T, T) bias
+    each, at a 30-s chunk's shape, its count set to 0 just before and read
+    just after, against the same chain of plain versions. Then, at a 30-s
+    pair's shape card vs CPU: weighted_cosine_distance and
+    knn_cosine_similarity (1500 x 1024 queries against a 1500-row pool,
+    indices equal), compute_shift on the kNN's top 4 and
+    interp_f0_candidates."""
+    import numpy as np
+    import torch
+
+    from knnsvc_torch import ops
+    from knnsvc_torch.match.distance import weighted_cosine_distance
+    from knnsvc_torch.match.f0_logic import compute_shift, interp_f0_candidates
+    from knnsvc_torch.match.knn import knn_cosine_similarity
+    from knnsvc_torch.ops.attention import reference_attention
+
+    gen = torch.Generator().manual_seed(3)
+    H, T, d = ATTN_MAIN
+    q, k, v, _, gate = attention_inputs(gen, dev, H, T, d)
+    biases = [torch.randn(H, T, T, generator=gen).to(dev) for _ in range(SURFACE_LAYERS)]
+    torch.cuda.synchronize()
+    ops.gated_bias_attention.launches = 0
+    t0 = time.perf_counter()
+    xs = [q]
+    for bias in biases:
+        xs.append(ops.gated_bias_attention(xs[-1], k, v, bias, gate))
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    launches = ops.gated_bias_attention.launches
+    # each layer against the plain version on the same input
+    err = max(float((out - reference_attention(x, k, v, bias, gate)).abs().max())
+              for x, out, bias in zip(xs, xs[1:], biases))
+    log(f"[rest] surface: {SURFACE_LAYERS} layers of gated_bias_attention with a full bias at "
+        f"{ATTN_MAIN}: {launches} launches in {wall_ms:.3f} ms; each layer against the plain "
+        f"version max_abs_err={err:.3e} (atol {ATTN_ATOL_MAIN})")
+    if not (launches == SURFACE_LAYERS and err <= ATTN_ATOL_MAIN
+            and bool(torch.isfinite(xs[-1]).all())):
+        fail(f"the full-bias attention path: {launches} launches, error {err}")
+    records["gated_bias_attention"]["launches"] = launches
+
+    rng = np.random.default_rng(15)
+    Q, P, D = CONCAT_MAIN
+    src = rng.standard_normal((Q, D)).astype(np.float32)
+    pool = rng.standard_normal((P, D)).astype(np.float32)
+    weights = rng.random((Q, D)).astype(np.float32)
+    mask = (rng.random((Q, P)) < 0.9).astype(np.float32)
+    query_f0 = sung_wav(FULL_SECONDS, VOICES[0][1], VOICES[0][2])[1][:Q].astype(np.float32)
+    pool_f0 = sung_wav(FULL_SECONDS, VOICES[1][1], VOICES[1][2])[1][:P].astype(np.float32)
+    xp = np.sort(rng.random((Q, 8)) * 900 + 60, axis=1).astype(np.float32)
+    fp = rng.standard_normal((Q, 8, 4)).astype(np.float32)
+    # the kNN's inputs: a 1/8 grid plus noise under fp16's half step there,
+    # which the fp16 rounding removes; every product and sum is then exact in
+    # fp32 on both sides, so the indices must be equal, ties included
+    grid_src, grid_pool = (np.round(a * 16) / 8 for a in (src, pool))
+    noisy_src, noisy_pool = ((g + (g != 0) * rng.uniform(-1e-5, 1e-5, g.shape)).astype(np.float32)
+                             for g in (grid_src, grid_pool))
+    cases = [
+        ("weighted_cosine_distance", weighted_cosine_distance, (src, pool, weights)),
+        ("weighted_cosine_distance (no weights)", weighted_cosine_distance, (src, pool)),
+        ("knn_cosine_similarity", lambda a, b, m: knn_cosine_similarity(a, b, m, k=32),
+         (noisy_src, noisy_pool, mask)),
+        ("interp_f0_candidates", interp_f0_candidates, (query_f0, xp, fp)),
+    ]
+    results = {}
+    with torch.no_grad():
+        for name, fn, inputs in cases:
+            cpu_in = [torch.from_numpy(a) for a in inputs]
+            dev_in = [a.to(dev) for a in cpu_in]
+            want, got = fn(*cpu_in), fn(*dev_in)
+            card_ms = cuda_ms(lambda: fn(*dev_in), iters=5, warmup=1)
+            if name == "knn_cosine_similarity":
+                results[name] = got
+                same = bool(torch.equal(got[0].cpu(), want[0]))
+                err = float((got[1].cpu() - want[1]).abs().max())
+                log(f"[rest] surface: {name} {tuple(want[0].shape)} card vs CPU: indices equal "
+                    f"{same}, distances max |diff| {err:.3e} (bound {SURFACE_ATOL}); card "
+                    f"{card_ms:.4f} ms")
+                ok = same and err <= SURFACE_ATOL
+            else:
+                err = float((got.cpu() - want).abs().max())
+                scale = float(want.abs().max())
+                log(f"[rest] surface: {name} {tuple(want.shape)} card vs CPU: max |diff| "
+                    f"{err:.3e} (bound {SURFACE_ATOL * max(scale, 1.0):.3e}); card "
+                    f"{card_ms:.4f} ms")
+                ok = bool(torch.isfinite(got).all()) and err <= SURFACE_ATOL * max(scale, 1.0)
+            if not ok:
+                fail(f"{name} differs card vs CPU")
+        idx = results["knn_cosine_similarity"][0][:, :4]
+        args = [torch.from_numpy(query_f0), torch.from_numpy(pool_f0), idx.cpu()]
+        want = compute_shift(*args)
+        got = compute_shift(*(a.to(dev) for a in args))
+        rel = abs(float(got) - float(want)) / abs(float(want))
+        log(f"[rest] surface: compute_shift over the kNN's top 4 card vs CPU: {float(got):.7f} "
+            f"vs {float(want):.7f} (relative {rel:.2e}, bound 1e-5)")
+        if not rel <= 1e-5:
+            fail(f"compute_shift differs card vs CPU: {float(got)} vs {float(want)}")
 
 
 def card_label() -> str:
@@ -3231,7 +3447,8 @@ def main() -> int:
 
     t_all = time.perf_counter()
     ptxas = phase_build()
-    records = {"gated_bias_attention": phase_kernels(dev),
+    records = {"gated_bias_attention_diag": phase_kernels(dev),
+               "gated_bias_attention": phase_attention_full(dev),
                "concat_cost_pair": phase_concat_kernel(dev),
                "f0_viterbi": phase_viterbi_kernel(dev, ptxas["f0_viterbi"])}
     records["concat_cost_pair"].update(phase_concat_sharded(dev))
@@ -3246,7 +3463,7 @@ def main() -> int:
         bulk = phase_bulk(root, knn, records, dev)
         phase_stream(root, knn, records, dev)
         phase_sharded(root, knn, records, dev, bulk)
-        phase_rest(root, knn, dev, bulk)
+        phase_rest(root, knn, records, dev, bulk)
         del knn
         phase_train(root, records, dev)
     finally:
@@ -3256,6 +3473,12 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60)
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    log("kernels: " + " ".join(f"{r['name']}={r['launches']}" for r in records.values())
+        + " (each on its path: the diagonal and concat entries on one post_opt pair, the "
+        "Viterbi on one device-f0 pair, the full-bias entry on the [rest] surface drive)")
+    for r in records.values():
+        if not r["launches"]:
+            fail(f"{r['name']} was not launched on its path")
     log(f"[done] all phases in {time.perf_counter() - t_all:.1f} s")
     print(smi.stdout.strip().splitlines()[0], flush=True)
     print(json.dumps({"kernels": list(records.values())}), flush=True)

@@ -7,20 +7,28 @@
 // (pl.pallas_call at attention.py:82, body _attn_kernel at :34):
 //
 //     out[h] = softmax(q[h] k[h]^T * d^-1/2 + gate[h, :, None] * bias[h]) v[h]
-//     bias[h, i, j] = diag[h, T-1 + j - i]
 //
-// q, k, v, out: (H, T, 64) fp32; diag: (H, 2T-1) fp32; gate: (H, T) fp32.
-// The TPU kernel reads a (H, T, T) bias; WavLM's bias is the Toeplitz gather
-// of its (H, 2T-1) diagonal (models/wavlm/model.py::compute_position_diag),
-// so this kernel reads the diagonal and builds each tile's bias itself: 12 KB
-// per head instead of 144 MB per launch at T = 1500.
+// q, k, v, out: (H, T, 64) fp32; gate: (H, T) fp32. The bias comes in one of
+// two forms, one entry each (template parameter FULL_BIAS):
+//   - gated_bias_attention_full_f32: bias (H, T, T) fp32, row-major, as the
+//     TPU kernel reads it; each (query block x key tile) bias tile is staged
+//     from device memory by cp.async beside the K and V tiles;
+//   - gated_bias_attention_f32: the (H, 2T-1) diagonal table of a Toeplitz
+//     bias, bias[h, i, j] = diag[h, T-1 + j - i]. WavLM's relative-position
+//     bias is that gather (models/wavlm/model.py::compute_position_diag), so
+//     the served path reads 12 KB per head instead of 144 MB per launch at
+//     T = 1500, and builds each tile's bias itself.
+// Both run one inner loop; a Toeplitz bias through the full entry gives the
+// diagonal entry's output bit for bit.
 //
 // Bound at the main path's shape (H=16, T=1500, d=64: one WavLM layer on a
 // 30-s chunk):
 //   - operations: 3 tensor-core passes (below) of 4*H*T^2*d = 9.2 GFLOP,
 //     27.6 GFLOP at the H100's 495 TFLOP/s dense TF32: ~56 us;
-//   - bytes: q, k, v, out 24.6 MB, diag and gate 0.3 MB: ~7 us at 3.35 TB/s.
-// So it is bound by operations.
+//   - bytes: q, k, v, out 24.6 MB, diag and gate 0.3 MB: ~7 us at 3.35 TB/s;
+//     the full entry adds its 144 MB bias: ~50 us.
+// So the diagonal entry is bound by operations, the full entry by operations
+// under 3 passes and by bytes under one.
 //
 // Why 3xTF32. A TF32 operand keeps 10 mantissa bits (~3 decimal digits), too
 // few for the fp32 tolerances the port holds this kernel to (1e-4 at
@@ -35,15 +43,17 @@
 // (template parameter PASSES).
 //
 // Tile shapes. A block is one head and BQ = 64 queries: 4 warps, 16 query
-// rows each. It streams BK = 32-key tiles of K and V, and the BQ + BK - 1
-// diagonal values that (query block, key tile) pair reads, through a
-// 2-stage cp.async ring in shared memory (36.6 KB per block; one barrier per
-// tile, the next tile's copies in flight while a tile is computed), with an online
-// softmax in registers (running row max and sum, rescaling the output when
-// the max grows). 3 blocks fit an SM (168 registers a thread, the launch
-// bound), so 16 heads x 24 query blocks = 384 blocks fill 132 SMs x 3 in one
-// wave. BK = 32 rather than 64 keeps the score tile at 16 registers and the
-// kernel free of spills. No score and no bias ever reaches device memory.
+// rows each. It streams BK = 32-key tiles of K and V, and the bias that
+// (query block, key tile) pair reads (the BQ + BK - 1 diagonal values, or
+// the BQ x BK tile of the full bias), through a 2-stage cp.async ring in
+// shared memory (36.6 KB per block with the diagonal, 55.0 KB with full
+// tiles; one barrier per tile, the next tile's copies in flight while a
+// tile is computed), with an online softmax in registers (running row max
+// and sum, rescaling the output when the max grows). 3 blocks fit an SM
+// (168 registers a thread, the launch bound), so 16 heads x 24 query blocks
+// = 384 blocks fill 132 SMs x 3 in one wave. BK = 32 rather than 64 keeps
+// the score tile at 16 registers and the kernel free of spills. No score
+// ever reaches device memory, nor a bias that was not given.
 //
 // Fragments (mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32; lane =
 // 4*g + t, g = lane/4, t = lane%4):
@@ -61,15 +71,17 @@
 //     (a0 = c0, a1 = c2, a2 = c1, a3 = c3), so P moves neither through
 //     shuffles nor through shared memory; V's b0/b1 are V[2t][g], V[2t+1][g].
 // Shared rows are padded so the 32 lanes hit distinct banks: K rows 72
-// floats (8-byte loads: 8g + 2t + {0,1} over a half-warp), V rows 68 floats
-// (4-byte loads: 8t + g). One fp32 load of a B element feeds two of the
+// floats and full-bias rows 40 (8-byte loads: 8g + 2t + {0,1} over a
+// half-warp), V rows 68 floats (4-byte loads: 8t + g). One fp32 load of a B element feeds two of the
 // three products (hi to lo*hi and hi*hi, lo to hi*lo).
 //
 // Ragged T is masked inside the kernel: K and V rows past T are zero-filled
 // by the copies, keys past T get -inf AFTER the gate multiply (no zero or
-// negative gate revives them), diagonal indices outside [0, 2T-2] read 0,
-// and rows past T are computed on zeros and never stored. The caller pads
-// nothing.
+// negative gate revives them), diagonal indices outside [0, 2T-2] and
+// full-bias entries past T read 0, and rows past T are computed on zeros and
+// never stored. The caller pads nothing. The full bias's tiles move in
+// 16-byte copies when T % 4 == 0 (every row then starts 16-byte aligned),
+// else in 4-byte ones.
 
 #include <cuda_runtime.h>
 
@@ -87,16 +99,29 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int MIN_BLOCKS_PER_SM = 3;
 constexpr int KS = D + 8;      // K row stride in floats
 constexpr int VS = D + 4;      // V row stride in floats
+constexpr int BS = BK + 8;     // full-bias tile row stride in floats
 constexpr int BIAS_N = BQ + BK - 1;
 constexpr int BIAS_SLOTS = (BIAS_N + 3) / 4 * 4;
 constexpr int STAGES = 2;
-constexpr int STAGE_FLOATS = BK * KS + BK * VS + BIAS_SLOTS;
-constexpr int SMEM_BYTES = STAGES * STAGE_FLOATS * (int)sizeof(float);
+
+// a ring stage: K tile, V tile, then the diagonal values or the bias tile
+template <bool FULL_BIAS>
+__host__ __device__ constexpr int stage_floats() {
+  return BK * KS + BK * VS + (FULL_BIAS ? BQ * BS : BIAS_SLOTS);
+}
+
+template <bool FULL_BIAS>
+__host__ __device__ constexpr int smem_bytes() {
+  return STAGES * stage_floats<FULL_BIAS>() * (int)sizeof(float);
+}
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
 
 static_assert(BIAS_N <= BIAS_SLOTS && BIAS_N <= THREADS, "one diagonal value per thread");
-static_assert((KS * 4) % 16 == 0 && (VS * 4) % 16 == 0, "16-byte aligned shared rows");
+static_assert((KS * 4) % 16 == 0 && (VS * 4) % 16 == 0 && (BS * 4) % 16 == 0,
+              "16-byte aligned shared rows");
+static_assert((stage_floats<false>() * 4) % 16 == 0 && (stage_floats<true>() * 4) % 16 == 0,
+              "16-byte aligned ring stages");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -163,12 +188,14 @@ __device__ __forceinline__ void mma_passes(float (&c)[4], const uint32_t (&ahi)[
   mma_tf32(c, ahi, bh0, bh1);
 }
 
-template <int PASSES>
+// bias: the (H, T, T) bias (FULL_BIAS) or the (H, 2T-1) diagonal table
+template <int PASSES, bool FULL_BIAS>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS_PER_SM)
 gated_bias_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, const float* __restrict__ diag,
+                            const float* __restrict__ v, const float* __restrict__ bias,
                             const float* __restrict__ gate, float* __restrict__ out, int T,
                             float scale) {
+  constexpr int STAGE_FLOATS = stage_floats<FULL_BIAS>();
   extern __shared__ __align__(16) float smem[];
 
   const int h = blockIdx.y;
@@ -181,10 +208,12 @@ gated_bias_attention_kernel(const float* __restrict__ q, const float* __restrict
   const size_t head = (size_t)h * T * D;
   const float* kh = k + head;
   const float* vh = v + head;
-  const float* dh = diag + (size_t)h * (2 * T - 1);
+  const float* bh = bias + (FULL_BIAS ? (size_t)h * T * T : (size_t)h * (2 * T - 1));
+  const bool rows16 = (T & 3) == 0;
   const int ntiles = (T + BK - 1) / BK;
 
   // key tile `tile` -> ring stage `stage`: K and V rows (zeros past T) and
+  // either bias[q0 + r][k0 + c], r < BQ, c < BK (zeros past T), or
   // diag[T-1 + k0 - q0 - (BQ-1) + n], n < BQ + BK - 1 (zeros outside the table)
   auto load_tile = [&](int tile, int stage) {
     float* Ks = smem + stage * STAGE_FLOATS;
@@ -200,10 +229,26 @@ gated_bias_attention_kernel(const float* __restrict__ q, const float* __restrict
       cp_async16(Ks + r * KS + c, kh + off, ok ? 16 : 0);
       cp_async16(Vs + r * VS + c, vh + off, ok ? 16 : 0);
     }
-    if (tid < BIAS_N) {
+    if (FULL_BIAS && rows16) {
+#pragma unroll
+      for (int i = 0; i < BQ * BK / 4 / THREADS; ++i) {
+        const int idx = tid + i * THREADS;
+        const int r = idx / (BK / 4), c = (idx % (BK / 4)) * 4;
+        const bool ok = q0 + r < T && k0 + c < T;
+        cp_async16(Bs + r * BS + c, bh + (ok ? (size_t)(q0 + r) * T + k0 + c : 0), ok ? 16 : 0);
+      }
+    } else if (FULL_BIAS) {
+#pragma unroll 4
+      for (int i = 0; i < BQ * BK / THREADS; ++i) {
+        const int idx = tid + i * THREADS;
+        const int r = idx / BK, c = idx % BK;
+        const bool ok = q0 + r < T && k0 + c < T;
+        cp_async4(Bs + r * BS + c, bh + (ok ? (size_t)(q0 + r) * T + k0 + c : 0), ok ? 4 : 0);
+      }
+    } else if (tid < BIAS_N) {
       const int idx = T - 1 + k0 - q0 - (BQ - 1) + tid;
       const bool ok = idx >= 0 && idx <= 2 * T - 2;
-      cp_async4(Bs + tid, dh + (ok ? idx : 0), ok ? 4 : 0);
+      cp_async4(Bs + tid, bh + (ok ? idx : 0), ok ? 4 : 0);
     }
   };
 
@@ -279,13 +324,17 @@ gated_bias_attention_kernel(const float* __restrict__ q, const float* __restrict
       }
     }
 
-    // + gate * bias, bias[i][j] = Bs[jj - ii + BQ - 1]
+    // + gate * bias: bias[i][j] = Bs[ii * BS + jj] (full) or Bs[jj - ii + BQ - 1]
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        s[n][c] = fmaf(gv[c >> 1], Bs[n * 8 + 2 * t + (c & 1) - ii0 - 8 * (c >> 1) + BQ - 1],
-                       s[n][c]);
+      for (int r = 0; r < 2; ++r) {
+        const int jj = n * 8 + 2 * t, ii = ii0 + 8 * r;
+        const float2 b = FULL_BIAS ? *reinterpret_cast<const float2*>(Bs + ii * BS + jj)
+                              : make_float2(Bs[jj - ii + BQ - 1], Bs[jj + 1 - ii + BQ - 1]);
+        s[n][2 * r] = fmaf(gv[r], b.x, s[n][2 * r]);
+        s[n][2 * r + 1] = fmaf(gv[r], b.y, s[n][2 * r + 1]);
+      }
     if (k0 + BK > T) {  // keys past T: -inf after the gate multiply
 #pragma unroll
       for (int n = 0; n < NT; ++n)
@@ -352,36 +401,59 @@ gated_bias_attention_kernel(const float* __restrict__ q, const float* __restrict
   }
 }
 
-// 3 blocks of 36.6 KB each: ask for the SM's largest shared-memory carveout
-template <int PASSES>
-cudaError_t configure() {
-  return cudaFuncSetAttribute(gated_bias_attention_kernel<PASSES>,
-                              cudaFuncAttributePreferredSharedMemoryCarveout,
-                              (int)cudaSharedmemCarveoutMaxShared);
+// 3 blocks of 36.6 KB (55.0 KB with full tiles, past the 48-KB default
+// limit) each: ask for the SM's largest shared-memory carveout
+template <int PASSES, bool FULL_BIAS>
+cudaError_t launch(const float* q, const float* k, const float* v, const float* bias,
+                   const float* gate, float* out, int H, int T, float scale,
+                   cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(gated_bias_attention_kernel<PASSES, FULL_BIAS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem_bytes<FULL_BIAS>());
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(gated_bias_attention_kernel<PASSES, FULL_BIAS>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T + BQ - 1) / BQ, H);
+  constexpr int smem = smem_bytes<FULL_BIAS>();
+  gated_bias_attention_kernel<PASSES, FULL_BIAS><<<grid, THREADS, smem, stream>>>(
+      q, k, v, bias, gate, out, T, scale);
+  return cudaGetLastError();
+}
+
+template <bool FULL_BIAS>
+int launch_passes(const float* q, const float* k, const float* v, const float* bias,
+                  const float* gate, float* out, int H, int T, int d, float scale, int passes,
+                  void* stream) {
+  if (d != D || H <= 0 || T <= 0 || H > 65535 || T > (1 << 29) || (passes != 1 && passes != 3))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(passes == 3 ? launch<3, FULL_BIAS>(q, k, v, bias, gate, out, H, T, scale, s)
+                           : launch<1, FULL_BIAS>(q, k, v, bias, gate, out, H, T, scale, s));
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream`; returns the cudaError_t of the launch (0 = success).
-// passes: 3 (3xTF32, fp32-grade) or 1 (TF32). Pointers must be 16-byte
-// aligned and the tensors contiguous (checked by the Python wrapper).
+// Both entries launch on `stream` and return the cudaError_t of the launch
+// (0 = success). passes: 3 (3xTF32, fp32-grade) or 1 (TF32). Pointers must
+// be 16-byte aligned and the tensors contiguous (checked by the Python
+// wrapper).
+
+// bias: the (H, 2T-1) diagonal table of a Toeplitz bias
 int gated_bias_attention_f32(const float* q, const float* k, const float* v, const float* diag,
                              const float* gate, float* out, int H, int T, int d, float scale,
                              int passes, void* stream) {
-  if (d != D || H <= 0 || T <= 0 || H > 65535 || T > (1 << 29) || (passes != 1 && passes != 3))
-    return (int)cudaErrorInvalidValue;
-  const cudaError_t err = passes == 3 ? configure<3>() : configure<1>();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + BQ - 1) / BQ, H);
-  if (passes == 3)
-    gated_bias_attention_kernel<3><<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-        q, k, v, diag, gate, out, T, scale);
-  else
-    gated_bias_attention_kernel<1><<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-        q, k, v, diag, gate, out, T, scale);
-  return (int)cudaGetLastError();
+  return launch_passes<false>(q, k, v, diag, gate, out, H, T, d, scale, passes, stream);
+}
+
+// bias: (H, T, T), row-major
+int gated_bias_attention_full_f32(const float* q, const float* k, const float* v,
+                                  const float* bias, const float* gate, float* out, int H, int T,
+                                  int d, float scale, int passes, void* stream) {
+  return launch_passes<true>(q, k, v, bias, gate, out, H, T, d, scale, passes, stream);
 }
 
 const char* knnsvc_cuda_error_string(int code) {

@@ -80,6 +80,13 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return dev
 
 
+def scan_checkpoint(ckpt_dir: str, substring: str) -> str | None:
+    """Latest file in ckpt_dir matching *substring* (ref hifigan/utils.py:55-60):
+    the last of the sorted glob matches, or None."""
+    matches = glob.glob(os.path.join(ckpt_dir, f"*{substring}*"))
+    return sorted(matches)[-1] if matches else None
+
+
 class _StreamRunner:
     """The chunk-conversion loop of stream_convert_chunks (the whole
     waveform known up front) and StreamSession (samples arriving live). It

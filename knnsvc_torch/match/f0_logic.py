@@ -72,3 +72,49 @@ def sort_by_f0_compatibility(expected_f0: torch.Tensor, f0_list: torch.Tensor,
     badness = torch.abs(_log2(cand_f0 + 1e-5) - _log2(expected_f0[:, None] + 1e-5))
     order = torch.argsort(badness, dim=1, stable=True)
     return torch.gather(target_feature_indices, 1, order)
+
+
+def compute_shift(query_f0: torch.Tensor, f0_list: torch.Tensor,
+                  target_feature_indices: torch.Tensor) -> torch.Tensor:
+    """Least-squares multiplicative f0 shift (ref ddsp_prematch_dataset.py:
+    929-950, off the live path, which uses the log-median shift above):
+    the s minimising ||s*q - median_tgt|| over frames whose candidates'
+    median f0 is voiced; 1 when there is none. -> a 0-d tensor."""
+    med = torch_median(f0_list[target_feature_indices], dim=-1)       # (T,)
+    q = torch.where(med == 0, 0.0, query_f0)
+    denom = torch.sum(q * q)
+    return torch.where(denom > 0, torch.sum(q * med) / denom, 1.0)
+
+
+def smoothen_f0(f0, slice_list, frame_per_second: int = 50) -> np.ndarray:
+    """Linear interpolation across glitchy [start_s, end_s] windows
+    (ref lib_ongaku_test.py:248-263). A host numpy utility, as in the JAX
+    package: f0 (an array, or a tensor on any device) -> a numpy copy."""
+    if isinstance(f0, torch.Tensor):
+        f0 = f0.detach().cpu().numpy()
+    f0 = np.asarray(f0).copy()
+    for start_s, end_s in slice_list:
+        a = int(start_s * frame_per_second)
+        b = min(int(end_s * frame_per_second), len(f0) - 1)
+        if b <= a:
+            continue
+        f0[a:b + 1] = np.interp(np.arange(a, b + 1), [a, b], [f0[a], f0[b]])
+    return f0
+
+
+def interp_f0_candidates(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    """Log-domain piecewise-linear interpolation of per-frame candidate
+    tracks (ref ddsp_prematch_dataset.py:1019-1060 `interp`; off the live
+    path). x (B,), xp (B, F) increasing, fp (B, F, N). Each row's line is
+    the segment of xp[b] that holds x[b]. The result broadcasts as the JAX
+    function's does: (B, B, N), [i, j] being row j's line at x[i] (for
+    B = 1, (1, 1, N))."""
+    xl = torch.log(x + 1e-5)[:, None]                                # (B, 1)
+    xpl = torch.log(xp + 1e-5)                                       # (B, F)
+    m = (fp[:, 1:] - fp[:, :-1]) / (xpl[:, 1:, None] - xpl[:, :-1, None])
+    b = fp[:, :-1] - m * xpl[:, :-1, None]
+    idx = torch.clamp(torch.sum(xl >= xpl, dim=-1) - 1, 0, m.shape[1] - 1)   # (B,)
+    gather = idx[:, None, None].expand(-1, 1, m.shape[2])
+    mi = torch.gather(m, 1, gather)
+    bi = torch.gather(b, 1, gather)
+    return mi[:, 0] * xl[..., None] + bi[:, 0]

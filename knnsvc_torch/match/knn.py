@@ -1,5 +1,5 @@
 """k-nearest-neighbour search over the target frame pool (counterpart of
-knnsvc_tpu/match/knn.py::knn_topk).
+knnsvc_tpu/match/knn.py).
 
 The JAX package's lax.top_k breaks ties toward the lowest index and
 torch.topk promises no order among ties, so each query tile is sorted with
@@ -32,3 +32,20 @@ def knn_topk(query: torch.Tensor, pool: torch.Tensor, k: int = 32,
         idx.append(i[:, :k])
         vals.append(v[:, :k])
     return torch.cat(idx), torch.cat(vals)
+
+
+def knn_cosine_similarity(src_elements: torch.Tensor, tgt_elements: torch.Tensor,
+                          retain_mask: torch.Tensor | None = None,
+                          k: int = 32) -> tuple[torch.Tensor, torch.Tensor]:
+    """kNN on inputs rounded through half precision, with an optional retain
+    mask (ref lib_ongaku_test.py:182-196): pairs whose mask is 0 get 1 added
+    to their distance. src (Q, D), tgt (P, D), retain_mask (Q, P) ->
+    (indices (Q, k) int64, distances (Q, k)), ascending, ties to the lower
+    pool index (lax.top_k's order)."""
+    src = src_elements.to(torch.float16).to(torch.float32)
+    tgt = tgt_elements.to(torch.float16).to(torch.float32)
+    dists = cosine_distance(src, tgt)
+    if retain_mask is not None:
+        dists = dists + (1.0 - retain_mask.to(device=dists.device, dtype=dists.dtype))
+    vals, idx = torch.sort(dists, dim=1, stable=True)
+    return idx[:, :k], vals[:, :k]

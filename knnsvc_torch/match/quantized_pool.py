@@ -42,9 +42,12 @@ class QuantizedPool(NamedTuple):
     inv_norms: torch.Tensor   # (P,) float32, 1/|values_row| (zero rows -> 0)
 
 
-def quantize_pool(pool, device: str | torch.device = "cpu") -> QuantizedPool:
+def quantize_pool(pool, device: str | torch.device = "cuda") -> QuantizedPool:
     """Row-wise symmetric int8 quantization on the host (once per pool),
-    the result moved to `device`."""
+    the result moved to `device` (a CUDA request without a card raises)."""
+    from knnsvc_torch.hub import resolve_device
+
+    device = resolve_device(device)
     p = np.asarray(pool, dtype=np.float32)
     absmax = np.max(np.abs(p), axis=1, keepdims=True)
     scale = np.where(absmax > 0, absmax / 127.0, 1.0)

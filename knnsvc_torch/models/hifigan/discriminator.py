@@ -102,17 +102,7 @@ class DiscriminatorP(nn.Module):
 
     def forward(self, x: torch.Tensor):
         """x (B, 1, T) -> (logits (B, n), feature maps)."""
-        B, C, T = x.shape
-        if T % self.period:
-            x = F.pad(x, (0, self.period - T % self.period), mode="reflect")
-        x = x.reshape(B, C, -1, self.period)
-        fmap = []
-        for conv in self.convs:
-            x = F.leaky_relu(conv(x), LRELU_SLOPE)
-            fmap.append(x)
-        x = self.conv_post(x)
-        fmap.append(x)
-        return x.reshape(B, -1), fmap
+        return discriminator_p_apply(self, self.period, x)
 
 
 class MultiPeriodDiscriminator(nn.Module):
@@ -191,6 +181,37 @@ class MultiScaleDiscriminator(nn.Module):
         return y_d_rs, y_d_gs, fmap_rs, fmap_gs
 
 
+def discriminator_p_apply(disc: DiscriminatorP, period: int, x: torch.Tensor,
+                          kernel_size: int = 5, stride: int = 3):
+    """One period sub-discriminator on x (B, 1, T) folded to (T/period,
+    period), its first four convs at `stride` over time: -> (logits (B, n),
+    feature maps). kernel_size is taken and unused, as in the JAX package:
+    the kernel is the weights' own and the padding (2, 0)."""
+    del kernel_size
+    B, C, T = x.shape
+    if T % period:
+        x = F.pad(x, (0, period - T % period), mode="reflect")
+    x = x.reshape(B, C, -1, period)
+    fmap = []
+    for i, conv in enumerate(disc.convs):
+        x = F.conv2d(x, conv.weight, conv.bias, (stride, 1) if i < 4 else 1, (2, 0))
+        x = F.leaky_relu(x, LRELU_SLOPE)
+        fmap.append(x)
+    x = disc.conv_post(x)
+    fmap.append(x)
+    return x.reshape(B, -1), fmap
+
+
+def discriminator_s_apply(disc: DiscriminatorS, x: torch.Tensor, update_sn: bool = False):
+    """One scale sub-discriminator on x (B, 1, T), after one spectral-norm
+    power-iteration step when update_sn: -> (logits, feature maps, disc).
+    The module holds the updated u / v_pow buffers, so it stands where the
+    JAX function returns its updated parameters."""
+    if update_sn:
+        power_iterate(disc)
+    return (*disc(x), disc)
+
+
 def mpd_apply(mpd: MultiPeriodDiscriminator, y: torch.Tensor, y_hat: torch.Tensor):
     """The JAX package's functional form of calling the MPD:
     -> (y_d_rs, y_d_gs, fmap_rs, fmap_gs)."""
@@ -220,15 +241,17 @@ def _weight_normed(w: np.ndarray) -> Params:
         (-1,) + (1,) * (w.ndim - 1)).astype(np.float32)}
 
 
-def init_mpd_params(generator: torch.Generator, width_scale: int = 1,
-                    n_periods: int | None = None) -> Params:
-    """Random MPD weights in the JAX package's tree layout (live weight norm,
-    std 0.02, zero biases), drawn from `generator`."""
+def init_mpd_params(generator: torch.Generator, weight_norm_parametrized: bool = True,
+                    width_scale: int = 1, n_periods: int | None = None) -> Params:
+    """Random MPD weights in the JAX package's tree layout (std 0.02, zero
+    biases), drawn from `generator`: live weight norm ({"g", "v"}), or the
+    effective weights ({"w"}) when not weight_norm_parametrized."""
     top = 1024 // width_scale
     chans = [1] + [c // width_scale for c in _MPD_CHANNELS] + [top]
 
     def conv2(out_c, in_c, kh):
-        return {**_weight_normed(_randn(generator, (out_c, in_c, kh, 1), 0.02)),
+        w = _randn(generator, (out_c, in_c, kh, 1), 0.02)
+        return {**(_weight_normed(w) if weight_norm_parametrized else {"w": w}),
                 "b": np.zeros(out_c, np.float32)}
 
     discs = []
@@ -239,11 +262,12 @@ def init_mpd_params(generator: torch.Generator, width_scale: int = 1,
     return {"discriminators": discs}
 
 
-def init_msd_params(generator: torch.Generator, width_scale: int = 1,
-                    n_scales: int | None = None) -> Params:
+def init_msd_params(generator: torch.Generator, weight_norm_parametrized: bool = True,
+                    width_scale: int = 1, n_scales: int | None = None) -> Params:
     """Random MSD weights in the JAX package's tree layout: scale 0
     spectral-normed ({"v_sn", "u", "v_pow"}, u and v_pow unit vectors), the
-    others weight-normed."""
+    others weight-normed, or their effective weights ({"w"}) when not
+    weight_norm_parametrized."""
 
     def conv1(out_c, in_c, k, spectral):
         w = _randn(generator, (out_c, in_c, k), 0.02)
@@ -252,8 +276,10 @@ def init_msd_params(generator: torch.Generator, width_scale: int = 1,
             v = torch.randn(in_c * k, generator=generator)
             p = {"v_sn": w, "u": (u / torch.linalg.vector_norm(u)).numpy(),
                  "v_pow": (v / torch.linalg.vector_norm(v)).numpy()}
-        else:
+        elif weight_norm_parametrized:
             p = _weight_normed(w)
+        else:
+            p = {"w": w}
         p["b"] = np.zeros(out_c, np.float32)
         return p
 

@@ -80,8 +80,13 @@ class GeneratorHarm(nn.Module):
 
 
 def generator_harm_apply(model: GeneratorHarm, f0: torch.Tensor, harm: torch.Tensor,
-                         sample_rate: int = 16000, hop_size: int = 320) -> torch.Tensor:
-    """The JAX package's functional form of calling a GeneratorHarm."""
+                         sample_rate: int = 16000, hop_size: int = 320,
+                         kernel_size: int = 3) -> torch.Tensor:
+    """The JAX package's functional form of calling a GeneratorHarm. The
+    module carries its ConvReluNorm kernel size; kernel_size must agree."""
+    if model.net.convs[0].kernel_size[0] != kernel_size:
+        raise ValueError(f"the GeneratorHarm's kernel size is "
+                         f"{model.net.convs[0].kernel_size[0]}, called with {kernel_size}")
     return model(f0, harm, sample_rate, hop_size)
 
 

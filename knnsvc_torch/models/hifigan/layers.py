@@ -68,3 +68,36 @@ class ResBlock3(nn.Module):
         for c in self.convs:
             x = c(F.leaky_relu(x, LRELU_SLOPE)) + x
         return x
+
+
+def _check_block(p: nn.Module, kernel_size: int, dilations) -> None:
+    """The JAX package's resblock functions take the kernel size and the
+    dilations beside the parameters; the port's blocks carry them. They
+    must agree."""
+    convs = getattr(p, "convs1", getattr(p, "convs", None))
+    got = ([c.kernel_size[0] for c in convs], [c.dilation[0] for c in convs])
+    want = ([kernel_size] * len(convs), list(dilations))
+    if got != want:
+        raise ValueError(f"{type(p).__name__} has kernel sizes and dilations {got}, "
+                         f"called with {want}")
+
+
+def resblock1_apply(x: torch.Tensor, p: ResBlock1, kernel_size: int,
+                    dilations: tuple[int, ...]) -> torch.Tensor:
+    """The JAX package's functional form of calling a ResBlock1."""
+    _check_block(p, kernel_size, dilations)
+    return p(x)
+
+
+def resblock2_apply(x: torch.Tensor, p: ResBlock2, kernel_size: int,
+                    dilations: tuple[int, ...]) -> torch.Tensor:
+    """The JAX package's functional form of calling a ResBlock2."""
+    _check_block(p, kernel_size, dilations)
+    return p(x)
+
+
+def resblock3_apply(x: torch.Tensor, p: ResBlock3, kernel_size: int = 3,
+                    dilation: int = 1) -> torch.Tensor:
+    """The JAX package's functional form of calling a ResBlock3."""
+    _check_block(p, kernel_size, [dilation] * len(p.convs))
+    return p(x)

@@ -20,7 +20,7 @@ Architecture (ref wavlm/WavLM.py, wavlm/modules.py), as in the JAX package:
   WavLM.py:574-577) and -inf logits as keys.
 
 Unmasked attention with the position bias goes through
-ops.attention.gated_bias_attention, one call per batch row — the CUDA
+ops.attention.gated_bias_attention_diag, one call per batch row — the CUDA
 kernel on a card, in both precision modes (the JAX package keeps its
 HIGHEST mode off the Pallas kernel only because MXU dots are bf16). The
 bias reaches it as its (H, 2T-1) diagonal table, which the kernel expands
@@ -41,7 +41,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from knnsvc_torch.config import WavLMConfig
-from knnsvc_torch.ops.attention import gated_bias_attention, toeplitz_bias
+from knnsvc_torch.ops.attention import gated_bias_attention_diag, toeplitz_bias
 
 Params = dict[str, Any]
 
@@ -168,8 +168,8 @@ class MultiheadAttention(nn.Module):
             # one launch per batch row: the bias is shared across the batch
             gate = self.gate_values(x)[..., 0]                     # (B, H, T)
             out = torch.stack([
-                gated_bias_attention(q[b].contiguous(), k[b].contiguous(), v[b].contiguous(),
-                                     pos_diag, gate[b].contiguous())
+                gated_bias_attention_diag(q[b].contiguous(), k[b].contiguous(),
+                                          v[b].contiguous(), pos_diag, gate[b].contiguous())
                 for b in range(B)])
         return self.out(out.transpose(1, 2).reshape(B, T, C))
 

@@ -1,17 +1,23 @@
-"""Self-attention with a gated relative-position bias: the wrapper of the
-hand-written CUDA kernel (csrc/gated_bias_attention.cu) and its plain
-PyTorch version.
+"""Self-attention with a gated bias: the wrappers of the hand-written CUDA
+kernel (csrc/gated_bias_attention.cu) and its plain PyTorch version.
 
 Counterpart of knnsvc_tpu/ops/attention.py::gated_bias_attention, the
 Pallas TPU kernel (pl.pallas_call at attention.py:82):
 
     out = softmax(q k^T * d^-1/2 + gate[..., None] * bias) v
 
-where the TPU kernel reads the (H, T, T) bias and this port reads its
-(H, 2T-1) diagonal table, bias[h, i, j] = diag[h, T-1 + j - i] (WavLM's
-relative-position bias is that Toeplitz gather; `toeplitz_bias` expands it).
+The kernel has two entries, one per form of the bias:
+- `gated_bias_attention(q, k, v, bias, gate)` takes the (H, T, T) bias, as
+  the TPU kernel does;
+- `gated_bias_attention_diag(q, k, v, diag, gate)` takes the (H, 2T-1)
+  diagonal table of a Toeplitz bias, bias[h, i, j] = diag[h, T-1 + j - i].
+  WavLM's relative-position bias is that gather (`toeplitz_bias` expands
+  it), so the served encoder calls this entry and never builds the (H, T, T)
+  tensor.
+Both run one inner loop: a Toeplitz bias through the first gives the
+second's output bit for bit.
 
-The wrapper takes the plain version only for tensors that lie on the CPU.
+The wrappers take the plain version only for tensors that lie on the CPU.
 A CUDA tensor launches the kernel or raises; nothing falls back.
 """
 
@@ -37,54 +43,51 @@ def toeplitz_bias(diag: torch.Tensor) -> torch.Tensor:
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        diag: torch.Tensor | None, gate: torch.Tensor | None) -> torch.Tensor:
+                        bias: torch.Tensor | None, gate: torch.Tensor | None) -> torch.Tensor:
     """Plain version with the same semantics, over any leading dims:
-    q, k, v (..., H, T, d); diag (H, 2T-1); gate (..., H, T)."""
-    d = q.shape[-1]
+    q, k, v (..., H, T, d); gate (..., H, T); bias the full (..., H, T, T)
+    bias, or the (H, 2T-1) diagonal table of a Toeplitz one, or None."""
+    d, T = q.shape[-1], q.shape[-2]
     s = torch.einsum("...htd,...hsd->...hts", q, k) * (d ** -0.5)
-    if diag is not None:
-        s = s + gate[..., None] * toeplitz_bias(diag)
+    if bias is not None:
+        if bias.dim() == 2 and bias.shape[-1] == 2 * T - 1:
+            bias = toeplitz_bias(bias)
+        elif bias.dim() < 3 or tuple(bias.shape[-2:]) != (T, T):
+            raise ValueError(f"bias of shape {tuple(bias.shape)}: expected (..., H, {T}, {T}) "
+                             f"or a (H, {2 * T - 1}) diagonal table")
+        s = s + gate[..., None] * bias
     p = torch.softmax(s, dim=-1)
     return torch.einsum("...hts,...hsd->...htd", p, v)
 
 
-def _check_cuda_inputs(q, k, v, diag, gate) -> tuple[int, int, int]:
+def _check_inputs(q, k, v, bias, gate, bias_shape) -> None:
+    """Shapes on every device; dtype, device, layout and head dim for the
+    kernel's (CUDA) inputs."""
     H, T, d = q.shape
     expected = {"q": (H, T, d), "k": (H, T, d), "v": (H, T, d),
-                "diag": (H, 2 * T - 1), "gate": (H, T)}
-    for name, t in zip(expected, (q, k, v, diag, gate)):
+                "bias": bias_shape(H, T), "gate": (H, T)}
+    for name, t in zip(expected, (q, k, v, bias, gate)):
+        if tuple(t.shape) != expected[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {expected[name]}")
+        if q.device.type == "cpu":
+            continue
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if tuple(t.shape) != expected[name]:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {expected[name]}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    if d != HEAD_DIM:
+    if q.device.type != "cpu" and d != HEAD_DIM:
         raise ValueError(f"the CUDA kernel takes head dim {HEAD_DIM}, got {d}")
-    return H, T, d
 
 
-def gated_bias_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         diag: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
-    """q, k, v (H, T, d); diag (H, 2T-1), the bias's diagonal table; gate
-    (H, T) per-query scale of the bias. q arrives unscaled (1/sqrt(d) is
-    applied inside). -> (H, T, d) fp32.
-
-    CPU tensors take `reference_attention`. CUDA tensors launch the kernel on
-    the current stream and add one to `gated_bias_attention.launches`: its
-    products take 3 TF32 tensor-core passes (fp32-grade) under the "highest"
-    precision policy and one under "fastest", as cuBLAS takes TF32 there."""
-    if q.device.type == "cpu":
-        return reference_attention(q, k, v, diag, gate)
-    if q.device.type != "cuda":
-        raise ValueError(f"gated_bias_attention runs on cpu or cuda, not {q.device}")
-    H, T, d = _check_cuda_inputs(q, k, v, diag, gate)
+def _launch(entry: str, q, k, v, bias, gate) -> torch.Tensor:
+    """One launch of the kernel's `entry` on q's current stream."""
     from knnsvc_torch.ops.build import check_launch, load_kernel
 
+    H, T, d = q.shape
     lib = load_kernel(KERNEL)
-    fn = lib.gated_bias_attention_f32
+    fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -92,12 +95,50 @@ def gated_bias_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), diag.data_ptr(),
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                   gate.data_ptr(), out.data_ptr(), H, T, d, d ** -0.5, passes, stream)
     check_launch(lib, KERNEL, code)
+    return out
+
+
+def _device_of(q: torch.Tensor, name: str) -> str:
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
+    return q.device.type
+
+
+def gated_bias_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         bias: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """q, k, v (H, T, d); bias (H, T, T); gate (H, T) per-query scale of the
+    bias. q arrives unscaled (1/sqrt(d) is applied inside). -> (H, T, d)
+    fp32. Padded keys take no weight under any gate, as in the TPU kernel.
+
+    CPU tensors take `reference_attention`. CUDA tensors launch the kernel's
+    full-bias entry on the current stream and add one to
+    `gated_bias_attention.launches`: its products take 3 TF32 tensor-core
+    passes (fp32-grade) under the "highest" precision policy and one under
+    "fastest", as cuBLAS takes TF32 there."""
+    _check_inputs(q, k, v, bias, gate, lambda H, T: (H, T, T))
+    if _device_of(q, "gated_bias_attention") == "cpu":
+        return reference_attention(q, k, v, bias, gate)
+    out = _launch("gated_bias_attention_full_f32", q, k, v, bias, gate)
     gated_bias_attention.launches += 1
     return out
 
 
-gated_bias_attention.launches = 0
+def gated_bias_attention_diag(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              diag: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+    """`gated_bias_attention` with a Toeplitz bias given as its (H, 2T-1)
+    diagonal table, bias[h, i, j] = diag[h, T-1 + j - i] (WavLM's
+    relative-position bias). CUDA tensors launch the kernel's diagonal entry
+    and add one to `gated_bias_attention_diag.launches`."""
+    _check_inputs(q, k, v, diag, gate, lambda H, T: (H, 2 * T - 1))
+    if _device_of(q, "gated_bias_attention_diag") == "cpu":
+        return reference_attention(q, k, v, diag, gate)
+    out = _launch("gated_bias_attention_f32", q, k, v, diag, gate)
+    gated_bias_attention_diag.launches += 1
+    return out
 
+
+gated_bias_attention.launches = 0
+gated_bias_attention_diag.launches = 0

@@ -21,7 +21,9 @@ devices are read by the concat-cost kernel through peer access
 
 `data_sharding(mesh)` splits a batch over the grid rows and
 `replicated(mesh)` copies a tensor to each, the roles of the JAX package's
-NamedShardings in its data-parallel train step (train/trainer.py).
+NamedShardings in its data-parallel train step (train/trainer.py);
+`pool_sharding(mesh)` splits a pool's frames over the 'pool' axis of every
+grid row, as NamedSharding(mesh, P('pool')) does.
 `initialize_distributed` brings up torch.distributed over TCP (NCCL on
 cards, gloo on the CPU); the train step then averages its gradients over
 the processes, each of which owns its own Mesh.
@@ -86,27 +88,42 @@ def make_mesh(n_data: int | None = None, n_pool: int = 1, devices=None) -> Mesh:
 
 @dataclasses.dataclass(frozen=True)
 class Sharding:
-    """Where a tensor goes on a mesh: split on its leading (batch) axis over
-    the grid rows (axis 'data') or copied whole to each (axis None). Each
-    part lands on its row's first device."""
+    """Where a tensor goes on a mesh: split on its leading axis over the grid
+    rows (axis 'data', a batch) or over the positions of each row (axis
+    'pool', a pool's frames), or copied whole to each row (axis None). A
+    'data' or None part lands on its row's first device."""
 
     mesh: Mesh
     axis: str | None
 
+    def __post_init__(self):
+        if self.axis not in ("data", "pool", None):
+            raise ValueError(f"a Sharding's axis is 'data', 'pool' or None, not {self.axis!r}")
+
     @property
     def devices(self) -> list[torch.device]:
+        """The device of each part: each row's first ('data', None), or every
+        grid position row by row ('pool')."""
+        if self.axis == "pool":
+            return [d for row in self.mesh.devices for d in row]
         return [row[0] for row in self.mesh.devices]
 
     def put(self, x: torch.Tensor) -> list[torch.Tensor]:
-        """-> one tensor per grid row: B / n_data rows of x each ('data'),
-        or x itself (None); a part on its row's device."""
+        """-> one tensor per device of `devices`: B / n_data rows of x each
+        ('data'); x itself (None); or, at grid position (d, p), the p-th of
+        n_pool equal blocks of x's rows ('pool', the blocks of `shard_rows`
+        for a pool that n_pool divides)."""
         devices = self.devices
         if self.axis is None:
             return [x.to(d) for d in devices]
-        if x.shape[0] % len(devices):
-            raise ValueError(f"a batch of {x.shape[0]} does not split over a data axis of "
-                             f"{len(devices)}")
-        return [part.to(d) for part, d in zip(x.chunk(len(devices)), devices)]
+        n = self.mesh.shape[self.axis]
+        if x.shape[0] % n:
+            raise ValueError(f"a leading axis of {x.shape[0]} does not split over a {self.axis} "
+                             f"axis of {n}")
+        parts = x.chunk(n)
+        if self.axis == "pool":
+            parts = parts * self.mesh.shape["data"]
+        return [part.to(d) for part, d in zip(parts, devices)]
 
 
 def data_sharding(mesh: Mesh) -> Sharding:
@@ -117,6 +134,12 @@ def data_sharding(mesh: Mesh) -> Sharding:
 def replicated(mesh: Mesh) -> Sharding:
     """A whole copy on each grid row."""
     return Sharding(mesh, None)
+
+
+def pool_sharding(mesh: Mesh) -> Sharding:
+    """The leading (frame) axis split over the mesh's 'pool' axis, the same
+    blocks on every grid row."""
+    return Sharding(mesh, "pool")
 
 
 def initialize_distributed(coordinator_address: str | None = None,

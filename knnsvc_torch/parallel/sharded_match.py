@@ -83,7 +83,7 @@ def shard_speaker_pool(matching, synth, f0, harmonics, mesh: Mesh,
     matching_q8 = inv_norms = matching_sh = None
     if quantize_matching:
         host = matching.cpu().numpy() if isinstance(matching, torch.Tensor) else matching
-        qp = quantize_pool(host)
+        qp = quantize_pool(host, "cpu")
         matching_q8, inv_norms = shard_rows(qp.values, mesh), shard_rows(qp.inv_norms, mesh)
     else:
         matching_sh = shard_rows(_tensor(matching), mesh)

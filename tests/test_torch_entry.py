@@ -3,8 +3,9 @@ end from `.knnsvc.pkl` files (and with --precision high), no silent CPU
 fallback, the multi-device matchers give the dense matchers' waveforms, an
 `.mp3` output path writes an mp3, a directory holding only an orbax
 checkpoint serves, no file of the port imports JAX, the JAX package, orbax
-or tensorstore, every module of the JAX package has a counterpart, and each
-subpackage exports the JAX package's names."""
+or tensorstore, every module of the JAX package has a counterpart, every
+public name and keyword of its modules has one (or a listed reason), and
+each subpackage exports the JAX package's names."""
 
 import ast
 import json
@@ -155,13 +156,15 @@ def test_cli_and_policy_take_the_jax_precision_names(pair, tmp_path):
 
 def test_new_entry_points_default_to_cuda(monkeypatch, tmp_path):
     """initialize_distributed, the regression metrics, speaker similarity's
-    embedder, the Whisper transcriber and train()'s default mesh run on
-    device='cuda' unless told otherwise, and raise without a card."""
+    embedder, the Whisper transcriber, train()'s default mesh and
+    quantize_pool run on device='cuda' unless told otherwise, and raise
+    without a card."""
     from knnsvc_torch.config import HiFiGANConfig
     from knnsvc_torch.eval.intelligibility import default_whisper_transcriber
     from knnsvc_torch.eval.regression import spectral_distance
     from knnsvc_torch.eval.speaker_sim import compute_speaker_similarity, mfcc_stats_embedder
     from knnsvc_torch.io.audio import save_audio
+    from knnsvc_torch.match.quantized_pool import quantize_pool
     from knnsvc_torch.parallel.mesh import initialize_distributed, make_mesh
     from knnsvc_torch.train.loop import train
 
@@ -183,6 +186,7 @@ def test_new_entry_points_default_to_cuda(monkeypatch, tmp_path):
         lambda: train(HiFiGANConfig.from_dict(TINY_H), str(tmp_path), str(tmp_path),
                       str(tmp_path), str(tmp_path), str(tmp_path / "ckpt")),
         lambda: make_mesh(),
+        lambda: quantize_pool(np.ones((4, 8), np.float32)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -230,6 +234,227 @@ def test_every_jax_module_has_a_counterpart():
         return {str(p.relative_to(REPO / pkg)) for p in (REPO / pkg).rglob("*.py")}
 
     assert modules("knnsvc_tpu") - modules("knnsvc_torch") == set()
+
+
+# Public names of JAX modules that the port's module of the same path does
+# not define: (JAX module, name) -> (the port's counterpart as
+# "module:attribute", or None, why). Counterparts are resolved by the test.
+_PARAMS_ALIAS = "a type alias of the JAX pytrees; the port's parameters are nn.Modules"
+NAME_MAP = {
+    ("dsp/f0_device.py", "device_f0_jax"): (
+        "knnsvc_torch.dsp.f0_device:device_f0_tensor", "device f0 of a waveform on the device"),
+    ("match/concat_cost.py", "concat_cost_core"): (
+        "knnsvc_torch.match.concat_cost:concat_cost_scan",
+        "the gather-parameterized XLA core; the port's scan takes the pool or a gather"),
+    ("match/concat_cost.py", "concat_cost_pair_core"): (
+        "knnsvc_torch.match.concat_cost:concat_cost_scan", "both lanes of the same core"),
+    ("match/pool.py", "harmonic_amplitudes_jax"): (
+        "knnsvc_torch.match.pool:harmonic_amplitudes", "the device form; the port's runs on tensors"),
+    ("match/serve.py", "convert_pools_fused"): (
+        "knnsvc_torch.match.serve:convert_pools", "one jitted program in JAX; eager in the port"),
+    ("models/hifigan/harm_head.py", "conv_relu_norm_apply"): (
+        "knnsvc_torch.models.hifigan.harm_head:ConvReluNorm", "a functional primitive"),
+    ("models/hifigan/layers.py", "Params"): (None, _PARAMS_ALIAS),
+    ("models/hifigan/layers.py", "conv1d"): ("torch.nn:Conv1d", "a functional primitive"),
+    ("models/hifigan/layers.py", "conv2d"): ("torch.nn:Conv2d", "a functional primitive"),
+    ("models/hifigan/layers.py", "conv_transpose1d"): (
+        "torch.nn:ConvTranspose1d", "a functional primitive"),
+    ("models/hifigan/layers.py", "conv_weight"): (
+        "torch.nn.utils.parametrizations:weight_norm", "live weight norm as a parametrization"),
+    ("models/hifigan/layers.py", "leaky_relu"): (
+        "torch.nn.functional:leaky_relu", "a functional primitive"),
+    ("models/wavlm/model.py", "USE_PALLAS_ATTENTION"): (
+        None, "chooses between the Pallas kernel and XLA einsums; a card always takes the "
+              "port's kernel"),
+    ("models/wavlm/model.py", "cached_position_bias"): (
+        "knnsvc_torch.models.wavlm.model:WavLM.position_bias", "cached per T as its diagonal"),
+    ("models/wavlm/model.py", "conv1d"): ("torch.nn:Conv1d", "a functional primitive"),
+    ("models/wavlm/model.py", "conv_frontend"): (
+        "knnsvc_torch.models.wavlm.model:ConvFrontend", "a functional primitive"),
+    ("models/wavlm/model.py", "encoder_layer"): (
+        "knnsvc_torch.models.wavlm.model:EncoderLayer", "a functional primitive"),
+    ("models/wavlm/model.py", "gelu"): ("torch.nn.functional:gelu", "a functional primitive"),
+    ("models/wavlm/model.py", "group_norm_per_channel"): (
+        "torch.nn:GroupNorm", "GroupNorm(C, C) in ConvFrontend"),
+    ("models/wavlm/model.py", "layer_norm"): ("torch.nn:LayerNorm", "a functional primitive"),
+    ("models/wavlm/model.py", "linear"): ("torch.nn:Linear", "a functional primitive"),
+    ("models/wavlm/model.py", "multihead_attention"): (
+        "knnsvc_torch.models.wavlm.model:MultiheadAttention", "a functional primitive"),
+    ("models/wavlm/model.py", "pos_conv"): (
+        "knnsvc_torch.models.wavlm.model:Encoder", "Encoder.pos_conv and WavLM's gelu over it"),
+    ("models/wavlm/streaming.py", "Params"): (None, _PARAMS_ALIAS),
+    ("ops/attention.py", "DEFAULT_BLOCK_Q"): (
+        None, "the Pallas grid's query block; the CUDA kernel's is compiled in (BQ = 64)"),
+    ("ops/concat_scan.py", "C"): (None, "the Pallas kernel's lane-tile width"),
+    ("ops/concat_scan.py", "K"): (None, "the Pallas kernel's fixed top-k; the CUDA kernel takes "
+                                        "k <= 32"),
+    ("ops/concat_scan.py", "LANES"): (None, "the Pallas kernel's lane count"),
+    ("ops/concat_scan.py", "concat_cost_pair_pallas"): (
+        "knnsvc_torch.ops.concat_scan:concat_cost_pair", "the CUDA kernel's wrapper"),
+    ("ops/concat_scan.py", "pallas_concat_pair_ok"): (
+        None, "whether the Pallas kernel takes a shape; the CUDA kernel takes every shape the "
+              "serving path gives it"),
+    ("train/trainer.py", "Params"): (None, _PARAMS_ALIAS),
+}
+
+# Parameters of a JAX function (or method) that its port does not take
+# under the same name: (JAX module, function, parameter) -> (the port's
+# name, or None, why).
+_MODULE = "the port's function takes the nn.Module that holds these parameters"
+_CARRIED = "the port's module carries it"
+_GENERATOR = "a torch.Generator in place of a JAX PRNG key"
+KEYWORD_MAP = {
+    ("dsp/synth.py", "wrapped_phase_cumsum", "axis"): ("dim", "torch's name"),
+    ("match/f0_logic.py", "torch_median", "axis"): ("dim", "torch's name"),
+    ("match/smoothness.py", "optimize_smoothness_weights", "unroll"): (
+        None, "lax.scan's unroll factor; the port's loop is eager"),
+    ("match/smoothness.py", "optimize_smoothness_from_surrounding", "unroll"): (
+        None, "lax.scan's unroll factor; the port's loop is eager"),
+    ("ops/attention.py", "gated_bias_attention", "block_q"): (
+        None, "the Pallas grid's query block; the CUDA kernel's is compiled in"),
+    ("ops/attention.py", "gated_bias_attention", "interpret"): (
+        None, "Pallas's interpret mode; CPU tensors take the plain version"),
+    **{("match/concat_cost.py", fn, jax_name): (port_name, "the port's name")
+       for fn, renames in (
+           ("concat_cost_stream_core", ("target_feature_indices", "src_elements")),
+           ("knn_with_concat_cost", ("target_feature_indices", "src_elements", "tgt_elements")),
+           ("concat_cost_pair_stream_core", ("src_elements",)),
+           ("knn_with_concat_cost_pair", ("src_elements", "tgt_elements")))
+       for jax_name, port_name in (("target_feature_indices", "idx"), ("src_elements", "src"),
+                                   ("tgt_elements", "tgt"))
+       if jax_name in renames},
+    **{("match/concat_cost.py", fn, jax_name): why
+       for fn in ("concat_cost_stream_core", "concat_cost_pair_stream_core")
+       for jax_name, why in (
+           ("gather_rows", ("tgt", "the pool's rows")),
+           ("pool_limit", (None, "the pool's length, read from tgt")),
+           ("tgt_log_f0", ("tgt_f0", "the target f0 in Hz; the port takes its log2 inside")))},
+    **{(mod, fn, "wavlm_params"): ("wavlm", _MODULE)
+       for mod, fn in (("match/pipeline.py", "match_at_inference_time"),
+                       ("match/pool.py", "chunked_wavlm_features"),
+                       ("match/pool.py", "build_device_pool"),
+                       ("match/pool.py", "build_speaker_pool"))},
+    **{(mod, fn, "wavlm_cfg"): (None, _CARRIED)
+       for mod, fn in (("match/pipeline.py", "match_at_inference_time"),
+                       ("match/pool.py", "chunked_wavlm_features"),
+                       ("match/pool.py", "build_device_pool"),
+                       ("match/pool.py", "build_speaker_pool"))},
+    ("match/pool.py", "DevicePool.__init__", "harmonics"): (
+        None, "gathered from spec and f0 on first access"),
+    ("models/hifigan/discriminator.py", "discriminator_p_apply", "params"): ("disc", _MODULE),
+    ("models/hifigan/discriminator.py", "discriminator_s_apply", "params"): ("disc", _MODULE),
+    ("models/hifigan/discriminator.py", "mpd_apply", "params"): ("mpd", _MODULE),
+    ("models/hifigan/discriminator.py", "msd_apply", "params"): ("msd", _MODULE),
+    **{("models/hifigan/generator.py", fn, "params"): (name, _MODULE)
+       for fn, name in (("generator_apply", "generator"), ("synthesizer_mix_apply", "synth"),
+                        ("synthesizer_f0_apply", "synth"), ("synthesizer_original_apply", "synth"),
+                        ("vocode", "synth"))},
+    **{("models/hifigan/generator.py", fn, knob): (None, _CARRIED)
+       for fn, knobs in (("generator_apply", ("h", "family")), ("synthesizer_mix_apply", ("h",)),
+                         ("synthesizer_f0_apply", ("h",)), ("synthesizer_original_apply", ("h",)),
+                         ("vocode", ("h", "family")))
+       for knob in knobs},
+    ("models/hifigan/harm_head.py", "generator_harm_apply", "params"): ("model", _MODULE),
+    **{("models/wavlm/model.py", fn, "params"): ("model", _MODULE)
+       for fn in ("wavlm_extract_layer", "wavlm_extract_layer_bucketed",
+                  "wavlm_extract_all_layers", "wavlm_encode")},
+    **{("models/wavlm/model.py", fn, "cfg"): (None, _CARRIED)
+       for fn in ("wavlm_extract_layer", "wavlm_extract_layer_bucketed",
+                  "wavlm_extract_all_layers", "wavlm_encode")},
+    ("models/wavlm/streaming.py", "WavLMStreamEncoder.__init__", "params"): ("wavlm", _MODULE),
+    ("models/wavlm/streaming.py", "WavLMStreamEncoder.__init__", "cfg"): (None, _CARRIED),
+    **{(mod, fn, "key"): ("generator", _GENERATOR)
+       for mod, fn in (("models/hifigan/discriminator.py", "init_mpd_params"),
+                       ("models/hifigan/discriminator.py", "init_msd_params"),
+                       ("models/hifigan/generator.py", "init_generator_params"),
+                       ("models/hifigan/harm_head.py", "init_generator_harm_params"),
+                       ("models/wavlm/model.py", "init_wavlm_params"),
+                       ("train/spectral_losses.py", "rss_loss"))},
+    ("train/trainer.py", "init_train_state", "key"): ("seed", "a seed in place of a PRNG key"),
+    ("train/prematch.py", "self_knn_with_mask", "matching_pool_j"): (
+        "matching_pool", "the port's name"),
+    ("train/trainer.py", "set_learning_rate", "opt_state"): (
+        "optimizer", "a torch optimizer in place of optax's state"),
+    ("train/trainer.py", "make_train_step", "opt_g"): (
+        None, "an optax transformation; the port's step builds its AdamW from h"),
+    ("train/trainer.py", "make_train_step", "opt_d"): (
+        None, "an optax transformation; the port's step builds its AdamW from h"),
+    ("train/trainer.py", "eval_step", "g_params"): ("generator", _MODULE),
+    ("train/trainer.py", "eval_step_padded", "g_params"): ("generator", _MODULE),
+}
+
+
+def _module_surface(path: pathlib.Path, with_imports: bool):
+    """A module's public top-level names (functions, classes, assigned
+    names, and with_imports the names it imports) and its functions and
+    class methods by name ("f", "Class.method")."""
+    names, functions = set(), {}
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            names.add(node.name)
+            functions[node.name] = node
+        elif isinstance(node, ast.ClassDef):
+            names.add(node.name)
+            functions.update({f"{node.name}.{m.name}": m for m in node.body
+                              if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef))})
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            names.update(n.id for t in targets for n in ast.walk(t) if isinstance(n, ast.Name))
+        elif with_imports and isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0] for a in node.names)
+    return {n for n in names if not n.startswith("_")}, functions
+
+
+def _parameters(fn: ast.FunctionDef) -> tuple[list[str], bool]:
+    """The names a call can pass by keyword, and whether **kwargs is taken."""
+    a = fn.args
+    return [x.arg for x in a.args + a.kwonlyargs if x.arg != "self"], a.kwarg is not None
+
+
+def _resolve(counterpart: str):
+    import importlib
+
+    module, attr = counterpart.split(":")
+    obj = importlib.import_module(module)
+    for part in attr.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def test_every_jax_name_and_keyword_has_a_counterpart():
+    """For each module of the JAX package, every public top-level name
+    (function, class, constant) is defined or imported by the port's module
+    of the same path, or stands in NAME_MAP with its counterpart (which must
+    resolve) or the reason it has none; every parameter of a JAX function or
+    method that both define is taken by the port's under the same name, or
+    stands in KEYWORD_MAP with the port's name (which the port must take)
+    or its reason. Stale entries of either map fail too."""
+    missing_names, missing_keywords = set(), set()
+    for jax_path in sorted((REPO / "knnsvc_tpu").rglob("*.py")):
+        rel = str(jax_path.relative_to(REPO / "knnsvc_tpu"))
+        jax_names, jax_fns = _module_surface(jax_path, with_imports=False)
+        port_names, port_fns = _module_surface(REPO / "knnsvc_torch" / rel, with_imports=True)
+        missing_names |= {(rel, n) for n in jax_names - port_names}
+        for name, fn in jax_fns.items():
+            if name not in port_fns or any(p.startswith("_") and p != "__init__"
+                                           for p in name.split(".")):
+                continue
+            port_params, var_keyword = _parameters(port_fns[name])
+            for param in _parameters(fn)[0]:
+                if param not in port_params and not var_keyword:
+                    missing_keywords.add((rel, name, param))
+                    renamed = KEYWORD_MAP.get((rel, name, param), (None, ""))[0]
+                    assert renamed is None or renamed in port_params, (rel, name, param, renamed)
+    assert missing_names == set(NAME_MAP), (
+        f"unported names: {sorted(missing_names - set(NAME_MAP))}; stale entries: "
+        f"{sorted(set(NAME_MAP) - missing_names)}")
+    assert missing_keywords == set(KEYWORD_MAP), (
+        f"keywords the port does not take: {sorted(missing_keywords - set(KEYWORD_MAP))}; "
+        f"stale entries: {sorted(set(KEYWORD_MAP) - missing_keywords)}")
+    for key, (counterpart, why) in {**NAME_MAP, **KEYWORD_MAP}.items():
+        assert why, key
+        if key in NAME_MAP and counterpart is not None:
+            assert _resolve(counterpart) is not None, (key, counterpart)
 
 
 SUBPACKAGES = ["", "ops", "models", "models.wavlm", "models.hifigan", "match", "io", "utils",

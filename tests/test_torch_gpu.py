@@ -12,7 +12,9 @@ torch.softmax, its products in 3 TF32 tensor-core passes (fp32-grade);
 2e-5 (test_ops.py's bound for the Pallas kernel) at T<=200. Under the
 "fastest" policy the kernel takes one TF32 pass (10 mantissa bits):
 ATTN_ATOL_TF32, ~3x the 7.9e-4 that chip_smoke.py measures at the main
-shape on an H100 (and checks against the same bound).
+shape on an H100 (and checks against the same bound). The attention
+kernel's full-bias entry is held to the same bounds on a random (H, T, T)
+bias, and on a Toeplitz bias it equals the diagonal entry bit for bit.
 The concat-cost kernel's selections must equal its plain version's exactly
 on these random inputs, at every tested k (1..32), with its rows in shared
 memory (every k at D = 128, k = 4 at D = 1024) and read from L2 (k = 8 at
@@ -39,7 +41,8 @@ import torch
 from knnsvc_torch.match.concat_cost import (concat_cost_pair_stream_core,
                                             concat_cost_stream_core, knn_with_concat_cost,
                                             knn_with_concat_cost_pair, scan_inputs)
-from knnsvc_torch.ops.attention import gated_bias_attention, reference_attention
+from knnsvc_torch.ops.attention import (gated_bias_attention, gated_bias_attention_diag,
+                                        reference_attention, toeplitz_bias)
 from knnsvc_torch.ops.concat_scan import (concat_cost_pair, concat_cost_pair_sharded,
                                           concat_cost_pair_stream, concat_cost_prepass,
                                           concat_cost_single, concat_cost_single_sharded,
@@ -78,10 +81,10 @@ def _inputs(H, T, d, gate_value, seed, device):
 ])
 def test_attention_kernel_matches_plain(H, T, gate_value, atol):
     arrays = _inputs(H, T, 64, gate_value, seed=5, device=_cuda())
-    before = gated_bias_attention.launches
-    got = gated_bias_attention(*arrays)
+    before = gated_bias_attention_diag.launches
+    got = gated_bias_attention_diag(*arrays)
     torch.cuda.synchronize()
-    assert gated_bias_attention.launches == before + 1
+    assert gated_bias_attention_diag.launches == before + 1
     want = reference_attention(*arrays)
     assert got.shape == want.shape and torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= atol
@@ -94,11 +97,11 @@ def test_attention_kernel_fastest_takes_one_tf32_pass(H, T):
     version, and stays within ATTN_ATOL_TF32."""
     arrays = _inputs(H, T, 64, None, seed=7, device=_cuda())
     want = reference_attention(*arrays)
-    exact = float((gated_bias_attention(*arrays) - want).abs().max())
+    exact = float((gated_bias_attention_diag(*arrays) - want).abs().max())
     mode = get_precision()
     set_precision("fastest")
     try:
-        got = gated_bias_attention(*arrays)
+        got = gated_bias_attention_diag(*arrays)
         torch.cuda.synchronize()
     finally:
         set_precision(mode)
@@ -110,18 +113,89 @@ def test_attention_kernel_fastest_takes_one_tf32_pass(H, T):
 @pytest.mark.gpu
 def test_attention_kernel_rejects_bad_inputs():
     q, k, v, diag, gate = _inputs(2, 64, 64, None, seed=6, device=_cuda())
-    before = gated_bias_attention.launches
+    before = gated_bias_attention_diag.launches
     with pytest.raises(TypeError):
-        gated_bias_attention(q.double(), k, v, diag, gate)
-    with pytest.raises(ValueError):                 # a full (H, T, T) bias: not taken
-        gated_bias_attention(q, k, v, torch.zeros(2, 64, 64, device=q.device), gate)
+        gated_bias_attention_diag(q.double(), k, v, diag, gate)
+    with pytest.raises(ValueError):                 # a full (H, T, T) bias: the other entry
+        gated_bias_attention_diag(q, k, v, torch.zeros(2, 64, 64, device=q.device), gate)
     with pytest.raises(ValueError):                 # a diagonal not 2T-1 long
-        gated_bias_attention(q, k, v, diag[:, :-2].contiguous(), gate)
+        gated_bias_attention_diag(q, k, v, diag[:, :-2].contiguous(), gate)
     with pytest.raises(ValueError):                 # head dim 32: not compiled
-        gated_bias_attention(q[:, :, :32].contiguous(), k[:, :, :32].contiguous(),
+        gated_bias_attention_diag(q[:, :, :32].contiguous(), k[:, :, :32].contiguous(),
                              v[:, :, :32].contiguous(), diag, gate)
     with pytest.raises(ValueError):
-        gated_bias_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, diag, gate)
+        gated_bias_attention_diag(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, diag, gate)
+    assert gated_bias_attention_diag.launches == before
+
+
+def _full_inputs(H, T, gate_value, seed, device):
+    """q, k, v, a random (H, T, T) bias (not Toeplitz), gate."""
+    q, k, v, _, gate = _inputs(H, T, 64, gate_value, seed, device)
+    bias = torch.from_numpy(np.random.default_rng(seed + 100).standard_normal((H, T, T))
+                            .astype(np.float32)).to(device)
+    return [q, k, v, bias, gate]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,T,gate_value,atol", [
+    (16, 1500, None, 1e-4),   # the main path's shape; 16-byte bias copies (T % 4 == 0)
+    (4, 200, 1.0, 2e-5),
+    (4, 200, 0.0, 2e-5),
+    (4, 200, -0.5, 2e-5),
+    (3, 61, None, 2e-5),      # 4-byte bias copies, a ragged tile and query block
+    (2, 1, None, 2e-5),
+    (2, 65, -0.5, 2e-5),
+])
+def test_full_bias_attention_matches_plain(H, T, gate_value, atol):
+    """The full-bias entry against the plain version on a random
+    (non-Toeplitz) bias, with the launch counter."""
+    arrays = _full_inputs(H, T, gate_value, seed=11, device=_cuda())
+    before = (gated_bias_attention.launches, gated_bias_attention_diag.launches)
+    got = gated_bias_attention(*arrays)
+    torch.cuda.synchronize()
+    assert (gated_bias_attention.launches, gated_bias_attention_diag.launches) == (
+        before[0] + 1, before[1])
+    want = reference_attention(*arrays)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= atol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,T", [(16, 1500), (3, 61)])
+@pytest.mark.parametrize("mode", ["highest", "fastest"])
+def test_full_bias_entry_equals_diagonal_entry_on_a_toeplitz_bias(H, T, mode):
+    """One inner loop: the Toeplitz bias expanded from a diagonal table gives
+    the diagonal entry's output bit for bit, in both precision modes."""
+    q, k, v, diag, gate = _inputs(H, T, 64, None, seed=12, device=_cuda())
+    bias = toeplitz_bias(diag).contiguous()
+    previous = get_precision()
+    set_precision(mode)
+    try:
+        full = gated_bias_attention(q, k, v, bias, gate)
+        diagonal = gated_bias_attention_diag(q, k, v, diag, gate)
+        torch.cuda.synchronize()
+    finally:
+        set_precision(previous)
+    assert torch.equal(full, diagonal)
+
+
+@pytest.mark.gpu
+def test_full_bias_attention_rejects_bad_inputs():
+    q, k, v, bias, gate = _full_inputs(2, 64, None, seed=13, device=_cuda())
+    before = gated_bias_attention.launches
+    with pytest.raises(TypeError):
+        gated_bias_attention(q, k, v, bias.double(), gate)
+    with pytest.raises(ValueError):                 # a diagonal table: the other entry
+        gated_bias_attention(q, k, v, bias[:, 0, :].contiguous(), gate)
+    with pytest.raises(ValueError):                 # not (H, T, T)
+        gated_bias_attention(q, k, v, bias[:, :-1].contiguous(), gate)
+    with pytest.raises(ValueError):                 # head dim 32: not compiled
+        gated_bias_attention(q[:, :, :32].contiguous(), k[:, :, :32].contiguous(),
+                             v[:, :, :32].contiguous(), bias, gate)
+    with pytest.raises(ValueError):                 # a transposed (non-contiguous) bias
+        gated_bias_attention(q, k, v, bias.transpose(1, 2), gate)
+    with pytest.raises(ValueError):                 # the bias on the CPU
+        gated_bias_attention(q, k, v, bias.cpu(), gate)
     assert gated_bias_attention.launches == before
 
 
@@ -327,15 +401,15 @@ def test_bucketed_encode_card_matches_cpu_without_the_kernel():
     dev = _cuda()
     card, cpu = _gpu_wavlm(dev)
     wav = _sung(1.7, 1)
-    before = gated_bias_attention.launches
+    before = gated_bias_attention_diag.launches
     with torch.no_grad():
         got = card.extract_layer_bucketed(wav.to(dev), 6)
         torch.cuda.synchronize()
-        assert gated_bias_attention.launches == before
+        assert gated_bias_attention_diag.launches == before
         want = cpu.extract_layer_bucketed(wav, 6)
         card.extract_layer(wav.to(dev), 6)
         torch.cuda.synchronize()
-    assert gated_bias_attention.launches == before + 6
+    assert gated_bias_attention_diag.launches == before + 6
     assert got.shape == want.shape
     assert float((got.cpu() - want).abs().max()) <= 1e-3
 
@@ -345,11 +419,11 @@ def test_all_layer_encode_launches_the_kernel_per_layer():
     dev = _cuda()
     card, cpu = _gpu_wavlm(dev)
     wav = _sung(1.3, 2)
-    before = gated_bias_attention.launches
+    before = gated_bias_attention_diag.launches
     with torch.no_grad():
         got = card.extract_all_layers(wav.to(dev))
         torch.cuda.synchronize()
-        assert gated_bias_attention.launches == before + 24
+        assert gated_bias_attention_diag.launches == before + 24
         want = cpu.extract_all_layers(wav)
     assert got.shape == want.shape == (25, 1, want.shape[2], 128)
     assert float((got.cpu() - want).abs().max()) <= 1e-3
@@ -368,7 +442,7 @@ def test_int8_knn_card_matches_cpu_exactly(Q, P, D):
     rng = np.random.default_rng(Q)
     pool = rng.standard_normal((P, D)).astype(np.float32)
     query = torch.from_numpy(rng.standard_normal((Q, D)).astype(np.float32))
-    cpu_pool, card_pool = quantize_pool(pool), quantize_pool(pool, dev)
+    cpu_pool, card_pool = quantize_pool(pool, device="cpu"), quantize_pool(pool, dev)
     q8, _ = quantize_rows(query)
     q8_card, _ = quantize_rows(query.to(dev))
     assert torch.equal(q8_card.cpu(), q8)
@@ -514,9 +588,9 @@ def test_prematch_on_the_card_launches_the_kernel(tmp_path):
     cfg = WavLMConfig.from_dict(_GPU_WAVLM)
     params = init_wavlm_params(cfg, torch.Generator().manual_seed(0))
     w = generate_matrix_from_index(6)
-    before = gated_bias_attention.launches
+    before = gated_bias_attention_diag.launches
     per_spk_extract(tmp_path / "data", tmp_path / "out", params, cfg, w, w, device=dev)
-    assert gated_bias_attention.launches == before + 2 * 6
+    assert gated_bias_attention_diag.launches == before + 2 * 6
     with open(tmp_path / "out" / "spk" / "u1.pt", "rb") as fh:
         fd = pickle.load(fh)
     assert fd["nearest_nbrs"].dtype == np.int64 and fd["nearest_nbrs"].shape[1] == 32

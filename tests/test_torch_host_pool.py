@@ -31,7 +31,7 @@ from knnsvc_torch.match.pipeline import ConversionFeatures
 from knnsvc_torch.match.pool import (build_speaker_pool, build_speaker_pool_cached,
                                      host_harmonic_amplitudes, load_speaker_pool,
                                      save_speaker_pool)
-from knnsvc_torch.ops.attention import gated_bias_attention
+from knnsvc_torch.ops.attention import gated_bias_attention_diag
 from knnsvc_torch.utils.layer_weights import generate_matrix_from_index
 
 from test_torch_common import (SR, _vibrato_f0, small_generator, small_wavlm, vibrato_wav,
@@ -154,10 +154,10 @@ def test_convert_pair_host_pool_matches_jax(tmp_path, models, ckpt_type, post_op
     knn, jknn = _pair_of_models(ckpt_type, models)
     want = load_audio(jknn.convert_pair(src, ref, post_opt=post_opt,
                                         output_path=str(tmp_path / "jax.wav")))[0][0]
-    before = gated_bias_attention.launches
+    before = gated_bias_attention_diag.launches
     got = load_audio(knn.convert_pair(src, ref, post_opt=post_opt,
                                       output_path=str(tmp_path / "torch.wav")))[0][0]
-    assert gated_bias_attention.launches == before        # CPU: the plain version
+    assert gated_bias_attention_diag.launches == before        # CPU: the plain version
     assert got.shape == want.shape == (50 * 320,)
     assert np.abs(want).max() > 1e-2
     # not int16 codes: the host-pool path writes the float waveform

@@ -36,7 +36,7 @@ def _features(n, d, seed):
 @pytest.mark.parametrize("P,D", [(300, 64), (1001, 1024)])
 def test_quantize_pool_bytes_and_norms_equal(P, D):
     pool = _features(P, D, 1)
-    got, want = quantize_pool(pool), jax_quantize_pool(pool)
+    got, want = quantize_pool(pool, device="cpu"), jax_quantize_pool(pool)
     assert got.values.dtype == torch.int8 and got.values.shape == (P, D)
     np.testing.assert_array_equal(got.values.numpy(), np.asarray(want.values))
     np.testing.assert_array_equal(got.inv_norms.numpy(), np.asarray(want.inv_norms))
@@ -47,7 +47,7 @@ def test_quantize_pool_bytes_and_norms_equal(P, D):
 def test_knn_topk_quantized_matches_jax(Q, P, D, k):
     pool, query = _features(P, D, 2), _features(Q, D, 3) * 0.37
     query[7] = pool[5] * 2.0                          # an exact tie between pool rows 5 and 6
-    q, pq = torch.from_numpy(query), quantize_pool(pool)
+    q, pq = torch.from_numpy(query), quantize_pool(pool, device="cpu")
     want_idx, want_d = jax_knn_topk_quantized(jnp.asarray(query), jax_quantize_pool(pool), k=k,
                                               approx=False)
     got_idx, got_d = knn_topk_quantized(q, pq, k=k)
@@ -59,7 +59,7 @@ def test_knn_topk_quantized_matches_jax(Q, P, D, k):
     want_dot = q8.long() @ pq.values.long().T
     assert torch.equal(int8_dot(q8, pq.values).long(), want_dot)
     # a pool smaller than k: all of it, as match/knn.py (the JAX function raises)
-    assert knn_topk_quantized(q, quantize_pool(pool[:7]), k=32)[0].shape == (Q, 7)
+    assert knn_topk_quantized(q, quantize_pool(pool[:7], device="cpu"), k=32)[0].shape == (Q, 7)
 
 
 def test_convert_pair_int8_matches_jax(tmp_path):

@@ -10,7 +10,7 @@ import jax
 
 from knnsvc_tpu.hub import KnnSvc as JaxKnnSvc
 from knnsvc_torch.hub import KnnSvc
-from knnsvc_torch.ops.attention import gated_bias_attention
+from knnsvc_torch.ops.attention import gated_bias_attention_diag
 from knnsvc_torch.ops.concat_scan import concat_cost_pair
 from knnsvc_torch.ops.viterbi import f0_viterbi
 from knnsvc_torch.utils.layer_weights import generate_matrix_from_index
@@ -44,10 +44,10 @@ def test_convert_pair_fast_matches_jax(pair, ckpt_type):
 
     knn = KnnSvc(wavlm_params, cfg, gen_params, h, ckpt_type, device="cpu")
     knn.weighting = weighting
-    before = gated_bias_attention.launches
+    before = gated_bias_attention_diag.launches
     got = int16_codes(knn.convert_pair(src, ref, fast=True,
                                   output_path=str(root / f"torch_{ckpt_type}.wav")))
-    assert gated_bias_attention.launches == before   # CPU: the plain version
+    assert gated_bias_attention_diag.launches == before   # CPU: the plain version
 
     assert got.shape == want.shape == (50 * 320,)
     assert np.abs(want).max() > 1000, "rescaled weights must give a real waveform"

@@ -17,7 +17,7 @@ import pytest
 
 from knnsvc_tpu.hub import KnnSvc as JaxKnnSvc
 from knnsvc_torch.hub import KnnSvc
-from knnsvc_torch.ops.attention import gated_bias_attention
+from knnsvc_torch.ops.attention import gated_bias_attention_diag
 from knnsvc_torch.ops.concat_scan import concat_cost_pair
 from knnsvc_torch.ops.viterbi import f0_viterbi
 from knnsvc_torch.utils.layer_weights import generate_matrix_from_index
@@ -52,9 +52,9 @@ def check_stream_against_jax(pair, ckpt_type, kwargs, f0_method):
     jknn, knn = _models(ckpt_type)
     jknn.f0_method = knn.f0_method = f0_method
     want = list(jknn.stream_convert_chunks(src, ref, **STREAM, **kwargs))
-    before = (gated_bias_attention.launches, concat_cost_pair.launches, f0_viterbi.launches)
+    before = (gated_bias_attention_diag.launches, concat_cost_pair.launches, f0_viterbi.launches)
     got = list(knn.stream_convert_chunks(src, ref, **STREAM, **kwargs))
-    assert (gated_bias_attention.launches, concat_cost_pair.launches,
+    assert (gated_bias_attention_diag.launches, concat_cost_pair.launches,
             f0_viterbi.launches) == before          # CPU: the plain versions
     assert len(got) == len(want) == 5
     assert [len(c) for c in got] == [len(c) for c in want]

@@ -108,16 +108,16 @@ def test_extract_layer_bucketed_matches_jax(seconds):
     before the positional conv, -inf logits as keys): the true frames
     against wavlm_extract_layer_bucketed; no attention kernel runs."""
     from knnsvc_tpu.models.wavlm.model import wavlm_extract_layer_bucketed
-    from knnsvc_torch.ops.attention import gated_bias_attention
+    from knnsvc_torch.ops.attention import gated_bias_attention_diag
 
     cfg, jcfg, params = small_wavlm()
     model = wavlm_from_numpy(params, cfg)
     wav = _sing(16000, seconds, 250, seed=4)[None]
     want = np.asarray(wavlm_extract_layer_bucketed(params, jcfg, jnp.asarray(wav), 2))
-    before = gated_bias_attention.launches
+    before = gated_bias_attention_diag.launches
     with torch.no_grad():
         got = model.extract_layer_bucketed(torch.from_numpy(wav), 2).numpy()
-    assert gated_bias_attention.launches == before
+    assert gated_bias_attention_diag.launches == before
     assert got.shape == want.shape == (1, frame_count(cfg, wav.shape[1]), cfg.encoder_embed_dim)
     np.testing.assert_allclose(got, want, atol=2e-4)
     # the mask is real: unmasked, the bucket's padded frames change the true ones
