@@ -39,6 +39,18 @@ Phases (any failure exits non-zero, before the result line):
      shards of the card) against the plain version reading the same shards
      at (1500, 1499, 1024), k = 4 and 8, pair and single lane, and S = 1
      against the dense entry, each timed;
+     [reach], the shapes the JAX package serves beside the main path's:
+     both attention entries at head dims 8, 12, 16, 32, 48, 96, 128, 200
+     and 256 (H d ~ 1024; T = 1500 at 32 and 128, else 200) under
+     "highest" and "fastest", a Toeplitz bias through the full entry
+     bit-equal to the diagonal entry, each timed beside its bound; the
+     port's WavLM at head dims 16 and 8 on the card against the CPU (one
+     launch a layer); the concat kernel at (1500, 1500, D) for D = 1022,
+     1023, 1021 and k = 4, 8, dense, on 2 logical shards and carried, equal
+     to the plain version on every frame, timed; the Viterbi at (1501, C)
+     for C = 963, 2406, 4812 (5-, 2- and 1-cent grids), states equal on
+     every frame, timed, with every instance's ptxas spills held to 0; and
+     device f0 at grid_cents 5 on a 30-s sung wav, card against CPU;
   3. the slice on the card against the slice on the CPU: one full-width
      KnnSvc.random_init("mix") (WavLM-Large, HiFi-GAN v1 config), the same
      weights on both, "highest" precision, a seeded 4-s synthetic singing
@@ -246,6 +258,28 @@ SHARD_KS = (4, 8)                       # k = 8 reads its rows from L2
 SHARDED_POOL = 1499                     # a true_len that 2 and 4 do not divide
 HOUR_SHARDS = (1, 4)
 SHARDED_PAIR_RUNS = (5, 3)              # warm runs without and with post_opt
+
+# [reach]: the shapes the JAX package serves beside the main path's
+REACH_ATTENTION = ((128, 200, 8), (85, 200, 12), (64, 200, 16), (32, 1500, 32), (21, 200, 48),
+                   (11, 200, 96), (8, 1500, 128), (5, 200, 200), (4, 200, 256))  # H d ~ 1024
+REACH_WIDTHS = (1022, 1023, 1021)       # concat rows that are no multiple of 4 floats
+REACH_STATES = ((963, 5.0), (2406, 2.0), (4812, 1.0))   # voiced states of a grid in cents
+REACH_GRID_CENTS = 5.0                  # device f0 on a finer grid than the 10-cent default
+REACH_ENCODER_SECONDS = 4.0
+# the JAX package's test encoder (tests/test_wavlm.py: head dim 16) and the
+# port's tiny training-world one (tests/test_torch_common.py: head dim 8)
+REACH_WAVLMS = {
+    16: dict(extractor_mode="layer_norm", encoder_layers=3, encoder_embed_dim=64,
+             encoder_ffn_embed_dim=128, encoder_attention_heads=4, layer_norm_first=True,
+             conv_feature_layers="[(32,10,5)] + [(32,3,2)] + [(32,2,2)]", conv_bias=False,
+             conv_pos=16, conv_pos_groups=4, relative_position_embedding=True, num_buckets=32,
+             max_distance=64, gru_rel_pos=True),
+    8: dict(extractor_mode="layer_norm", encoder_layers=2, encoder_embed_dim=16,
+            encoder_ffn_embed_dim=32, encoder_attention_heads=2, layer_norm_first=True,
+            conv_feature_layers="[(16,10,5)] + [(16,4,4)] + [(16,4,4)] + [(16,4,4)]",
+            conv_bias=True, conv_pos=8, conv_pos_groups=2, relative_position_embedding=True,
+            num_buckets=16, max_distance=32, gru_rel_pos=True),
+}
 
 # the carried (streaming) concat-cost entry
 CARRIED_KS = (2, 4, 8, 32)              # at CONCAT_SMALL, random ids and ids at P-1
@@ -836,7 +870,7 @@ def phase_viterbi_kernel(dev, ptxas: list[str]):
     plain_ms = cuda_ms(lambda: viterbi_plain(cost_v, cost_u, lam_s, switch), iters=1, warmup=0)
     bound_ms, bound_by = viterbi_bound_ms(N, C)
     ptr_bound_ms = 1e3 * (4 * (N * C + 2 * N) + 2 * 2 * (N - 1) * (C + 1)) / PEAK_BYTES_PER_S
-    regs, spill_st, spill_ld = ptxas_usage("f0_viterbi", ptxas, "f0_viterbi_kernel")
+    regs, spill_st, spill_ld = ptxas_usage("f0_viterbi", ptxas, "f0_viterbi_kernelILi4E")
     log(f"[kernel] f0_viterbi ({N}, {C}) sung costs: kernel {ms:.4f} ms "
         f"({1e3 * ms / (N - 1):.4f} us per frame; ptxas: {regs} registers, {spill_st} bytes "
         f"spill stores, {spill_ld} bytes spill loads), plain {plain_ms:.1f} ms (one run), library "
@@ -844,7 +878,7 @@ def phase_viterbi_kernel(dev, ptxas: list[str]):
         f"pointers written and read back); latency-bound in fact: a chain of {N - 1} "
         f"dependent frames")
     if spill_st or spill_ld:
-        fail(f"f0_viterbi_kernel spills: {spill_st} bytes stored, {spill_ld} loaded")
+        fail(f"f0_viterbi_kernel<4> spills: {spill_st} bytes stored, {spill_ld} loaded")
 
     # device f0 on the card against the CPU, on the same wav
     card = device_f0(wav, 16000, device=dev)
@@ -2261,6 +2295,226 @@ def phase_concat_sharded(dev) -> dict:
     return {"sharded_shape": [T, P, D], "sharded": times}
 
 
+def phase_reach(dev, ptxas: list[str], records) -> None:
+    """[reach] the kernels at the shapes the JAX package serves beside the
+    main path's: each against its plain version on the card, timed beside
+    its bound. Adds each shape's numbers to its entry's record."""
+    phase_reach_attention(dev, records)
+    phase_reach_encoder(dev)
+    phase_reach_concat(dev, records)
+    phase_reach_viterbi(dev, ptxas, records)
+
+
+def phase_reach_attention(dev, records) -> None:
+    """Both attention entries at head dims other than 64 (REACH_ATTENTION),
+    under "highest" and "fastest", against the plain version on a random
+    full bias and on the diagonal table, and a Toeplitz bias through the
+    full entry bit-equal to the diagonal entry."""
+    import torch
+
+    from knnsvc_torch.ops.attention import (gated_bias_attention, gated_bias_attention_diag,
+                                            reference_attention, toeplitz_bias)
+    from knnsvc_torch.precision import set_precision
+
+    gen = torch.Generator().manual_seed(16)
+    card = card_label()
+    rows = {"gated_bias_attention_diag": [], "gated_bias_attention": []}
+    for H, T, d in REACH_ATTENTION:
+        atol = ATTN_ATOL_MAIN if T > 200 else ATTN_ATOL_RAGGED
+        q, k, v, diag, gate = attention_inputs(gen, dev, H, T, d)
+        bias = torch.randn((H, T, T), generator=gen).to(dev)
+        errs = {}
+        for mode, bound in (("highest", atol), ("fastest", ATTN_ATOL_TF32)):
+            set_precision(mode)
+            try:
+                got_diag = gated_bias_attention_diag(q, k, v, diag, gate)
+                got_full = gated_bias_attention(q, k, v, bias, gate)
+                toeplitz = gated_bias_attention(q, k, v, toeplitz_bias(diag).contiguous(), gate)
+                torch.cuda.synchronize()
+            finally:
+                set_precision("highest")
+            errs[mode] = [float((got_diag - reference_attention(q, k, v, diag, gate)).abs().max()),
+                          float((got_full - reference_attention(q, k, v, bias, gate)).abs().max())]
+            log(f"[reach] attention ({H},{T},{d}) {mode}: max_abs_err diagonal entry "
+                f"{errs[mode][0]:.3e}, full entry {errs[mode][1]:.3e} (atol {bound}); a Toeplitz "
+                f"bias through the full entry bit-equal to the diagonal entry: "
+                f"{torch.equal(toeplitz, got_diag)}")
+            if not (max(errs[mode]) <= bound and bool(torch.isfinite(got_diag).all())
+                    and bool(torch.isfinite(got_full).all())):
+                fail(f"the attention kernel disagrees at ({H},{T},{d}) under {mode}: {errs[mode]}")
+            if not torch.equal(toeplitz, got_diag):
+                fail(f"the full entry differs from the diagonal entry on a Toeplitz bias at "
+                     f"({H},{T},{d}) under {mode}")
+        for i, (name, fn, b, full) in enumerate((
+                ("gated_bias_attention_diag", gated_bias_attention_diag, diag, False),
+                ("gated_bias_attention", gated_bias_attention, bias, True))):
+            iters = 20 if T > 200 else 50
+            ms = cuda_ms(lambda: fn(q, k, v, b, gate), iters=iters)
+            plain_ms = cuda_ms(lambda: reference_attention(q, k, v, b, gate), iters=5, warmup=1)
+            bound_ms, bound_by = attention_bound_ms(H, T, d, full=full)
+            log(f"[reach] {name} ({H},{T},{d}), 3xTF32: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); roofline share "
+                f"{bound_ms / ms:.1%}; card {card}")
+            rows[name].append({"shape": [H, T, d], "max_abs_err": errs["highest"][i],
+                               "tf32_max_abs_err": errs["fastest"][i], "ms": ms,
+                               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+    for name, r in rows.items():
+        records[name]["head_dims"] = r
+
+
+def phase_reach_encoder(dev) -> None:
+    """The port's WavLM at head dims 16 (the JAX package's test encoder) and
+    8 (the port's tiny one) on the card against the CPU, with the attention
+    kernel's launches counted: one per layer."""
+    import torch
+
+    from knnsvc_torch.config import WavLMConfig
+    from knnsvc_torch.io.jax_params import wavlm_from_numpy
+    from knnsvc_torch.models.wavlm.model import init_wavlm_params
+    from knnsvc_torch.ops.attention import gated_bias_attention_diag
+
+    wav, _ = sung_wav(REACH_ENCODER_SECONDS, VOICES[0][1], VOICES[0][2])
+    x = torch.from_numpy(wav)[None]
+    for head_dim, spec in REACH_WAVLMS.items():
+        cfg = WavLMConfig.from_dict(spec)
+        params = init_wavlm_params(cfg, torch.Generator().manual_seed(head_dim))
+        card, cpu = wavlm_from_numpy(params, cfg, dev), wavlm_from_numpy(params, cfg, "cpu")
+        before = gated_bias_attention_diag.launches
+        with torch.no_grad():
+            got = card.extract_all_layers(x.to(dev))
+            torch.cuda.synchronize()
+            launches = gated_bias_attention_diag.launches - before
+            want = cpu.extract_all_layers(x)
+        err = float((got.cpu() - want).abs().max())
+        log(f"[reach] WavLM at head dim {head_dim} ({cfg.encoder_embed_dim} wide, "
+            f"{cfg.encoder_attention_heads} heads, {cfg.encoder_layers} layers) on "
+            f"{REACH_ENCODER_SECONDS:.0f} s: {tuple(got.shape)} layers, card vs cpu max |diff| "
+            f"{err:.3e} (atol {FEAT_ATOL}), {launches} attention launches")
+        if launches != cfg.encoder_layers or not err <= FEAT_ATOL:
+            fail(f"the head-dim-{head_dim} encoder: {launches} launches, card vs cpu {err}")
+
+
+def phase_reach_concat(dev, records) -> None:
+    """The concat kernel at row widths that are no multiple of 4
+    (REACH_WIDTHS) at a 30-s pool, k = 4 (rows in shared memory) and 8 (in
+    L2): the dense pair, the pair on 2 logical shards and the carried entry
+    against the plain version on every frame; the dense pair timed."""
+    import torch
+
+    from knnsvc_torch.match.concat_cost import (concat_cost_pair_stream_core,
+                                                knn_with_concat_cost_pair)
+    from knnsvc_torch.ops.concat_scan import (concat_cost_pair, concat_cost_pair_sharded,
+                                              concat_cost_pair_stream)
+    from knnsvc_torch.parallel.mesh import shard_rows
+
+    card = card_label()
+    T, P, _ = CONCAT_MAIN
+    rows = []
+    for D in REACH_WIDTHS:
+        for k in (4, TOPK_WIDE):
+            idx_u, idx_p, src, tgt, sf0, tf0 = args = concat_inputs(T, P, D, D + k, dev, k=k)
+            dense = concat_cost_pair(*args)
+            shards = shard_rows(tgt, logical_mesh(dev, 1, 2))[0]
+            sharded = concat_cost_pair_sharded(idx_u, idx_p, src, shards, P, sf0, tf0)
+            want = knn_with_concat_cost_pair(*args)
+            c_args = carried_args(CARRIED_STREAM[0] + 1, P, D, D + k + 1, dev, k, 0.2)
+            carried = concat_cost_pair_stream(*c_args)
+            c_want = concat_cost_pair_stream_core(*c_args)
+            torch.cuda.synchronize()
+            equal = {"dense": all(bool(torch.equal(g, w)) for g, w in zip(dense, want)),
+                     "2 shards": all(bool(torch.equal(g, w)) for g, w in zip(sharded, want)),
+                     "carried": all(bool(torch.equal(g, w)) for g, w in zip(carried, c_want))}
+            ms = cuda_ms(lambda: concat_cost_pair(*args), iters=10 if k <= 4 else 3, warmup=1)
+            bound_ms, bound_by = concat_bound_ms(T, P, D, lanes=2, k=k)
+            log(f"[reach] concat_cost_pair ({T}, {P}, {D}) k={k}: picks equal to the plain "
+                f"version on every frame, {', '.join(f'{n} {e}' for n, e in equal.items())} "
+                f"(carried: {CARRIED_STREAM[0]}+1 frames, the weights too); kernel {ms:.4f} ms "
+                f"({1e3 * ms / (T - 1):.3f} us per frame), bound {bound_ms:.4f} ms "
+                f"({bound_by}); card {card}")
+            if not all(equal.values()):
+                fail(f"concat_cost_pair disagrees with its plain version at D={D}, k={k}: "
+                     f"{equal}")
+            rows.append({"shape": [T, P, D], "k": k, "ms": ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "us_per_frame": 1e3 * ms / (T - 1)})
+    records["concat_cost_pair"]["widths"] = rows
+
+
+def phase_reach_viterbi(dev, ptxas: list[str], records) -> None:
+    """The Viterbi past 511 voiced states (REACH_STATES: grids of 5, 2 and
+    1 cents) at a 30-s chunk's frames, states equal to the plain version on
+    every frame, timed; every instance's ptxas registers and spills (a
+    spill fails the run); device f0 at grid_cents 5 on a 30-s sung wav, the
+    card against the CPU."""
+    import numpy as np
+    import torch
+
+    from knnsvc_torch.dsp.f0_device import DeviceF0Params, device_f0, device_f0_tensor
+    from knnsvc_torch.ops.viterbi import f0_viterbi, viterbi_plain
+
+    card = card_label()
+    for function in ("f0_viterbi_kernelILi4E", "f0_viterbi_kernelILi8E",
+                     *(f"f0_viterbi_smem_kernelILi{p}E" for p in (4, 8, 16, 32))):
+        regs, spill_st, spill_ld = ptxas_usage("f0_viterbi", ptxas, function)
+        log(f"[reach] f0_viterbi ptxas {function}: {regs} registers, {spill_st} bytes spill "
+            f"stores, {spill_ld} bytes spill loads")
+        if spill_st or spill_ld:
+            fail(f"{function} spills: {spill_st} bytes stored, {spill_ld} loaded")
+    N = VITERBI_MAIN[0]
+    rows = []
+    for C, grid_cents in REACH_STATES:
+        rng = np.random.default_rng(C)
+        cv = rng.standard_normal((N, C)).astype(np.float32)
+        cu = (0.5 * rng.standard_normal(N)).astype(np.float32)
+        cv[::3] = 1e3                                  # silent frames
+        cv[1::4, C // 2:] = cv[1::4, C // 2:C // 2 + 1]  # flat runs
+        cu[::7] = 1e3
+        cost_v, cost_u = torch.from_numpy(cv).to(dev), torch.from_numpy(cu).to(dev)
+        lam_s = float(np.float32(0.753) * np.float32(grid_cents / 1200.0))
+        switch = float(np.float32(0.291))
+        got = f0_viterbi(cost_v, cost_u, lam_s, switch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = viterbi_plain(cost_v, cost_u, lam_s, switch)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        equal = float((got == want).float().mean())
+        ms = cuda_ms(lambda: f0_viterbi(cost_v, cost_u, lam_s, switch), iters=10)
+        bound_ms, bound_by = viterbi_bound_ms(N, C)
+        log(f"[reach] f0_viterbi ({N}, {C}) (a {grid_cents:g}-cent grid): states equal to the plain version on {equal:.2%} "
+            f"of frames (unvoiced share {float((want == C).float().mean()):.1%}); kernel "
+            f"{ms:.4f} ms ({1e3 * ms / (N - 1):.4f} us per frame), plain {plain_ms:.1f} ms "
+            f"(one run), bound {bound_ms:.4f} ms ({bound_by}); card {card}")
+        if equal != 1.0:
+            fail(f"f0_viterbi disagrees with its plain version at ({N}, {C}): {equal:.4%}")
+        rows.append({"shape": [N, C], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "us_per_frame": 1e3 * ms / (N - 1)})
+    records["f0_viterbi"]["states"] = rows
+
+    params = DeviceF0Params(grid_cents=REACH_GRID_CENTS)
+    wav, _ = sung_wav(FULL_SECONDS, VOICES[1][1], VOICES[1][2])
+    wav[:16000] = 0.0
+    before = f0_viterbi.launches
+    card_f0 = device_f0(wav, 16000, params=params, device=dev)
+    launches = f0_viterbi.launches - before
+    cpu_f0 = device_f0(wav, 16000, params=params, device="cpu")
+    voicing = float(((card_f0 > 0) == (cpu_f0 > 0)).mean())
+    both = (card_f0 > 0) & (cpu_f0 > 0)
+    cents = np.abs(1200 * np.log2(card_f0[both] / cpu_f0[both]))
+    within = float((cents <= F0_CENTS).mean())
+    x = torch.from_numpy(wav).to(dev)
+    tensor_ms = cuda_ms(lambda: device_f0_tensor(x, 16000, N, params=params), iters=5)
+    log(f"[reach] device_f0 at grid_cents {REACH_GRID_CENTS} ({len(card_f0)} frames, "
+        f"{both.mean():.1%} voiced in both, {launches} Viterbi launch): card vs cpu voicing "
+        f"equal on {voicing:.2%} (min {F0_VOICING_SHARE_MIN:.1%}), f0 within {F0_CENTS} cent "
+        f"on {within:.2%} (min {F0_CENTS_SHARE_MIN:.0%}), max {float(cents.max()):.4f} cents; "
+        f"one 30-s device_f0_tensor {tensor_ms:.4f} ms; card {card}")
+    if not (launches == 1 and voicing >= F0_VOICING_SHARE_MIN and within >= F0_CENTS_SHARE_MIN
+            and both.mean() > 0.5):
+        fail(f"device f0 at grid_cents {REACH_GRID_CENTS}: {launches} launches, voicing "
+             f"{voicing}, within {within}")
+    records["f0_viterbi"]["grid_cents_5_device_f0_ms"] = tensor_ms
+
+
 def phase_sharded(root: str, knn, records, dev, bulk) -> None:
     """The multi-device matchers at full width on logical shards of the
     card: (b) an hour-scale pool, (c) the 30-s pair, (d) the bulk loops on
@@ -3452,6 +3706,7 @@ def main() -> int:
                "concat_cost_pair": phase_concat_kernel(dev),
                "f0_viterbi": phase_viterbi_kernel(dev, ptxas["f0_viterbi"])}
     records["concat_cost_pair"].update(phase_concat_sharded(dev))
+    phase_reach(dev, ptxas["f0_viterbi"], records)
     root = tempfile.mkdtemp(prefix="knnsvc_smoke_")
     try:
         knn, cpu = phase_slice_cpu_vs_cuda(root, dev)

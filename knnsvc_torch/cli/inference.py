@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 STREAM_DEFAULTS = {"stream_chunk_s": None, "stream_context_s": 1.0,
                    "stream_right_context_s": None, "stream_encoder": "windowed",
@@ -118,8 +119,13 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def _warn_ignored(flag: str, path: str) -> None:
+    print(f"warning: {flag} is ignored by {path}", file=sys.stderr)
+
+
 def _check_args(args) -> str:
-    """Argument checks before the model load. -> 'pair', 'stream' or
+    """Argument checks before the model load, and one warning line on stderr
+    for each flag that the chosen path ignores. -> 'pair', 'stream' or
     'folder'."""
     streaming = args.stream_chunk_s is not None
     if streaming:
@@ -140,17 +146,18 @@ def _check_args(args) -> str:
         mode = "folder"
     else:
         raise SystemExit("Both inputs must be files or both must be folders.")
-    # a flag that the chosen path ignores is an error, not a silent no-op
+    # a flag that the chosen path ignores is read and ignored, as the JAX CLI
+    # does (knnsvc_tpu/cli/inference.py:145-170), with one warning line
     set_stream = [f"--{k}" for k, v in STREAM_DEFAULTS.items() if getattr(args, k) != v]
     if set_stream and not streaming:
-        raise SystemExit(f"{', '.join(set_stream)} applies with --stream_chunk_s only")
+        _warn_ignored(", ".join(set_stream), "every path but streaming (no --stream_chunk_s)")
     if not (args.fast or streaming) and args.f0_method != "fast":
-        raise SystemExit(f"--f0_method {args.f0_method} applies to --fast true and "
-                         "--stream_chunk_s; the host-pool path (--fast false) takes Harvest f0 "
-                         "(or its _f0.npy sidecar)")
+        _warn_ignored(f"--f0_method {args.f0_method}", "the host-pool path (--fast false), "
+                      "which takes Harvest f0 or its _f0.npy sidecar")
     if args.upload_depth != "float32" and (not args.fast or mode != "pair"):
-        raise SystemExit(f"--upload_depth {args.upload_depth} applies to --fast true pair mode "
-                         "only")
+        path = ("the streaming path" if mode == "stream" else "folder mode"
+                if mode == "folder" else "the host-pool path (--fast false)")
+        _warn_ignored(f"--upload_depth {args.upload_depth}", path)
     return mode
 
 

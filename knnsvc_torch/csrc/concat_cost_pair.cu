@@ -67,13 +67,27 @@
 // another card than the kernel's are read through peer access, which the
 // wrapper checks and enables.
 //
+// Rows of any width D. When D % 4 == 0 (template parameter VEC; the main
+// path's D = 1024) every row starts 16-byte aligned: the producers copy it
+// by one TMA bulk copy and every dot reads it as float4. Otherwise row g
+// starts at g D floats, 4-byte aligned only, which neither cp.async.bulk
+// nor a float4 load takes: the producers copy the rows by 4-byte cp.async,
+// spread over their 128 threads (each thread's cp.async.mbarrier.arrive
+// completes the slot's mbarrier when its copies have landed), into ring
+// rows padded to DP = D rounded up to 4 floats with zeros, and the dots
+// that read device memory read each group of 4 by scalar loads, zeros past
+// D. A dot sums the same groups of 4 in the same order either way, so the
+// pre-pass and the producers still give equal rows equal sums, and the
+// zero tail adds exact zeros.
+//
 // Rows in shared memory: 3 frames of k own rows and 3 frames of 2k prev+1
-// rows, 9 k D floats. When they and the static arrays fit the block's
+// rows, 9 k DP floats. When they and the static arrays fit the block's
 // opt-in shared memory (227 KB on an H100: k <= 6 at D = 1024, every k at
 // D = 128) the rows live there; otherwise (k >= 7 at D = 1024) the chain
 // reads them from global memory (L2), the same arithmetic on other
 // pointers, with a dependent row load on the chain. launch_chain decides.
-// The chain is compiled for k <= 4, 8 and 32 (KM) and runs any k up to that.
+// The chain is compiled for k <= 4, 8 and 32 (KM) and runs any k up to that,
+// each for D % 4 == 0 and for other D.
 // The scalar cost arithmetic uses __f*_rn intrinsics and the dots explicit
 // fmaf, so no multiply-add is contracted where the plain version rounds
 // twice: the two differ only in the order of the dot-product sums, and
@@ -96,6 +110,16 @@ constexpr int THREADS = (DOT_WARPS + PROD_WARPS) * 32;
 constexpr int PROD_THREADS = PROD_WARPS * 32;
 constexpr int PREPASS_THREADS = 256;
 
+// group i of 4 floats of a row of D floats: one float4 load (VEC, the row
+// 16-byte aligned) or four scalar ones, zeros past D
+template <bool VEC>
+__device__ __forceinline__ float4 ld4(const float* row, int i, int D) {
+  if (VEC) return reinterpret_cast<const float4*>(row)[i];
+  const int c = 4 * i;
+  return make_float4(row[c], c + 1 < D ? row[c + 1] : 0.f, c + 2 < D ? row[c + 2] : 0.f,
+                     c + 3 < D ? row[c + 3] : 0.f);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -111,14 +135,14 @@ __device__ __forceinline__ float fma4(float4 x, float4 y, float s) {
   return __fmaf_rn(x.w, y.w, s);
 }
 
-// sum(a * b) over D floats (d4 = D / 4 float4) by one warp; every lane gets
-// it. The order depends on D alone.
-__device__ __forceinline__ float warp_dot(const float* a, const float* b, int d4, int ln) {
-  const float4* a4 = reinterpret_cast<const float4*>(a);
-  const float4* b4 = reinterpret_cast<const float4*>(b);
+// sum(a * b) over D floats, in d4 = ceil(D / 4) groups of 4, by one warp;
+// every lane gets it. The order depends on D alone.
+template <bool VEC>
+__device__ __forceinline__ float warp_dot(const float* a, const float* b, int D, int ln) {
+  const int d4 = (D + 3) / 4;
   float s = 0.f;
 #pragma unroll 8
-  for (int i = ln; i < d4; i += 32) s = fma4(a4[i], b4[i], s);
+  for (int i = ln; i < d4; i += 32) s = fma4(ld4<VEC>(a, i, D), ld4<VEC>(b, i, D), s);
   return warp_sum(s);
 }
 
@@ -167,9 +191,11 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-               "fence.mbarrier_init.release.cluster;\n" ::"r"(smem_addr(bar)) : "memory");
+// `count` arrivals complete a phase
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               "fence.mbarrier_init.release.cluster;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
 }
 
 // arrive once on `bar` and expect `bytes` of copies to complete on it
@@ -193,6 +219,18 @@ __device__ __forceinline__ void bulk_copy(float* dst, const float* src, unsigned
       ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
 }
 
+// 4 bytes (0: a zero) into shared memory
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, unsigned bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes) : "memory");
+}
+
+// one arrival on `bar` once this thread's cp.async so far have landed
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
 __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
 }
@@ -205,19 +243,20 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
 // osd[0][t][l][j] = tgt[c] . svn[t] and osd[1][t][l][j] = tgt[min(c + 1,
 // P - 1)] . svn[t + 1] (frame t+1's prev+1 candidate from own candidate j
 // of frame t), with c = idx[t][l][j] clamped.
+template <bool VEC>
 __global__ void __launch_bounds__(PREPASS_THREADS)
 concat_cost_prepass_kernel(const int* __restrict__ idx, const float* __restrict__ svn,
                            const float* const* __restrict__ shards, int shard_len,
                            int n_shards, float* __restrict__ pnorm, float* __restrict__ osd,
                            int T, int P, int D, int L, int k) {
-  const int ln = threadIdx.x & 31, d4 = D / 4;
+  const int ln = threadIdx.x & 31;
   const PoolRows pool_row(shards, shard_len, n_shards, D);
   const long own = (long)T * L * k, items = P + 2 * own;
   const long warps = (long)gridDim.x * (PREPASS_THREADS / 32);
   for (long w = blockIdx.x * (PREPASS_THREADS / 32) + (threadIdx.x >> 5); w < items; w += warps) {
     if (w < P) {
       const float* row = pool_row((int)w);
-      const float n = warp_dot(row, row, d4, ln);
+      const float n = warp_dot<VEC>(row, row, D, ln);
       if (ln == 0) pnorm[w] = sqrtf(n);
     } else {
       const long e = (w - P) % own;              // (t, lane, j) of idx
@@ -225,7 +264,7 @@ concat_cost_prepass_kernel(const int* __restrict__ idx, const float* __restrict_
       const int t = (int)(e / ((long)L * k)) + next;
       const int id = min(clamp_id(idx[e], P) + next, P - 1);
       const float s =
-          t < T ? warp_dot(pool_row(id), svn + (size_t)t * D, d4, ln) : 0.f;
+          t < T ? warp_dot<VEC>(pool_row(id), svn + (size_t)t * D, D, ln) : 0.f;
       if (ln == 0) osd[w - P] = s;
     }
   }
@@ -258,7 +297,7 @@ struct Cross {
   float v[KM <= 4 ? DOT_WARPS : KM][KM <= 4 ? 32 : 2 * KM];
 };
 
-template <int KM, bool SMEM>
+template <int KM, bool SMEM, bool VEC>
 __global__ void __launch_bounds__(THREADS)
 concat_cost_chain_kernel(const int* __restrict__ idx, const float* __restrict__ svn,
                          const float* const* __restrict__ shards, int shard_len,
@@ -269,7 +308,8 @@ concat_cost_chain_kernel(const int* __restrict__ idx, const float* __restrict__ 
                          int pitched_mask, float concat_weight, float init_weight) {
   constexpr int NC = (2 * KM + 31) / 32;     // candidates per selector lane
   constexpr bool SPLIT = KM <= 4;            // cross dots split over D
-  // when the rows fit: own rows [3][k][D], then prev+1 rows [3][2k][D]
+  constexpr bool RV = SMEM || VEC;           // the chain's rows are 16-byte aligned
+  // when the rows fit: own rows [3][k][DP], then prev+1 rows [3][2k][DP]
   extern __shared__ __align__(128) float ring[];
   __shared__ FrameData<KM> fd[2];
   __shared__ Picks<KM> pk[2];
@@ -282,19 +322,31 @@ concat_cost_chain_kernel(const int* __restrict__ idx, const float* __restrict__ 
   const PoolRows pool_row(shards, shard_len, n_shards, D);
   const int tid = threadIdx.x, warp = tid >> 5, ln = tid & 31;
   const int pt = tid - DOT_WARPS * 32, pw = pt >> 5;  // producer thread and warp
-  const int d4 = D / 4, C = 2 * k;
+  const int DP = (D + 3) / 4 * 4, d4 = DP / 4, C = 2 * k;   // a ring row: DP floats
   // ring slots of frame f's own row j and prev+1 row q; a dot finds a row
   // by its "at": the slot's offset, or the pool row's id when the rows go to L2
-  auto own_slot = [&](int f, int j) { return ring + ((size_t)(f % 3) * k + j) * D; };
-  auto x_slot = [&](int f, int q) { return ring + ((size_t)(3 + 2 * (f % 3)) * k + q) * D; };
-  auto own_at = [&](int f, int j, int id) { return SMEM ? ((f % 3) * k + j) * D : id; };
-  auto x_at = [&](int f, int q, int id) { return SMEM ? ((3 + 2 * (f % 3)) * k + q) * D : id; };
+  auto own_slot = [&](int f, int j) { return ring + ((size_t)(f % 3) * k + j) * DP; };
+  auto x_slot = [&](int f, int q) { return ring + ((size_t)(3 + 2 * (f % 3)) * k + q) * DP; };
+  auto own_at = [&](int f, int j, int id) { return SMEM ? ((f % 3) * k + j) * DP : id; };
+  auto x_at = [&](int f, int q, int id) { return SMEM ? ((3 + 2 * (f % 3)) * k + q) * DP : id; };
   auto row_of = [&](int at) -> const float* {
     return SMEM ? ring + at : pool_row(at);
   };
   const unsigned row_bytes = (unsigned)D * sizeof(float);
   const int* idx0 = idx + (size_t)lane * k;
   int own_next = 0;  // producer thread C + j: raw own id j of the frame staged next
+  // !VEC: n rows (row r: dst_of(r) <- pool row id_of(r)) by 4-byte copies
+  // spread over the producer threads, zeros from D to DP, then this
+  // thread's arrival on `bar`
+  auto copy_rows4 = [&](int n, auto dst_of, auto id_of, uint64_t* bar) {
+    for (int r = 0; r < n; ++r) {
+      float* dst = dst_of(r);
+      const float* src = pool_row(id_of(r));
+      for (int c = pt; c < DP; c += PROD_THREADS) cp_async4(dst + c, src + (c < D ? c : 0),
+                                                            c < D ? 4u : 0u);
+    }
+    cp_async_arrive(bar);
+  };
 
   // Producers: stage frame f, given S_{f-1}'s ids through sid(q): one TMA
   // bulk copy per row into the ring slot (completing on full[f % 3]), the
@@ -304,12 +356,15 @@ concat_cost_chain_kernel(const int* __restrict__ idx, const float* __restrict__ 
     FrameData<KM>& F = fd[f & 1];
     if (pt < C) F.xid[pt] = min(sid(pt) + 1, P - 1);
     else if (pt < 3 * k) F.oid[pt - C] = clamp_id(own_next, P);
-    if (SMEM && pt == 0) mbar_expect_tx(&full[f % 3], 3u * k * row_bytes);
+    if (SMEM && VEC && pt == 0) mbar_expect_tx(&full[f % 3], 3u * k * row_bytes);
     bar_sync(2, PROD_THREADS);
     const bool is_x = pt < C, is_own = !is_x && pt < 3 * k, is_frame = pt == PROD_THREADS - 1;
     const int j = pt - C, id = is_x ? F.xid[pt] : is_own ? F.oid[j] : 0;
-    if (SMEM && (is_x || is_own))
+    if (SMEM && VEC && (is_x || is_own))
       bulk_copy(is_x ? x_slot(f, pt) : own_slot(f, j), pool_row(id), row_bytes, &full[f % 3]);
+    if (SMEM && !VEC)
+      copy_rows4(3 * k, [&](int r) { return r < C ? x_slot(f, r) : own_slot(f, r - C); },
+                 [&](int r) { return r < C ? F.xid[r] : F.oid[r - C]; }, &full[f % 3]);
     // loads first, stores after, so they all wait on one latency
     float norm = 0.f, lf0 = 0.f, sdot = 0.f;
     if (is_x || is_own) {
@@ -325,7 +380,7 @@ concat_cost_chain_kernel(const int* __restrict__ idx, const float* __restrict__ 
     const float b = is_frame ? baselines[f - 1] : 0.f;
     const float slf0 = is_frame && pitched ? src_lf0[f] : 0.f;
     for (int q = k + pw; q < C; q += PROD_WARPS) {  // frame f-2's picks + 2
-      const float s = warp_dot(pool_row(F.xid[q]), svn + (size_t)f * D, d4, ln);
+      const float s = warp_dot<VEC>(pool_row(F.xid[q]), svn + (size_t)f * D, D, ln);
       if (ln == 0) F.xsd[q] = s;
     }
     if (is_x) {
@@ -342,7 +397,9 @@ concat_cost_chain_kernel(const int* __restrict__ idx, const float* __restrict__ 
     }
   };
 
-  if (tid < 3) mbar_init(&full[tid]);
+  // a phase: the one bulk-copying thread's arrival (VEC) or every producer
+  // thread's (4-byte copies)
+  if (tid < 3) mbar_init(&full[tid], VEC ? 1u : (unsigned)PROD_THREADS);
   __syncthreads();
   // frame 0 passes through; its own rows are frame 1's previous picks
   if (warp == 0 && ln < k) {
@@ -353,10 +410,13 @@ concat_cost_chain_kernel(const int* __restrict__ idx, const float* __restrict__ 
     pk[0].at[ln] = own_at(0, ln, id);
   }
   if (warp >= DOT_WARPS && T > 1) {
-    if (SMEM && pt == 0) mbar_expect_tx(&full[0], k * row_bytes);
+    if (SMEM && VEC && pt == 0) mbar_expect_tx(&full[0], k * row_bytes);
     bar_sync(2, PROD_THREADS);
-    if (SMEM && pt < k)
+    if (SMEM && VEC && pt < k)
       bulk_copy(own_slot(0, pt), pool_row(clamp_id(idx0[pt], P)), row_bytes, &full[0]);
+    if (SMEM && !VEC)
+      copy_rows4(k, [&](int r) { return own_slot(0, r); },
+                 [&](int r) { return clamp_id(idx0[r], P); }, &full[0]);
     if (pt >= C && pt < 3 * k) own_next = idx[((size_t)L + lane) * k + pt - C];
     stage(1, [&](int q) { return clamp_id(idx0[q % k], P); });
   }
@@ -381,25 +441,23 @@ concat_cost_chain_kernel(const int* __restrict__ idx, const float* __restrict__ 
       if constexpr (SPLIT) {
         // warp w sums the float4 w*32 + ln + 256 m of every pair, each row
         // read once; a butterfly leaves pair j * 8 + c's partial on lane it
-        const float4* c4[8];
-        const float4* p4[4];
+        const float* c4[8];
+        const float* p4[4];
         float acc[32];
 #pragma unroll
-        for (int c = 0; c < 8; ++c)
-          c4[c] = reinterpret_cast<const float4*>(row_of(cand_at(c < C ? c : 0)));
+        for (int c = 0; c < 8; ++c) c4[c] = row_of(cand_at(c < C ? c : 0));
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          p4[j] = reinterpret_cast<const float4*>(row_of(prev.at[j < k ? j : 0]));
+        for (int j = 0; j < 4; ++j) p4[j] = row_of(prev.at[j < k ? j : 0]);
 #pragma unroll
         for (int p = 0; p < 32; ++p) acc[p] = 0.f;
         for (int i = warp * 32 + ln; i < d4; i += DOT_WARPS * 32) {
           float4 y[8], x[4];
 #pragma unroll
           for (int c = 0; c < 8; ++c)
-            if (c < C) y[c] = c4[c][i];
+            if (c < C) y[c] = ld4<RV>(c4[c], i, D);
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            if (j < k) x[j] = p4[j][i];
+            if (j < k) x[j] = ld4<RV>(p4[j], i, D);
 #pragma unroll
           for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -415,19 +473,19 @@ concat_cost_chain_kernel(const int* __restrict__ idx, const float* __restrict__ 
       } else {
         // warp w takes candidates w, w + 8, ...: its row read once for all picks
         for (int c = warp; c < C; c += DOT_WARPS) {
-          const float4* c4 = reinterpret_cast<const float4*>(row_of(cand_at(c)));
-          const float4* p4[KM];
+          const float* c4 = row_of(cand_at(c));
+          const float* p4[KM];
           float acc[KM];
 #pragma unroll
           for (int j = 0; j < KM; ++j) {
-            p4[j] = reinterpret_cast<const float4*>(row_of(prev.at[j < k ? j : 0]));
+            p4[j] = row_of(prev.at[j < k ? j : 0]);
             acc[j] = 0.f;
           }
           for (int i = ln; i < d4; i += 32) {
-            const float4 y = c4[i];
+            const float4 y = ld4<RV>(c4, i, D);
 #pragma unroll
             for (int j = 0; j < KM; ++j)
-              if (j < k) acc[j] = fma4(p4[j][i], y, acc[j]);
+              if (j < k) acc[j] = fma4(ld4<RV>(p4[j], i, D), y, acc[j]);
           }
 #pragma unroll
           for (int j = 0; j < KM; ++j)
@@ -555,28 +613,29 @@ int smem_optin() {
   return optin;
 }
 
-// bytes of dynamic shared memory: the 9 k rows when they fit beside the
-// static arrays, else 0; negative on a CUDA error
-template <int KM>
+// bytes of dynamic shared memory: the 9 k rows of DP floats when they fit
+// beside the static arrays, else 0; negative on a CUDA error
+template <int KM, bool VEC>
 long dyn_bytes(int k, int D) {
   cudaFuncAttributes attr;
-  if (cudaFuncGetAttributes(&attr, concat_cost_chain_kernel<KM, true>) != cudaSuccess)
+  if (cudaFuncGetAttributes(&attr, concat_cost_chain_kernel<KM, true, VEC>) != cudaSuccess)
     return -1;
-  const long rows = 9L * k * D * (long)sizeof(float);
+  const long rows = 9L * k * ((D + 3) / 4 * 4) * (long)sizeof(float);
   const int optin = smem_optin();
   if (optin < 0) return -1;
   return (long)attr.sharedSizeBytes + rows <= optin ? rows : 0;
 }
 
-template <int KM>
+template <int KM, bool VEC>
 int launch_chain(const int* idx, const float* svn, const float* const* shards, int shard_len,
                  int n_shards, const float* baselines, const float* src_lf0, const float* tgt_lf0,
                  const float* pnorm, const float* osd, int* out, int T, int P, int D, int L,
                  int k, int pitched_mask, float concat_weight, float init_weight,
                  cudaStream_t stream) {
-  const long bytes = dyn_bytes<KM>(k, D);
+  const long bytes = dyn_bytes<KM, VEC>(k, D);
   if (bytes < 0) return (int)cudaGetLastError();
-  auto kernel = bytes ? concat_cost_chain_kernel<KM, true> : concat_cost_chain_kernel<KM, false>;
+  auto kernel = bytes ? concat_cost_chain_kernel<KM, true, VEC>
+                      : concat_cost_chain_kernel<KM, false, VEC>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return (int)err;
@@ -586,8 +645,28 @@ int launch_chain(const int* idx, const float* svn, const float* const* shards, i
   return (int)cudaGetLastError();
 }
 
+// the chain compiled for the smallest KM >= k
+template <bool VEC>
+int launch_chain_k(const int* idx, const float* svn, const float* const* shards, int shard_len,
+                   int n_shards, const float* baselines, const float* src_lf0,
+                   const float* tgt_lf0, const float* pnorm, const float* osd, int* out, int T,
+                   int P, int D, int L, int k, int pitched_mask, float concat_weight,
+                   float init_weight, cudaStream_t s) {
+  if (k <= 4)
+    return launch_chain<4, VEC>(idx, svn, shards, shard_len, n_shards, baselines, src_lf0,
+                                tgt_lf0, pnorm, osd, out, T, P, D, L, k, pitched_mask,
+                                concat_weight, init_weight, s);
+  if (k <= 8)
+    return launch_chain<8, VEC>(idx, svn, shards, shard_len, n_shards, baselines, src_lf0,
+                                tgt_lf0, pnorm, osd, out, T, P, D, L, k, pitched_mask,
+                                concat_weight, init_weight, s);
+  return launch_chain<32, VEC>(idx, svn, shards, shard_len, n_shards, baselines, src_lf0,
+                               tgt_lf0, pnorm, osd, out, T, P, D, L, k, pitched_mask,
+                               concat_weight, init_weight, s);
+}
+
 bool bad_shape(int T, int P, int D, int L, int k, int shard_len, int n_shards) {
-  return T <= 0 || P <= 0 || D <= 0 || D % 4 || L <= 0 || L > MAX_LANES || k < 1 || k > MAX_K ||
+  return T <= 0 || P <= 0 || D <= 0 || L <= 0 || L > MAX_LANES || k < 1 || k > MAX_K ||
          shard_len <= 0 || n_shards <= 0 || (long)shard_len * n_shards < P;
 }
 
@@ -605,8 +684,13 @@ int concat_cost_prepass_f32(const int* idx, const float* svn, const float* const
   const long items = (long)P + 2L * T * L * k;
   const long per_block = PREPASS_THREADS / 32;
   const int blocks = (int)std::min<long>((items + per_block - 1) / per_block, 132L * 8);
-  concat_cost_prepass_kernel<<<blocks, PREPASS_THREADS, 0, (cudaStream_t)stream>>>(
-      idx, svn, shards, shard_len, n_shards, pnorm, osd, T, P, D, L, k);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (D % 4 == 0)
+    concat_cost_prepass_kernel<true><<<blocks, PREPASS_THREADS, 0, s>>>(
+        idx, svn, shards, shard_len, n_shards, pnorm, osd, T, P, D, L, k);
+  else
+    concat_cost_prepass_kernel<false><<<blocks, PREPASS_THREADS, 0, s>>>(
+        idx, svn, shards, shard_len, n_shards, pnorm, osd, T, P, D, L, k);
   return (int)cudaGetLastError();
 }
 
@@ -615,7 +699,8 @@ int concat_cost_prepass_f32(const int* idx, const float* svn, const float* const
 // are (T, L, k) int32, svn (T, D), the pool's rows behind the shard table
 // (P of them, shard_len per shard), baselines (T-1,), src_lf0
 // (T,) and tgt_lf0 (P,) fp32; pnorm (P,) and osd (2, T, L, k) fp32 scratch; all
-// contiguous and 16-byte aligned (checked by the Python wrapper); the f0
+// contiguous and 16-byte aligned (4-byte for the rows and svn when
+// D % 4 != 0; checked by the Python wrapper); any D >= 1; the f0
 // tracks may be null when no lane is pitched. The pitched lanes' weight
 // starts at init_weight (concat_weight for a whole utterance, the carried
 // weight for a streaming chunk whose frame 0 is the carry).
@@ -630,18 +715,14 @@ int concat_cost_pair_f32(const int* idx, const float* svn, const float* const* s
   const int err = concat_cost_prepass_f32(idx, svn, shards, shard_len, n_shards, pnorm, osd, T,
                                           P, D, L, k, stream);
   if (err) return err;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (k <= 4)
-    return launch_chain<4>(idx, svn, shards, shard_len, n_shards, baselines, src_lf0, tgt_lf0,
-                           pnorm, osd, out, T, P, D, L, k, pitched_mask, concat_weight,
-                           init_weight, s);
-  if (k <= 8)
-    return launch_chain<8>(idx, svn, shards, shard_len, n_shards, baselines, src_lf0, tgt_lf0,
-                           pnorm, osd, out, T, P, D, L, k, pitched_mask, concat_weight,
-                           init_weight, s);
-  return launch_chain<32>(idx, svn, shards, shard_len, n_shards, baselines, src_lf0, tgt_lf0,
-                          pnorm, osd, out, T, P, D, L, k, pitched_mask, concat_weight,
-                          init_weight, s);
+  const cudaStream_t s = (cudaStream_t)stream;
+  return D % 4 == 0
+             ? launch_chain_k<true>(idx, svn, shards, shard_len, n_shards, baselines, src_lf0,
+                                    tgt_lf0, pnorm, osd, out, T, P, D, L, k, pitched_mask,
+                                    concat_weight, init_weight, s)
+             : launch_chain_k<false>(idx, svn, shards, shard_len, n_shards, baselines, src_lf0,
+                                     tgt_lf0, pnorm, osd, out, T, P, D, L, k, pitched_mask,
+                                     concat_weight, init_weight, s);
 }
 
 // Lets the current device's kernels read `peer`'s memory (a shard on

@@ -15,7 +15,10 @@ The kernel has two entries, one per form of the bias:
   it), so the served encoder calls this entry and never builds the (H, T, T)
   tensor.
 Both run one inner loop: a Toeplitz bias through the first gives the
-second's output bit for bit.
+second's output bit for bit. Both take every head dim d from 1 to MAX_HEAD_DIM
+= 256: the kernel is compiled for d = 16, 32, 64, 128 and 256 and
+zero-fills d up to the smallest of them inside its copies. No WavLM, HuBERT
+or wav2vec 2.0 configuration has a head dim above 64.
 
 The wrappers take the plain version only for tensors that lie on the CPU.
 A CUDA tensor launches the kernel or raises; nothing falls back.
@@ -30,7 +33,7 @@ import torch
 from knnsvc_torch.precision import get_precision
 
 KERNEL = "gated_bias_attention"
-HEAD_DIM = 64  # the kernel's compiled head dim (WavLM-Large: 1024 / 16)
+MAX_HEAD_DIM = 256   # the widest of the kernel's instances (16, 32, 64, 128, 256 columns)
 
 
 def toeplitz_bias(diag: torch.Tensor) -> torch.Tensor:
@@ -62,7 +65,9 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _check_inputs(q, k, v, bias, gate, bias_shape) -> None:
     """Shapes on every device; dtype, device, layout and head dim for the
-    kernel's (CUDA) inputs."""
+    kernel's (CUDA) inputs: rows of q, k and v start 16-byte aligned when d
+    is a multiple of 4, so their base must be too; other d take 4-byte
+    copies."""
     H, T, d = q.shape
     expected = {"q": (H, T, d), "k": (H, T, d), "v": (H, T, d),
                 "bias": bias_shape(H, T), "gate": (H, T)}
@@ -75,10 +80,20 @@ def _check_inputs(q, k, v, bias, gate, bias_shape) -> None:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    if q.device.type != "cpu" and d != HEAD_DIM:
-        raise ValueError(f"the CUDA kernel takes head dim {HEAD_DIM}, got {d}")
+        align = 4 if name in ("q", "k", "v") and d % 4 else 16
+        if not t.is_contiguous() or t.data_ptr() % align:
+            raise ValueError(f"{name} must be contiguous and {align}-byte aligned")
+    if q.device.type != "cpu" and not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA kernel takes head dims 1..{MAX_HEAD_DIM}, got {d}")
+
+
+def kernel_scales(d: int) -> tuple[float, float]:
+    """(Q's scale, S's scale) of the kernel: d^-1/2 multiplies Q up front
+    where it is a power of two (d a power of 4), which is exact, and the
+    product S otherwise, as the plain version does."""
+    if d & (d - 1) == 0 and (d.bit_length() - 1) % 2 == 0:
+        return d ** -0.5, 1.0
+    return 1.0, d ** -0.5
 
 
 def _launch(entry: str, q, k, v, bias, gate) -> torch.Tensor:
@@ -90,13 +105,14 @@ def _launch(entry: str, q, k, v, bias, gate) -> torch.Tensor:
     fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
     passes = 1 if get_precision() == "fastest" else 3
+    q_scale, s_scale = kernel_scales(d)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                  gate.data_ptr(), out.data_ptr(), H, T, d, d ** -0.5, passes, stream)
+                  gate.data_ptr(), out.data_ptr(), H, T, d, q_scale, s_scale, passes, stream)
     check_launch(lib, KERNEL, code)
     return out
 

@@ -7,7 +7,10 @@ per-frame reselection of match/concat_cost.py over stacked lanes, for any
 k in 1..MAX_K. One call launches the kernel's pre-pass (pool norms and the
 own candidates' source dots) and its chain (one block per lane) and counts
 one launch. The chain keeps its candidate rows in shared memory while 9 k D
-floats fit (at D = 1024: k <= 6) and reads them from L2 above.
+floats fit (at D = 1024: k <= 6) and reads them from L2 above. Rows of any
+width D >= 1 are taken: when D % 4 == 0 they move by TMA bulk copies and
+float4 loads, otherwise by 4-byte copies and scalar loads into rows padded
+to a multiple of 4 with zeros.
 
 The wrapper computes the row-normalized source, the continuity baselines
 and the log2 f0 tracks with the same torch ops as the plain version
@@ -74,12 +77,12 @@ def _check_inputs(lanes, src, shards, pool_len, shifted_src_f0, tgt_f0) -> None:
 
 
 def _check_kernel_shape(k: int, D: int) -> None:
-    """What the CUDA kernel takes."""
+    """What the CUDA kernel takes: every row width D >= 1, and k picks up
+    to MAX_K."""
     if not 1 <= k <= MAX_K:
         raise ValueError(f"the CUDA concat-cost kernel takes 1 <= k <= {MAX_K}, got k={k}")
-    if D % 4:
-        raise ValueError(f"the CUDA concat-cost kernel loads rows as float4: D={D} is "
-                         "not a multiple of 4")
+    if D < 1:
+        raise ValueError(f"the CUDA concat-cost kernel takes rows of D >= 1 floats, got D={D}")
 
 
 def _library():
@@ -145,7 +148,7 @@ def concat_cost_prepass(idx: torch.Tensor, svn: torch.Tensor, tgt: torch.Tensor)
     if tuple(svn.shape) != (T, D):
         raise ValueError(f"svn has shape {tuple(svn.shape)}, expected {(T, D)}")
     _check_kernel_shape(k, D)
-    _check_kernel_tensors(idx=idx, svn=svn, tgt=tgt)
+    _check_kernel_tensors(D, idx=idx, svn=svn, tgt=tgt)
     pnorm = tgt.new_empty(P)
     osd = tgt.new_empty((2, T, L, k))
     lib = _library()
@@ -159,15 +162,19 @@ def concat_cost_prepass(idx: torch.Tensor, svn: torch.Tensor, tgt: torch.Tensor)
     return pnorm, osd
 
 
-def _check_kernel_tensors(**tensors) -> None:
+def _check_kernel_tensors(D: int, **tensors) -> None:
+    """dtype and layout; rows of D % 4 != 0 floats are read 4 bytes at a
+    time, so svn and the pool need only 4-byte alignment then."""
     for name, t in tensors.items():
         if t is None:
             continue
         if t.dtype != (torch.int32 if name == "idx" else torch.float32):
             raise TypeError(f"{name} must be {'int32' if name == 'idx' else 'float32'}, "
                             f"got {t.dtype}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+        rows = name == "svn" or name == "tgt" or name.startswith("shard ")
+        align = 4 if rows and D % 4 else 16
+        if not t.is_contiguous() or t.data_ptr() % align:
+            raise ValueError(f"{name} must be contiguous and {align}-byte aligned")
 
 
 def _concat_cost_lanes(lanes: list[torch.Tensor], pitched: tuple[bool, ...],
@@ -201,7 +208,7 @@ def _concat_cost_lanes(lanes: list[torch.Tensor], pitched: tuple[bool, ...],
         raise TypeError(f"src must be float32, got {src.dtype}")
     idx = torch.stack(lanes, dim=1).to(torch.int32).contiguous()      # (T, L, k)
     svn, baselines, src_lf0, tgt_lf0 = scan_inputs(src, shifted_src_f0, tgt_f0)
-    _check_kernel_tensors(idx=idx, svn=svn, baselines=baselines, src_lf0=src_lf0,
+    _check_kernel_tensors(D, idx=idx, svn=svn, baselines=baselines, src_lf0=src_lf0,
                           tgt_lf0=tgt_lf0,
                           **{("tgt" if len(shards) == 1 else f"shard {i}"): t
                              for i, t in enumerate(shards)})

@@ -36,8 +36,10 @@ import ctypes
 import torch
 
 KERNEL = "f0_viterbi"
-MAX_STATES = 512    # C + 1 states the kernel holds: 4 per thread of 4 warps
-PTR_PITCH = 512     # int16 pointers per frame in the kernel's scratch
+# C + 1 states the kernel holds: 4 or 8 a thread of 4 warps in registers up
+# to 1024, then 4 to 32 a thread of 16 warps in shared memory; its int16
+# pointers hold state indices up to 16383
+MAX_STATES = 16384
 
 
 def _leftmost_cummin(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -104,7 +106,15 @@ def _library():
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.f0_viterbi_f32.restype = i32
     lib.f0_viterbi_f32.argtypes = [ptr, ptr, ptr, ptr, i32, i32, f32, f32, ptr]
+    lib.f0_viterbi_pitch.restype = i32
+    lib.f0_viterbi_pitch.argtypes = [i32]
     return lib
+
+
+def check_states(C: int) -> None:
+    """What the CUDA kernel takes: C + 1 <= MAX_STATES states."""
+    if C + 1 > MAX_STATES:
+        raise ValueError(f"the CUDA Viterbi holds C + 1 <= {MAX_STATES} states, got C={C}")
 
 
 def f0_viterbi(cost_v: torch.Tensor, cost_u: torch.Tensor, lam_s: float,
@@ -131,13 +141,13 @@ def f0_viterbi(cost_v: torch.Tensor, cost_u: torch.Tensor, lam_s: float,
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if C + 1 > MAX_STATES:
-        raise ValueError(f"the CUDA Viterbi holds C + 1 <= {MAX_STATES} states, got C={C}")
+    check_states(C)
     from knnsvc_torch.ops.build import check_launch
 
     lib = _library()
     states = torch.empty(N, dtype=torch.int32, device=cost_v.device)
-    ptrs = torch.empty((max(N - 1, 1), PTR_PITCH), dtype=torch.int16, device=cost_v.device)
+    pitch = lib.f0_viterbi_pitch(C)     # int16 pointers a frame: the instance's states
+    ptrs = torch.empty((max(N - 1, 1), pitch), dtype=torch.int16, device=cost_v.device)
     with torch.cuda.device(cost_v.device):
         stream = torch.cuda.current_stream(cost_v.device).cuda_stream
         code = lib.f0_viterbi_f32(cost_v.data_ptr(), cost_u.data_ptr(), ptrs.data_ptr(),

@@ -11,6 +11,7 @@ packages skip the extractors):
   mode, and its argument guards."""
 
 import os
+import shutil
 
 import jax
 import numpy as np
@@ -143,11 +144,9 @@ def test_cli_folder_and_host_pair_modes(dataset, mix_models, tmp_path, monkeypat
     assert len(_tree(dataset.parent / f"{dataset.name}_to_{dataset.name}_mix_post_opt_no_post_opt")) == 4
 
 
+# the JAX CLI's own streaming rejections: int8 does not stream, and folder
+# mode converts whole utterances
 @pytest.mark.parametrize("mode,flags,match", [
-    ("pair", ["--fast", "false", "--f0_method", "device"], "f0_method"),
-    ("pair", ["--fast", "false", "--upload_depth", "int16"], "upload_depth"),
-    # the JAX CLI's own streaming rejections: int8 does not stream, and
-    # folder mode converts whole utterances
     ("pair", ["--stream_chunk_s", "2.0", "--matcher", "int8"], "matcher"),
     ("folder", ["--stream_chunk_s", "2.0", "--fast", "true"], "pair"),
 ])
@@ -156,7 +155,49 @@ def test_cli_rejects_flags_the_path_ignores(dataset, mode, flags, match):
     inputs = [src, src] if mode == "pair" else [str(dataset), str(dataset)]
     with pytest.raises(SystemExit, match=match):
         cli.main([*inputs, "--random_init", "true", "--device", "cpu", *flags])
-    with pytest.raises(SystemExit, match="upload_depth"):     # folder mode ignores it
-        cli.main([str(dataset), str(dataset), "--fast", "true", "--upload_depth", "int16"])
     with pytest.raises(SystemExit, match="files or both must be folders"):
         cli.main([src, str(dataset), "--fast", "true"])
+
+
+@pytest.mark.parametrize("mode,base,flag,warning", [
+    ("pair", ["--fast", "false"], ["--f0_method", "device"],
+     "--f0_method device is ignored by the host-pool path"),
+    ("pair", ["--fast", "false"], ["--upload_depth", "int16"],
+     "--upload_depth int16 is ignored by the host-pool path"),
+    ("folder", ["--fast", "true"], ["--upload_depth", "int16"],
+     "--upload_depth int16 is ignored by folder mode"),
+    ("pair", ["--fast", "false"], ["--stream_context_s", "2.0"],
+     "--stream_context_s is ignored by every path but streaming"),
+])
+def test_cli_warns_of_flags_the_path_ignores(dataset, mix_models, tmp_path, monkeypatch, capsys,
+                                             mode, base, flag, warning):
+    """A flag that the chosen path ignores converts as the JAX CLI does: exit
+    0, one warning line on stderr, and the output bytes of the same command
+    line without the flag."""
+    knn, _ = mix_models
+    monkeypatch.setattr(KnnSvc, "random_init", classmethod(lambda cls, *a, **k: knn))
+    root = tmp_path / "data"
+    shutil.copytree(dataset, root)
+    out_tree = tmp_path / "data_to_data_mix_post_opt_no_post_opt"
+
+    def run(flags, out):
+        if mode == "pair":
+            src, tgt = root / "alto" / "alto_0.wav", root / "tenor" / "tenor_1.wav"
+            argv = [str(src), str(tgt), "--out", str(out)]
+        else:
+            argv = [str(root), str(root)]
+        capsys.readouterr()
+        assert cli.main([*argv, "--random_init", "true", "--device", "cpu", *base, *flags]) == 0
+        err = capsys.readouterr().err
+        if mode == "pair":
+            return {"out.wav": out.read_bytes()}, err
+        files = {name: (out_tree / name).read_bytes() for name in _tree(out_tree)}
+        shutil.rmtree(out_tree)
+        return files, err
+
+    want, err = run([], tmp_path / "plain.wav")
+    assert "warning" not in err
+    got, err = run(flag, tmp_path / "flagged.wav")
+    warned = [ln for ln in err.splitlines() if "warning" in ln]
+    assert len(warned) == 1 and warned[0].startswith(f"warning: {warning}")
+    assert want and got == want

@@ -15,10 +15,13 @@ ATTN_ATOL_TF32, ~3x the 7.9e-4 that chip_smoke.py measures at the main
 shape on an H100 (and checks against the same bound). The attention
 kernel's full-bias entry is held to the same bounds on a random (H, T, T)
 bias, and on a Toeplitz bias it equals the diagonal entry bit for bit.
+Both entries take every head dim from 1 to 256 at these bounds (d = 257
+raises), and encoders of head dim 8 and 16 encode on the card.
 The concat-cost kernel's selections must equal its plain version's exactly
 on these random inputs, at every tested k (1..32), with its rows in shared
 memory (every k at D = 128, k = 4 at D = 1024) and read from L2 (k = 8 at
-D = 1024); its pre-pass values within 1e-5 relative of the
+D = 1024), at row widths that are not a multiple of 4 too (D = 1..127,
+1021-1023: 4-byte copies); its pre-pass values within 1e-5 relative of the
 plain norms and dots (sums of D fp32 terms in another order). Its carried
 (streaming) entry equals the plain carried cores in picks and in the
 weight after each frame, and chunks chained through it give the
@@ -28,7 +31,9 @@ shards, and the dense entry with one shard; a shard on the CPU raises. The
 sharded match on the card equals the dense match on these inputs (one
 shard: the same GEMM; four: the shares of equal rows stay at 100% here).
 The f0 Viterbi kernel's states must equal its plain version's on every
-frame (both do the same fp32 operations in the same order, ties included).
+frame (both do the same fp32 operations in the same order, ties included),
+in every instance: C + 1 up to 512 and 1024 in registers, up to 2048, 4096,
+8192 and 16384 in shared memory (C = 16384 raises).
 Device f0 on the card against the CPU: cuFFT and cuBLAS sum in other orders
 than pocketfft and the CPU matmul, so voicing must agree on >= 99.5% of
 frames and f0 within 1 cent on >= 99% of the frames voiced in both.
@@ -120,17 +125,17 @@ def test_attention_kernel_rejects_bad_inputs():
         gated_bias_attention_diag(q, k, v, torch.zeros(2, 64, 64, device=q.device), gate)
     with pytest.raises(ValueError):                 # a diagonal not 2T-1 long
         gated_bias_attention_diag(q, k, v, diag[:, :-2].contiguous(), gate)
-    with pytest.raises(ValueError):                 # head dim 32: not compiled
-        gated_bias_attention_diag(q[:, :, :32].contiguous(), k[:, :, :32].contiguous(),
-                             v[:, :, :32].contiguous(), diag, gate)
+    wide = [torch.zeros(2, 64, 257, device=q.device) for _ in range(3)]
+    with pytest.raises(ValueError, match="1..256"):  # head dim 257: above the widest instance
+        gated_bias_attention_diag(*wide, diag, gate)
     with pytest.raises(ValueError):
         gated_bias_attention_diag(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, diag, gate)
     assert gated_bias_attention_diag.launches == before
 
 
-def _full_inputs(H, T, gate_value, seed, device):
+def _full_inputs(H, T, gate_value, seed, device, d=64):
     """q, k, v, a random (H, T, T) bias (not Toeplitz), gate."""
-    q, k, v, _, gate = _inputs(H, T, 64, gate_value, seed, device)
+    q, k, v, _, gate = _inputs(H, T, d, gate_value, seed, device)
     bias = torch.from_numpy(np.random.default_rng(seed + 100).standard_normal((H, T, T))
                             .astype(np.float32)).to(device)
     return [q, k, v, bias, gate]
@@ -189,14 +194,91 @@ def test_full_bias_attention_rejects_bad_inputs():
         gated_bias_attention(q, k, v, bias[:, 0, :].contiguous(), gate)
     with pytest.raises(ValueError):                 # not (H, T, T)
         gated_bias_attention(q, k, v, bias[:, :-1].contiguous(), gate)
-    with pytest.raises(ValueError):                 # head dim 32: not compiled
-        gated_bias_attention(q[:, :, :32].contiguous(), k[:, :, :32].contiguous(),
-                             v[:, :, :32].contiguous(), bias, gate)
+    wide = [torch.zeros(2, 64, 257, device=q.device) for _ in range(3)]
+    with pytest.raises(ValueError, match="1..256"):  # head dim 257: above the widest instance
+        gated_bias_attention(*wide, bias, gate)
     with pytest.raises(ValueError):                 # a transposed (non-contiguous) bias
         gated_bias_attention(q, k, v, bias.transpose(1, 2), gate)
     with pytest.raises(ValueError):                 # the bias on the CPU
         gated_bias_attention(q, k, v, bias.cpu(), gate)
     assert gated_bias_attention.launches == before
+
+
+HEAD_DIMS = (1, 3, 8, 12, 16, 17, 31, 32, 33, 48, 63, 65, 96, 100, 127, 128, 129, 200, 255, 256)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,T,d,atol", [
+    *[(3, 61, d, 2e-5) for d in HEAD_DIMS],      # a ragged key tile and query block
+    *[(4, 200, d, 2e-5) for d in (8, 12, 16, 32, 48, 96, 128, 200, 256)],
+    (32, 1500, 32, 1e-4), (8, 1500, 128, 1e-4),   # H d = 1024 at a 30-s chunk's T
+])
+def test_attention_kernel_at_any_head_dim_matches_plain(H, T, d, atol):
+    """Both entries at head dims other than 64 (zero-filled up to the
+    instance of 16, 32, 64, 128 or 256 columns; above 128 in two column
+    groups), under "highest" and "fastest"; a Toeplitz bias through the full
+    entry gives the diagonal entry's output bit for bit."""
+    q, k, v, diag, gate = _inputs(H, T, d, None, seed=d, device=_cuda())
+    bias = torch.from_numpy(np.random.default_rng(d + 1).standard_normal((H, T, T))
+                            .astype(np.float32)).to(q.device)
+    previous = get_precision()
+    try:
+        for mode, bound in (("highest", atol), ("fastest", ATTN_ATOL_TF32)):
+            set_precision(mode)
+            before = (gated_bias_attention.launches, gated_bias_attention_diag.launches)
+            got_diag = gated_bias_attention_diag(q, k, v, diag, gate)
+            got_full = gated_bias_attention(q, k, v, bias, gate)
+            toeplitz = gated_bias_attention(q, k, v, toeplitz_bias(diag).contiguous(), gate)
+            torch.cuda.synchronize()
+            assert (gated_bias_attention.launches, gated_bias_attention_diag.launches) == (
+                before[0] + 2, before[1] + 1)
+            for got, b in ((got_diag, diag), (got_full, bias)):
+                assert got.shape == (H, T, d) and torch.isfinite(got).all()
+                assert float((got - reference_attention(q, k, v, b, gate)).abs().max()) <= bound
+            assert torch.equal(toeplitz, got_diag)
+    finally:
+        set_precision(previous)
+
+
+# the JAX package's test encoder (tests/test_wavlm.py: 64 wide, 4 heads, head
+# dim 16) and the port's tiny training-world encoder (16 wide, 2 heads, 8)
+_SMALL_HEAD_WAVLMS = {
+    16: dict(extractor_mode="layer_norm", encoder_layers=3, encoder_embed_dim=64,
+             encoder_ffn_embed_dim=128, encoder_attention_heads=4, layer_norm_first=True,
+             conv_feature_layers="[(32,10,5)] + [(32,3,2)] + [(32,2,2)]", conv_bias=False,
+             conv_pos=16, conv_pos_groups=4, relative_position_embedding=True, num_buckets=32,
+             max_distance=64, gru_rel_pos=True),
+    8: dict(extractor_mode="layer_norm", encoder_layers=2, encoder_embed_dim=16,
+            encoder_ffn_embed_dim=32, encoder_attention_heads=2, layer_norm_first=True,
+            conv_feature_layers="[(16,10,5)] + [(16,4,4)] + [(16,4,4)] + [(16,4,4)]",
+            conv_bias=True, conv_pos=8, conv_pos_groups=2, relative_position_embedding=True,
+            num_buckets=16, max_distance=32, gru_rel_pos=True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim", [16, 8])
+def test_encoder_at_small_head_dims_card_matches_cpu(head_dim):
+    """The port's WavLM at head dims 16 and 8 launches the kernel once per
+    layer on the card, and its layers agree with the CPU's."""
+    from knnsvc_torch.config import WavLMConfig
+    from knnsvc_torch.io.jax_params import wavlm_from_numpy
+    from knnsvc_torch.models.wavlm.model import init_wavlm_params
+
+    dev = _cuda()
+    cfg = WavLMConfig.from_dict(_SMALL_HEAD_WAVLMS[head_dim])
+    assert cfg.encoder_embed_dim // cfg.encoder_attention_heads == head_dim
+    params = init_wavlm_params(cfg, torch.Generator().manual_seed(head_dim))
+    card, cpu = wavlm_from_numpy(params, cfg, dev), wavlm_from_numpy(params, cfg, "cpu")
+    wav = _sung(1.3, head_dim)
+    before = gated_bias_attention_diag.launches
+    with torch.no_grad():
+        got = card.extract_all_layers(wav.to(dev))
+        torch.cuda.synchronize()
+        assert gated_bias_attention_diag.launches == before + cfg.encoder_layers
+        want = cpu.extract_all_layers(wav)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert float((got.cpu() - want).abs().max()) <= 1e-3
 
 
 def _concat_inputs(T, P, D, seed, device, clamp_and_duplicates=False, k=4):
@@ -226,6 +308,10 @@ def _concat_inputs(T, P, D, seed, device, clamp_and_duplicates=False, k=4):
     *[(37, 53, 128, dup, k) for dup in (False, True) for k in (1, 3, 4, 8, 16, 32)],
     (300, 400, 1024, False, 4),   # the served width, rows in shared memory
     (300, 400, 1024, False, 8),   # the served width, rows read from L2
+    # widths that are no multiple of 4: 4-byte copies into zero-padded rows
+    *[(37, 53, D, True, k) for D in (1, 2, 3, 5, 127) for k in (1, 4, 8, 32)],
+    (300, 400, 1023, False, 4), (300, 400, 1022, False, 4), (300, 400, 1021, False, 4),
+    (300, 400, 1023, False, 8),   # read from L2 by scalar loads
 ])
 def test_concat_kernel_matches_plain(T, P, D, clamp_and_duplicates, k):
     idx_u, idx_p, src, tgt, sf0, tf0 = _concat_inputs(T, P, D, 7, _cuda(), clamp_and_duplicates,
@@ -245,8 +331,9 @@ def test_concat_kernel_matches_plain(T, P, D, clamp_and_duplicates, k):
 
 
 @pytest.mark.gpu
-def test_concat_prepass_matches_plain_norms_and_dots():
-    idx_u, idx_p, src, tgt, sf0, tf0 = _concat_inputs(50, 70, 1024, 9, _cuda(), k=4)
+@pytest.mark.parametrize("D", [1024, 1023])
+def test_concat_prepass_matches_plain_norms_and_dots(D):
+    idx_u, idx_p, src, tgt, sf0, tf0 = _concat_inputs(50, 70, D, 9, _cuda(), k=4)
     idx = torch.stack([idx_u, idx_p], dim=1).to(torch.int32).contiguous()
     svn = scan_inputs(src, None, None)[0]
     before = concat_cost_pair.launches
@@ -275,8 +362,8 @@ def test_concat_kernel_rejects_bad_inputs():
         with pytest.raises(ValueError, match="k <= 32"):
             concat_cost_single(idx_u[:, :k], src, tgt)
     idx_u, idx_p = idx_u[:, :4], idx_p[:, :4]
-    with pytest.raises(ValueError, match="multiple of 4"):
-        concat_cost_pair(idx_u, idx_p, src[:, :62].contiguous(), tgt[:, :62].contiguous(),
+    with pytest.raises(ValueError, match="D >= 1"):         # rows of no float
+        concat_cost_pair(idx_u, idx_p, src[:, :0].contiguous(), tgt[:, :0].contiguous(),
                          sf0, tf0)
     with pytest.raises(TypeError, match="integers"):
         concat_cost_pair(idx_u.float(), idx_p, src, tgt, sf0, tf0)
@@ -309,13 +396,20 @@ def _viterbi_costs(N, C, seed, ties, device):
 @pytest.mark.parametrize("N,C,ties", [
     *[(N, C, True) for N in (1, 2, 1501) for C in (1, 9, 482)],
     (1501, 482, False),     # the main path's shape: one 30-s chunk, 482 candidates
-    (300, MAX_STATES - 1, True),
+    (300, MAX_STATES - 1, True),   # the limit: 16384 states in shared memory
     # C + 1 on either side of a thread's (4 states) and a warp's (128) boundary
     *[(70, C, True) for C in (3, 4, 5, 127, 128, 129, 255, 256, 511)],
+    # on either side of each instance: 512 and 1024 states in registers,
+    # 2048 to 16384 in shared memory
+    *[(70, C, True) for C in (512, 1023, 1024, 2047, 2048, 4095, 4096, 8191, 8192)],
+    # grid_cents 5, 2 and 1: a 30-s chunk's frames
+    *[(1501, C, True) for C in (963, 2406, 4812)],
+    *[(N, 2406, True) for N in (1, 2, 33)],
     # N around the emission ring (8 rows) and the backtrack block (32 rows)
     *[(N, 482, True) for N in (7, 8, 9, 32, 33, 64, 65)],
     # every cost_v row constant: the argmin ties at every level
     (1501, 482, "const"), (65, MAX_STATES - 1, "const"), (33, 5, "const"),
+    (65, 963, "const"), (65, 4812, "const"),
 ])
 def test_viterbi_kernel_matches_plain(N, C, ties):
     cost_v, cost_u = _viterbi_costs(N, C, seed=N + C, ties=ties, device=_cuda())
@@ -366,7 +460,8 @@ def test_device_f0_card_matches_cpu():
     assert (np.abs(1200 * np.log2(card[both] / cpu[both])) <= 1.0).mean() >= 0.99
 
 
-# a small encoder with the kernel's head dim (64) and WavLM-Large's 24 layers
+# a small encoder with WavLM-Large's head dim (64) and its 24 layers; the head
+# dim is a choice: the kernel takes every head dim up to 256
 _GPU_WAVLM = dict(extractor_mode="layer_norm", encoder_layers=24, encoder_embed_dim=128,
                   encoder_ffn_embed_dim=256, encoder_attention_heads=2, layer_norm_first=True,
                   conv_feature_layers="[(32,10,5)] + [(32,4,4)] + [(32,4,4)] + [(32,4,4)]",
@@ -467,11 +562,12 @@ def test_concat_kernel_at_bulk_shapes():
 @pytest.mark.gpu
 @pytest.mark.parametrize("k", [2, 4, 8, 32])
 @pytest.mark.parametrize("carry_weight", [0.2, 0.0])
-def test_concat_carried_entry_matches_plain(k, carry_weight):
+@pytest.mark.parametrize("D", [128, 127])
+def test_concat_carried_entry_matches_plain(k, carry_weight, D):
     """The carried entry (carry as frame 0, the pitched lanes from the
     carried weight) against the plain carried cores, both lanes and each
     single lane, one launch each."""
-    idx_u, idx_p, src, tgt, sf0, tf0 = _concat_inputs(37, 53, 128, 13, _cuda(), True, k)
+    idx_u, idx_p, src, tgt, sf0, tf0 = _concat_inputs(37, 53, D, 13, _cuda(), True, k)
     s = 9
     carry = torch.randint(0, 53, (2, k), generator=torch.Generator().manual_seed(k)).to(src.device)
     args = (idx_u[s:], idx_p[s:], src[s - 1], src[s:], tgt, sf0[s:], tf0, carry,
@@ -598,13 +694,14 @@ def test_prematch_on_the_card_launches_the_kernel(tmp_path):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("S,k", [(1, 4), (2, 4), (3, 8), (4, 32)])
-def test_concat_sharded_entries_match_plain(S, k):
+@pytest.mark.parametrize("S,k,D", [(1, 4, 1024), (2, 4, 1024), (3, 8, 1024), (4, 32, 128),
+                                   (1, 4, 1023), (2, 4, 1022), (3, 8, 1021), (4, 32, 127)])
+def test_concat_sharded_entries_match_plain(S, k, D):
     from knnsvc_torch.parallel import make_mesh
     from knnsvc_torch.parallel.mesh import gather_rows, shard_rows
 
     dev = _cuda()
-    T, P, D = 120, 301, 1024 if k <= 8 else 128     # 301: no multiple of 2, 3 or 4
+    T, P = 120, 301                                  # 301: no multiple of 2, 3 or 4
     idx_u, idx_p, src, tgt, sf0, tf0 = _concat_inputs(T, P, D, 17, dev, True, k)
     shards = shard_rows(tgt, make_mesh(1, S, devices=[dev] * S))[0]
     before = concat_cost_pair.launches

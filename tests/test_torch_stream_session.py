@@ -112,7 +112,7 @@ def test_stream_checks(world):
         knn.weighting = weighting
 
 
-def test_cli_stream_writes_stream_convert_file(world, monkeypatch):
+def test_cli_stream_writes_stream_convert_file(world, monkeypatch, capsys):
     root, knn, (src, ref) = world
     monkeypatch.setattr(KnnSvc, "random_init", classmethod(lambda cls, *a, **k: knn))
     kw = dict(chunk_s=0.4, context_s=0.25, encoder="cached", post_opt="no_post_opt_0.2",
@@ -126,12 +126,25 @@ def test_cli_stream_writes_stream_convert_file(world, monkeypatch):
     y, sr = load_audio(out)
     assert sr == 16000 and abs(y.shape[-1] - len(load_utterance(src))) <= 2 * 320
     np.testing.assert_array_equal(int16_codes(out), int16_codes(want))
-    with pytest.raises(SystemExit, match="stream_chunk_s"):       # ignored without it
-        cli.main([src, ref, "--random_init", "true", "--device", "cpu",
-                  "--stream_encoder", "cached"])
-    with pytest.raises(SystemExit, match="upload_depth"):         # the stream ignores it
-        cli.main([src, ref, "--random_init", "true", "--device", "cpu",
-                  "--stream_chunk_s", "0.4", "--upload_depth", "int16"])
+    # a flag the chosen path ignores: one warning line, and the bytes of the
+    # same command line without it (as the JAX CLI converts). The first
+    # host-pool run extracts f0 and writes the sidecars that every later run,
+    # streamed or not, reads: it runs first, and the pairs compared come after
+    base = [src, ref, "--random_init", "true", "--device", "cpu"]
+    stream = ["--stream_chunk_s", "0.4", "--stream_context_s", "0.25", "--stream_encoder",
+              "cached", "--post_opt", "no_post_opt_0.2", "--matcher", "exact"]
+    assert cli.main([*base, "--out", str(root / "sidecars.wav")]) == 0
+    for i, (plain, flag, warning) in enumerate((
+            ([], ["--stream_encoder", "cached"], "--stream_encoder is ignored"),
+            (stream, ["--upload_depth", "int16"], "--upload_depth int16 is ignored by the "
+                                                  "streaming"))):
+        want_out, flagged = root / f"plain{i}.wav", root / f"flagged{i}.wav"
+        assert cli.main([*base, "--out", str(want_out), *plain]) == 0
+        capsys.readouterr()
+        assert cli.main([*base, "--out", str(flagged), *plain, *flag]) == 0
+        warned = [ln for ln in capsys.readouterr().err.splitlines() if "warning" in ln]
+        assert len(warned) == 1 and warned[0].startswith(f"warning: {warning}")
+        assert flagged.read_bytes() == want_out.read_bytes()
     with pytest.raises(SystemExit, match="sharded_int8 streams no_post_opt"):
         cli.main([src, ref, "--random_init", "true", "--device", "cpu",
                   "--stream_chunk_s", "0.4", "--matcher", "sharded_int8",

@@ -8,7 +8,9 @@ Each checkout runs in a process of its own, which builds that checkout's
 kernel. Per checkout: the diagonal entry (`gated_bias_attention_diag`, or
 `gated_bias_attention` in checkouts that predate the full-bias entry) on
 seeded inputs at (16, 1500, 64), the main path's shape: the SHA-256 of its
-output and the CUDA-event mean over 50 calls after 3 warm-up calls; then
+output and the CUDA-event mean over 50 calls after 3 warm-up calls, and the
+same for the full-bias entry on a seeded (16, 1500, 1500) bias where the
+checkout has both entries; then
 KnnSvc.random_init("mix", seed=0) converting a seeded 30-s sung pair
 (convert_waveform, without and with post_opt_0.2): the SHA-256 of each
 float waveform and the entry's launches. Prints one `AB` line per checkout
@@ -74,6 +76,20 @@ def run_checkout(root: str) -> None:
     torch.cuda.synchronize()
     print(f"AB {root} {diag_entry.__name__} {SHAPE}: {start.elapsed_time(end) / RUNS:.4f} ms, "
           f"output sha256 {digest(out)}", flush=True)
+    if diag_entry is not attention.gated_bias_attention:   # the full-bias entry too
+        full_args = [*args[:3], torch.randn((H, T, T), generator=gen).to(dev), args[4]]
+        full_out = attention.gated_bias_attention(*full_args)
+        for _ in range(3):
+            attention.gated_bias_attention(*full_args)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(RUNS):
+            attention.gated_bias_attention(*full_args)
+        end.record()
+        torch.cuda.synchronize()
+        print(f"AB {root} gated_bias_attention (full bias) {SHAPE}: "
+              f"{start.elapsed_time(end) / RUNS:.4f} ms, output sha256 {digest(full_out)}",
+              flush=True)
 
     knn = KnnSvc.random_init("mix", seed=0, device=dev)
     with tempfile.TemporaryDirectory() as tmp:
