@@ -732,27 +732,30 @@ class KnnSvc:
         serves no_post_opt only."""
         if not prioritize_f0:
             raise ValueError("prioritize_f0 is mandatory on the reference live path (ref :1375)")
-        if fast:
-            from knnsvc_torch.match.serve import quantize_int16
+        # the request's root span: every other span of the call nests in it
+        with record_function("knnsvc.convert_pair"):
+            if fast:
+                from knnsvc_torch.match.serve import quantize_int16
 
-            wav = self.convert_waveform(src_wav_file, ref_wav_file, topk=topk,
-                                        post_opt=post_opt, matcher=matcher,
-                                        upload_dtype=upload_dtype, mesh=mesh)
-            with record_function("knnsvc.quantize_download"):
-                pred = quantize_int16(wav).cpu().numpy().astype(np.float32) / 32768.0
-        else:
-            results = self.convert_features(Path(src_wav_file), Path(ref_wav_file), topk=topk,
-                                            post_opt=post_opt, matcher=matcher, mesh=mesh)
-            # pools key utterances by str(Path(...)): './x.wav' still resolves
-            feats = results[str(Path(src_wav_file))]
-            pred = self.vocode(feats.out_feats_weighted, feats.shifted_query_f0,
-                               feats.harmonics_out_feats_weighted)
-        if tgt_loudness_db is not None:
-            pred = normalize_loudness(pred, self.sr, tgt_loudness_db)
-        if output_path is None:
-            output_path = self._default_output_path(src_wav_file, ref_wav_file, post_opt)
-        with record_function("knnsvc.write_wav"):
-            save_audio(output_path, pred, self.sr)
+                wav = self.convert_waveform(src_wav_file, ref_wav_file, topk=topk,
+                                            post_opt=post_opt, matcher=matcher,
+                                            upload_dtype=upload_dtype, mesh=mesh)
+                with record_function("knnsvc.quantize_download"):
+                    pred = quantize_int16(wav).cpu().numpy().astype(np.float32) / 32768.0
+            else:
+                results = self.convert_features(Path(src_wav_file), Path(ref_wav_file),
+                                                topk=topk, post_opt=post_opt, matcher=matcher,
+                                                mesh=mesh)
+                # pools key utterances by str(Path(...)): './x.wav' still resolves
+                feats = results[str(Path(src_wav_file))]
+                pred = self.vocode(feats.out_feats_weighted, feats.shifted_query_f0,
+                                   feats.harmonics_out_feats_weighted)
+            if tgt_loudness_db is not None:
+                pred = normalize_loudness(pred, self.sr, tgt_loudness_db)
+            if output_path is None:
+                output_path = self._default_output_path(src_wav_file, ref_wav_file, post_opt)
+            with record_function("knnsvc.write_wav"):
+                save_audio(output_path, pred, self.sr)
         return output_path
 
     # ---------------------------------------------------------- streaming

@@ -109,7 +109,8 @@ def optimize_smoothness_from_surrounding(surrounding: torch.Tensor,
     pool rows at id offsets -1, 0, +1 of each selection (a sharded pool
     gathers them across its shards, parallel/sharded_match.py; the JAX
     package's optimize_smoothness_from_surrounding). -> weights (T, k)[,
-    steps]."""
+    steps]. Each call adds its steps to
+    `optimize_smoothness_from_surrounding.steps` and one to its `.runs`."""
     dev = surrounding.device
     T, k = surrounding.shape[:2]
     w = torch.zeros((T, k), dtype=torch.float32, device=dev)
@@ -151,6 +152,12 @@ def optimize_smoothness_from_surrounding(surrounding: torch.Tensor,
         if bool(done):
             break
     n_steps = int(steps)
+    optimize_smoothness_from_surrounding.steps += n_steps
+    optimize_smoothness_from_surrounding.runs += 1
     _log.debug("smoothness: %d steps (T=%d, k=%d, scale=%g)", n_steps, T, k, scale)
     weights = torch.softmax(best_w, dim=1)
     return (weights, n_steps) if return_steps else weights
+
+
+optimize_smoothness_from_surrounding.steps = 0
+optimize_smoothness_from_surrounding.runs = 0

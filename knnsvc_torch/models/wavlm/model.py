@@ -39,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from knnsvc_torch.config import WavLMConfig
 from knnsvc_torch.ops.attention import gated_bias_attention_diag, toeplitz_bias
@@ -249,10 +250,13 @@ class WavLM(nn.Module):
             feats = self.post_extract_proj(feats)
         if padding_mask is not None:
             feats = feats.masked_fill(padding_mask[:, :, None], 0.0)
-        h = self.encoder.pos_conv(feats.transpose(1, 2))
-        if self.cfg.conv_pos % 2 == 0:
-            h = h[:, :, :-1]  # SamePad (ref wavlm/modules.py:72-83)
-        x = feats + F.gelu(h.transpose(1, 2))
+        # a part span (utils/profiling.py): transparent to the device time
+        # charged to the caller's knnsvc.<stage> span
+        with record_function("knnsvc:pos_conv"):
+            h = self.encoder.pos_conv(feats.transpose(1, 2))
+            if self.cfg.conv_pos % 2 == 0:
+                h = h[:, :, :-1]  # SamePad (ref wavlm/modules.py:72-83)
+            x = feats + F.gelu(h.transpose(1, 2))
         if not self.cfg.layer_norm_first:
             x = self.encoder.layer_norm(x)
         return x

@@ -8,7 +8,21 @@ prints).
 - `force_completion(tree)`: waits for the cards that hold the tensors of a
   result (a no-op for CPU tensors);
 - `StageTimer`: accumulates wall-clock per named stage, forcing device
-  completion at each stage's end.
+  completion at each stage's end;
+- `counters()`: a snapshot of the program's counters, each under one name.
+
+The program's spans come at two levels, told apart by the separator:
+
+- `knnsvc.<layer>` (a dot): a stage of a request, such as `pool_build`,
+  `vocode` or `smoothness`, and `convert_pair`, the request's root. A
+  trace's device time is charged to the innermost `knnsvc.` span open at
+  its launch; readers of a trace take the layers' device time from that.
+- `knnsvc:<part>` (a colon): a sub-step inside a layer whose span is read
+  already, such as `pos_conv` in the WavLM encoder. The charging rule above
+  passes over it (its name does not start with `knnsvc.`), so a part span
+  adds a reading without moving any layer's.
+
+No span costs anything without an active profiler.
 """
 
 from __future__ import annotations
@@ -103,3 +117,20 @@ class StageTimer:
     def as_json(self) -> str:
         return json.dumps({k: {"seconds": v, "count": self.counts[k]}
                            for k, v in self.totals.items()})
+
+
+def counters() -> dict[str, int]:
+    """The program's counters now, one name each: the launches of the
+    hand-written kernels (their entry points' `.launches`) and the
+    smoothness optimizer's steps and calls. Two snapshots' difference
+    counts what ran between them."""
+    from knnsvc_torch.match.smoothness import optimize_smoothness_from_surrounding as opt
+    from knnsvc_torch.ops.attention import gated_bias_attention, gated_bias_attention_diag
+    from knnsvc_torch.ops.concat_scan import concat_cost_pair
+    from knnsvc_torch.ops.viterbi import f0_viterbi
+
+    return {"attention.launches": gated_bias_attention.launches,
+            "attention_diag.launches": gated_bias_attention_diag.launches,
+            "concat_cost_pair.launches": concat_cost_pair.launches,
+            "f0_viterbi.launches": f0_viterbi.launches,
+            "smoothness.steps": opt.steps, "smoothness.runs": opt.runs}
