@@ -33,8 +33,13 @@ Phases (any failure exits non-zero, before the result line):
      version, with ptxas's registers and spills for it (a spill fails the
      run); device f0
      on the card against the CPU on that wav, and the time of one 30-s
-     device_f0_tensor with its Viterbi share; the attention kernel and the
-     Viterbi also at a streaming window's shape (T = 200); the concat
+     device_f0_tensor with its Viterbi share; the smoothness kernel
+     against its plain loop at a 30-s source's (1500, 4, 1024) and
+     (1500, 4, 49) (equal step counts, the weights within 5e-3 and the best
+     losses within 1e-6 relative, the time of a call beside the
+     neighbourhood read once a step); the attention
+     kernel and the Viterbi also at a streaming window's shape (T = 200);
+     the concat
      kernel's shard-table entries (a pool split into S = 1, 2, 4 logical
      shards of the card) against the plain version reading the same shards
      at (1500, 1499, 1024), k = 4 and 8, pair and single lane, and S = 1
@@ -195,7 +200,7 @@ PEAK_FP32_FLOPS = 67e12          # fp32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12         # TF32 on the tensor cores, dense
 PEAK_BYTES_PER_S = 3.35e12       # HBM3
 
-KERNELS = ("gated_bias_attention", "concat_cost_pair", "f0_viterbi")
+KERNELS = ("gated_bias_attention", "concat_cost_pair", "f0_viterbi", "smoothness_adam")
 ATTN_MAIN = (16, 1500, 64)       # one WavLM-Large layer on a 30-s chunk
 ATTN_STREAM = (16, 200, 64)      # one layer on a streaming window (2 s + 1 s each side)
 ATTN_RAGGED = [(4, 200, 64, 1.0), (4, 200, 64, 0.0), (4, 200, 64, -0.5)]
@@ -233,6 +238,16 @@ PICK_SHARE_MIN = 0.95            # card vs CPU: frames whose concat picks agree
 PO_FRESH_RUNS = 3                # post_opt conversions of new pairs
 PO_WARM_RUNS = 10                # post_opt repeat conversions
 TOPK_WIDE = 8                    # a --topk beside the reference's 4
+
+# the smoothness optimizer at a 30-s source, k = 4: the WavLM lane (unit-variance rows) and
+# the harmonic lane (rows of std 3e-3, the served pairs' harmonic amplitudes); T, k, D, loss
+# scale, row std
+SMOOTH_SHAPES = ((1500, 4, 1024, 0.1, 1.0), (1500, 4, 49, 1e3, 3e-3))
+SMOOTH_CALLS = 5                 # timed kernel calls a shape
+# the kernel against the plain loop, as tests/test_torch_smoothness_kernel.py holds them (its
+# docstring gives the reasons): weights within 5e-3, the best losses within 1e-6 relative
+SMOOTH_WEIGHT_ATOL = 5e-3
+SMOOTH_LOSS_RTOL = 1e-6
 
 VITERBI_MAIN = (1501, 482)       # frames of a 30-s chunk, f0 candidates 65-1047 Hz
 VITERBI_STREAM = 200             # frames of a streaming window at the CLI defaults
@@ -920,6 +935,62 @@ def phase_viterbi_kernel(dev, ptxas: list[str]):
             "stream_bound_ms": w_bound_ms, "stream_bound_by": w_bound_by}
 
 
+def phase_smoothness_kernel(dev):
+    """The smoothness kernel against its plain loop on the card, on the
+    neighbourhoods of random ids into a random pool: equal step counts, the
+    weights within SMOOTH_WEIGHT_ATOL and the losses of both best weights
+    within SMOOTH_LOSS_RTOL, and the time of a call beside its bound (the
+    neighbourhood read once a step at the HBM rate)."""
+    import numpy as np
+    import torch
+
+    from knnsvc_torch.match import smoothness as sm
+    from knnsvc_torch.ops.smoothness_adam import smoothness_adam
+
+    record = {"name": "smoothness_adam", "route": "cuda",
+              "source": "knnsvc_torch/csrc/smoothness_adam.cu",
+              "replaces": "knnsvc_tpu/match/smoothness.py:182 (a lax.while_loop, not a "
+                          "Pallas kernel)", "launches": None, "shapes": []}
+    for T, k, D, scale, std in SMOOTH_SHAPES:
+        rng = np.random.default_rng(T + D)
+        pool = rng.standard_normal((3 * T, D)).astype(np.float32)
+        pool *= np.float32(std)
+        idx = torch.from_numpy(rng.integers(0, 3 * T, (T, k))).to(dev)
+        surrounding = sm._gather_surrounding(idx, torch.from_numpy(pool).to(dev))
+        best, steps = smoothness_adam(surrounding, scale, sm._MAX_STEPS)
+        t0 = time.perf_counter()
+        plain, plain_steps = sm._plain_loop(surrounding, scale, sm._MAX_STEPS)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        gap = float((torch.softmax(best, 1) - torch.softmax(plain, 1)).abs().max())
+        loss, plain_loss = (float(sm._loss_and_grad(w, surrounding, scale)[0])
+                            for w in (best, plain))
+        loss_rel = abs(loss - plain_loss) / plain_loss
+        if steps != plain_steps:
+            fail(f"smoothness_adam {(T, k, D)}: {steps} steps, the plain loop {plain_steps}")
+        if gap > SMOOTH_WEIGHT_ATOL:
+            fail(f"smoothness_adam {(T, k, D)}: weights {gap:.3e} from the plain loop's, past "
+                 f"{SMOOTH_WEIGHT_ATOL:g}")
+        if loss_rel > SMOOTH_LOSS_RTOL:
+            fail(f"smoothness_adam {(T, k, D)}: loss {loss!r} against the plain loop's "
+                 f"{plain_loss!r}, {loss_rel:.2e} relative, past {SMOOTH_LOSS_RTOL:g}")
+        ms = cuda_ms(lambda: smoothness_adam(surrounding, scale, sm._MAX_STEPS),
+                     iters=SMOOTH_CALLS, warmup=1)
+        step_bound_ms = 1e3 * surrounding.numel() * 4 / PEAK_BYTES_PER_S
+        log(f"[kernel] smoothness_adam ({T}, {k}, {D}) scale {scale:g} rows std {std:g}: {steps} "
+            f"steps as the plain loop, weights within {gap:.2e}, loss {loss_rel:.1e} relative; "
+            f"kernel {ms:.4f} ms a call ({1e3 * ms / steps:.2f} us a step, one launch), plain "
+            f"{plain_ms:.1f} ms (one run), library none, bound {steps * step_bound_ms:.4f} ms a "
+            f"call, {1e3 * step_bound_ms:.2f} us a step (bytes: the neighbourhood read once a "
+            f"step)")
+        record["shapes"].append({"shape": [T, k, D], "steps": steps, "max_weight_gap": gap,
+                                 "loss_rel_gap": loss_rel, "ms": ms,
+                                 "us_per_step": 1e3 * ms / steps, "plain_ms": plain_ms,
+                                 "bound_ms": steps * step_bound_ms,
+                                 "bound_us_per_step": 1e3 * step_bound_ms, "bound_by": "bytes"})
+    return record
+
+
 def write_pair(root: str, seconds: float, sidecars: bool):
     from knnsvc_torch.dsp.f0 import save_f0_sidecar
     from knnsvc_torch.io.audio import save_audio
@@ -1060,7 +1131,9 @@ def phase_full(root: str, knn, records, dev):
     from knnsvc_torch.match.serve import quantize_int16
     from knnsvc_torch.models.wavlm.model import frame_count
     from knnsvc_torch.ops.attention import gated_bias_attention_diag
+    from knnsvc_torch.config import ModelFamily
     from knnsvc_torch.ops.concat_scan import concat_cost_pair
+    from knnsvc_torch.ops.smoothness_adam import smoothness_adam
     from knnsvc_torch.ops.viterbi import f0_viterbi
 
     src, ref = write_pair(root, FULL_SECONDS, sidecars=False)
@@ -1070,22 +1143,25 @@ def phase_full(root: str, knn, records, dev):
     def run(s, r, post_opt="no_post_opt", model=knn, topk=4, upload_dtype="float32"):
         """One convert_pair, its counts set to 0 just before and read just
         after: 12 attention launches, one concat-cost launch with post_opt,
-        and one Viterbi launch per pool with device f0."""
+        one Viterbi launch per pool with device f0, and one smoothness
+        launch per selection with post_opt (2 for mix, 1 for wavlm_only)."""
         gated_bias_attention_diag.launches = 0
         concat_cost_pair.launches = 0
         f0_viterbi.launches = 0
+        smoothness_adam.launches = 0
         t0 = time.perf_counter()
         path = model.convert_pair(s, r, topk=topk, fast=True, post_opt=post_opt,
                                   output_path=out, upload_dtype=upload_dtype)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches = (gated_bias_attention_diag.launches, concat_cost_pair.launches,
-                    f0_viterbi.launches)
-        want = (LAUNCHES_PER_PAIR, 0 if post_opt == "no_post_opt" else 1,
-                2 if model.f0_method == "device" else 0)
+                    f0_viterbi.launches, smoothness_adam.launches)
+        opt = post_opt != "no_post_opt"
+        want = (LAUNCHES_PER_PAIR, int(opt), 2 if model.f0_method == "device" else 0,
+                (2 if model.family == ModelFamily.MIX else 1) if opt else 0)
         if launches != want:
             fail(f"convert_pair({model.ckpt_type}, {post_opt}, f0 {model.f0_method}) launched "
-                 f"(attention, concat, viterbi) {launches} times, expected {want}")
+                 f"(attention, concat, viterbi, smoothness) {launches} times, expected {want}")
         return dt, launches, path
 
     def new_pair(tag):
@@ -1147,8 +1223,10 @@ def phase_full(root: str, knn, records, dev):
     log(f"[post_opt] peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
     records["gated_bias_attention_diag"]["launches"] = launches[0]
     records["concat_cost_pair"]["launches"] = launches[1]
+    records["smoothness_adam"]["launches"] = launches[3]
     log(f"kernels: gated_bias_attention_diag={launches[0]} concat_cost_pair={launches[1]} "
-        f"f0_viterbi={launches[2]} (one {POST_OPT} mix conversion, host f0)")
+        f"f0_viterbi={launches[2]} smoothness_adam={launches[3]} (one {POST_OPT} mix "
+        f"conversion, host f0)")
     y, sr = load_audio(path)
     wav = knn.convert_waveform(src, ref, post_opt=POST_OPT)
     torch.cuda.synchronize()
@@ -3704,7 +3782,8 @@ def main() -> int:
     records = {"gated_bias_attention_diag": phase_kernels(dev),
                "gated_bias_attention": phase_attention_full(dev),
                "concat_cost_pair": phase_concat_kernel(dev),
-               "f0_viterbi": phase_viterbi_kernel(dev, ptxas["f0_viterbi"])}
+               "f0_viterbi": phase_viterbi_kernel(dev, ptxas["f0_viterbi"]),
+               "smoothness_adam": phase_smoothness_kernel(dev)}
     records["concat_cost_pair"].update(phase_concat_sharded(dev))
     phase_reach(dev, ptxas["f0_viterbi"], records)
     root = tempfile.mkdtemp(prefix="knnsvc_smoke_")
@@ -3729,8 +3808,9 @@ def main() -> int:
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     log("kernels: " + " ".join(f"{r['name']}={r['launches']}" for r in records.values())
-        + " (each on its path: the diagonal and concat entries on one post_opt pair, the "
-        "Viterbi on one device-f0 pair, the full-bias entry on the [rest] surface drive)")
+        + " (each on its path: the diagonal, concat and smoothness entries on one post_opt "
+        "pair, the Viterbi on one device-f0 pair, the full-bias entry on the [rest] surface "
+        "drive)")
     for r in records.values():
         if not r["launches"]:
             fail(f"{r['name']} was not launched on its path")

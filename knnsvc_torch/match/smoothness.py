@@ -12,14 +12,19 @@ ddsp_prematch_dataset.py:465-925). Adam with AMSGrad (lr 0.1, betas
   moved less than 1e-5 since the last check;
 - it stops after 1000 steps in a row without a new best, and at 100k steps.
 
-No host sync per step. Steps run in blocks; within a block each step is
-masked by `done`, as the JAX package's unrolled `frozen_body` is, and the
-host reads `done` once per block, so the step count is exact whatever the
-block size. Blocks end at t = 2, 102, 202, ...: the plateau check, the
-usual exit, sets `done` in the step at t % 100 == 1, which is the last of
-its block, so that exit costs no masked step and one sync per 100 steps.
-Only the stop after 1000 failures, which may fall anywhere, can cost up to
-99 masked steps.
+On a CUDA tensor the whole call is one launch of the hand-written kernel
+(ops/smoothness_adam.py, csrc/smoothness_adam.cu), which keeps every step
+and the early stop on the card; the host reads back the step count once.
+A CPU tensor takes the plain version below, `_plain_loop`.
+
+The plain loop makes no host sync per step. Steps run in blocks; within a
+block each step is masked by `done`, as the JAX package's unrolled
+`frozen_body` is, and the host reads `done` once per block, so the step
+count is exact whatever the block size. Blocks end at t = 2, 102, 202,
+...: the plateau check, the usual exit, sets `done` in the step at
+t % 100 == 1, which is the last of its block, so that exit costs no masked
+step and one sync per 100 steps. Only the stop after 1000 failures, which
+may fall anywhere, can cost up to 99 masked steps.
 
 Once `done` is set only the outputs freeze (the best weights and the step
 count): Adam's state may run on through a block's masked steps, since
@@ -44,6 +49,7 @@ _MAX_STEPS = 100_000
 _PLATEAU_EVERY = 100
 _PLATEAU_TOL = 1e-5
 _FAIL_LIMIT = 1000
+_INIT_LOSS = 20000.0   # the best and the last checked loss before step 0
 
 _log = logging.getLogger(__name__)
 
@@ -109,14 +115,38 @@ def optimize_smoothness_from_surrounding(surrounding: torch.Tensor,
     pool rows at id offsets -1, 0, +1 of each selection (a sharded pool
     gathers them across its shards, parallel/sharded_match.py; the JAX
     package's optimize_smoothness_from_surrounding). -> weights (T, k)[,
-    steps]. Each call adds its steps to
+    steps]. A CUDA tensor launches the kernel once, a CPU tensor runs the
+    plain loop. Each call adds its steps to
     `optimize_smoothness_from_surrounding.steps` and one to its `.runs`."""
+    T, k = surrounding.shape[:2]
+    if surrounding.device.type == "cuda":
+        from knnsvc_torch.ops.smoothness_adam import smoothness_adam
+
+        best_w, n_steps = smoothness_adam(surrounding, scale, max_steps)
+    elif surrounding.device.type == "cpu":
+        best_w, n_steps = _plain_loop(surrounding, scale, max_steps)
+    else:
+        raise ValueError(f"the smoothness optimizer runs on cpu or cuda, not {surrounding.device}")
+    optimize_smoothness_from_surrounding.steps += n_steps
+    optimize_smoothness_from_surrounding.runs += 1
+    _log.debug("smoothness: %d steps (T=%d, k=%d, scale=%g)", n_steps, T, k, scale)
+    weights = torch.softmax(best_w, dim=1)
+    return (weights, n_steps) if return_steps else weights
+
+
+optimize_smoothness_from_surrounding.steps = 0
+optimize_smoothness_from_surrounding.runs = 0
+
+
+def _plain_loop(surrounding: torch.Tensor, scale: float, max_steps: int):
+    """The plain version, on the tensor's device: -> (the best logits (T, k),
+    the steps taken)."""
     dev = surrounding.device
     T, k = surrounding.shape[:2]
     w = torch.zeros((T, k), dtype=torch.float32, device=dev)
     m, v, vhat, best_w = (torch.zeros_like(w) for _ in range(4))
-    min_loss = torch.tensor(20000.0, device=dev)
-    converge_min_loss = torch.tensor(20000.0, device=dev)
+    min_loss = torch.tensor(_INIT_LOSS, device=dev)
+    converge_min_loss = torch.tensor(_INIT_LOSS, device=dev)
     fail_streak = torch.zeros((), dtype=torch.int32, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     steps = torch.zeros((), dtype=torch.int32, device=dev)
@@ -151,13 +181,4 @@ def optimize_smoothness_from_surrounding(surrounding: torch.Tensor,
         block_end += _PLATEAU_EVERY
         if bool(done):
             break
-    n_steps = int(steps)
-    optimize_smoothness_from_surrounding.steps += n_steps
-    optimize_smoothness_from_surrounding.runs += 1
-    _log.debug("smoothness: %d steps (T=%d, k=%d, scale=%g)", n_steps, T, k, scale)
-    weights = torch.softmax(best_w, dim=1)
-    return (weights, n_steps) if return_steps else weights
-
-
-optimize_smoothness_from_surrounding.steps = 0
-optimize_smoothness_from_surrounding.runs = 0
+    return best_w, int(steps)

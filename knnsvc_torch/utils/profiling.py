@@ -121,16 +121,19 @@ class StageTimer:
 
 def counters() -> dict[str, int]:
     """The program's counters now, one name each: the launches of the
-    hand-written kernels (their entry points' `.launches`) and the
-    smoothness optimizer's steps and calls. Two snapshots' difference
+    hand-written kernels (their entry points' `.launches`; the smoothness
+    kernel launches once an optimizer call on the card) and the smoothness
+    optimizer's steps and calls. Two snapshots' difference
     counts what ran between them."""
     from knnsvc_torch.match.smoothness import optimize_smoothness_from_surrounding as opt
     from knnsvc_torch.ops.attention import gated_bias_attention, gated_bias_attention_diag
     from knnsvc_torch.ops.concat_scan import concat_cost_pair
+    from knnsvc_torch.ops.smoothness_adam import smoothness_adam
     from knnsvc_torch.ops.viterbi import f0_viterbi
 
     return {"attention.launches": gated_bias_attention.launches,
             "attention_diag.launches": gated_bias_attention_diag.launches,
             "concat_cost_pair.launches": concat_cost_pair.launches,
             "f0_viterbi.launches": f0_viterbi.launches,
+            "smoothness_adam.launches": smoothness_adam.launches,
             "smoothness.steps": opt.steps, "smoothness.runs": opt.runs}

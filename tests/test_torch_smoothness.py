@@ -2,8 +2,10 @@
 against the JAX package: 50 steps to 1e-5 with equal step counts, the full
 run to the same step count and a converged loss within 2% (as
 tests/test_match.py judges the JAX optimizer against the reference), the
-weights on the simplex, and `match_core_post_opt` against
-`_match_core_post_opt` with and without harmonics and the optimizer."""
+weights on the simplex, `match_core_post_opt` against
+`_match_core_post_opt` with and without harmonics and the optimizer, and
+the fixture of the JAX optimizer's results that the card tests hold the
+CUDA kernel to (tests/test_torch_smoothness_kernel.py)."""
 
 import numpy as np
 import pytest
@@ -56,6 +58,27 @@ def test_full_run_matches_jax(seed):
     assert ours <= theirs * 1.02 + 1e-6, (ours, theirs)
     uniform = _jax_loss(np.full(idx.shape, 0.25, np.float32), idx, pool, WAVLM_LOSS_SCALE)
     assert ours < uniform
+
+
+@pytest.mark.parametrize("name", ["wavlm", "harmonics"])
+def test_kernel_fixture_holds_the_jax_optimizers_result(name):
+    """tests/torch_data/smoothness_fixtures.npz, which the card tests hold
+    the CUDA kernel to, is what the JAX optimizer gives: its inputs rebuild
+    from the recipe (jax_fixture checks their SHA-256), and at the harmonic
+    lane (D = 49; the WavLM lane's run takes tens of seconds here) JAX gives
+    the same steps and weights again, and the loss of its weights."""
+    from test_torch_smoothness_kernel import jax_fixture
+
+    idx, pool, scale, want = jax_fixture(name)
+    if name == "wavlm":
+        return
+    again, steps = jax_optimize(jnp.asarray(idx, jnp.int32), jnp.asarray(pool), scale=scale,
+                                return_steps=True)
+    assert int(steps) == want["steps"]
+    np.testing.assert_allclose(np.asarray(again), want["weights"], atol=1e-6, rtol=0)
+    surrounding = _gather_surrounding(jnp.asarray(idx, jnp.int32), jnp.asarray(pool), None)
+    loss = float(_loss_fn(jnp.log(again), surrounding, scale))
+    assert abs(loss - want["loss"]) <= 1e-6 * want["loss"], (loss, want["loss"])
 
 
 def test_weights_on_the_simplex():

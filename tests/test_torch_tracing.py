@@ -137,7 +137,7 @@ def test_counters_names_and_tracks_the_program_counters(monkeypatch):
     before = counters()
     assert set(before) == {"attention.launches", "attention_diag.launches",
                            "concat_cost_pair.launches", "f0_viterbi.launches",
-                           "smoothness.steps", "smoothness.runs"}
+                           "smoothness_adam.launches", "smoothness.steps", "smoothness.runs"}
     assert all(isinstance(v, int) for v in before.values())
     monkeypatch.setattr(gated_bias_attention_diag, "launches",
                         gated_bias_attention_diag.launches + 6)
@@ -145,4 +145,5 @@ def test_counters_names_and_tracks_the_program_counters(monkeypatch):
     after = counters()
     assert {k: after[k] - before[k] for k in after} == {
         "attention.launches": 0, "attention_diag.launches": 6, "concat_cost_pair.launches": 0,
-        "f0_viterbi.launches": 2, "smoothness.steps": 0, "smoothness.runs": 0}
+        "f0_viterbi.launches": 2, "smoothness_adam.launches": 0, "smoothness.steps": 0,
+        "smoothness.runs": 0}
