@@ -89,6 +89,7 @@ class WavLMConfig:
     num_buckets: int = 320
     max_distance: int = 1280
     gru_rel_pos: bool = True
+    feature_layer: int = 6                    # the matching and synthesis layer (ref ddsp_matcher.py:88)
 
     @property
     def conv_layers(self) -> Sequence[tuple[int, int, int]]:
@@ -107,6 +108,48 @@ class WavLMConfig:
     def from_dict(cfg: dict[str, Any]) -> "WavLMConfig":
         fields = {f.name for f in dataclasses.fields(WavLMConfig)}
         return WavLMConfig(**{k: v for k, v in cfg.items() if k in fields})
+
+
+@dataclasses.dataclass(frozen=True)
+class W2VBertConfig:
+    """w2v-BERT 2.0 (facebook/w2v-bert-2.0, the speech encoder of Seamless,
+    arXiv 2312.05187) under the key names of HF's Wav2Vec2BertConfig, whose
+    defaults are the published model: a Kaldi fbank of `num_mel_bins` bins,
+    `stride` frames stacked, LayerNorm + Linear to `hidden_size`, then
+    Conformer layers with relative-key attention over the window
+    [-left_max_position_embeddings, right_max_position_embeddings]. Only the
+    first `feature_layer` layers are built and run: layer 17 gives the
+    semantic features MaskGCT and IndexTTS2 take."""
+
+    hidden_size: int = 1024
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 16
+    intermediate_size: int = 4096
+    feature_projection_input_dim: int = 160
+    conv_depthwise_kernel_size: int = 31
+    left_max_position_embeddings: int = 64
+    right_max_position_embeddings: int = 8
+    num_mel_bins: int = 80
+    stride: int = 2
+    layer_norm_eps: float = 1e-5
+    feature_layer: int = 17
+
+    @property
+    def layers_built(self) -> int:
+        return min(self.feature_layer, self.num_hidden_layers)
+
+    @staticmethod
+    def from_dict(cfg: dict[str, Any]) -> "W2VBertConfig":
+        """From HF's config.json keys. A key that would change the layer
+        equations away from the published model's raises; others are
+        ignored."""
+        fixed = {"hidden_act": ("swish", "silu"), "position_embeddings_type": ("relative_key",),
+                 "add_adapter": (False,), "use_intermediate_ffn_before_adapter": (False,)}
+        for key, allowed in fixed.items():
+            if key in cfg and cfg[key] not in allowed:
+                raise ValueError(f"w2v-BERT 2.0 takes {key} in {allowed}, not {cfg[key]!r}")
+        fields = {f.name for f in dataclasses.fields(W2VBertConfig)}
+        return W2VBertConfig(**{k: v for k, v in cfg.items() if k in fields})
 
 
 @dataclasses.dataclass(frozen=True)

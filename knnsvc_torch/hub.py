@@ -37,8 +37,8 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from knnsvc_torch import HOP_LENGTH, SPEAKER_INFORMATION_LAYER
-from knnsvc_torch.config import (HiFiGANConfig, PostOpt, WavLMConfig,
+from knnsvc_torch import HOP_LENGTH
+from knnsvc_torch.config import (HiFiGANConfig, PostOpt, W2VBertConfig, WavLMConfig,
                                  model_family_for_ckpt_type, uses_harmonics)
 from knnsvc_torch.io.audio import load_audio, resample, save_audio, to_mono
 from knnsvc_torch.io.loudness import normalize_loudness
@@ -355,11 +355,23 @@ class StreamSession:
         return np.concatenate(out) if out else np.zeros(0, np.float32)
 
 
+ENCODERS = ("wavlm", "w2v-bert-2.0")    # random_init's encoder names
+
+
 class KnnSvc:
     """kNN-SVC conversion engine (ref KNeighborsVC). Takes the JAX package's
-    parameter pytrees (numpy) and builds the port's modules on `device`."""
+    parameter pytrees (numpy) and builds the port's modules on `device`.
 
-    def __init__(self, wavlm_params, wavlm_cfg: WavLMConfig, hifigan_params,
+    The content encoder follows the type of `wavlm_cfg`: a WavLMConfig
+    builds WavLM from its pytree; a W2VBertConfig builds w2v-BERT 2.0
+    (models/w2vbert) from a state dict under HF's Wav2Vec2BertModel names,
+    held in `self.wavlm` all the same. Either gives the features of its
+    configuration's `feature_layer`. w2v-BERT 2.0 serves
+    `convert_pair(fast=True)` and the legacy feature surface at that layer;
+    the host-pool, bulk and streaming paths and the sharded matchers raise
+    NotImplementedError for it."""
+
+    def __init__(self, wavlm_params, wavlm_cfg: WavLMConfig | W2VBertConfig, hifigan_params,
                  hifigan_cfg: HiFiGANConfig, ckpt_type: str = "mix",
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
@@ -368,22 +380,33 @@ class KnnSvc:
         self.h = hifigan_cfg
         self.ckpt_type = ckpt_type
         self.family = model_family_for_ckpt_type(ckpt_type)
-        self.wavlm = wavlm_from_numpy(wavlm_params, wavlm_cfg, self.device)
+        if isinstance(wavlm_cfg, W2VBertConfig):
+            from knnsvc_torch.models.w2vbert import w2vbert_from_state_dict
+
+            self.wavlm = w2vbert_from_state_dict(wavlm_params, wavlm_cfg, self.device)
+        else:
+            self.wavlm = wavlm_from_numpy(wavlm_params, wavlm_cfg, self.device)
         self.vocoder = generator_from_numpy(hifigan_params, hifigan_cfg, self.family,
                                             self.device)
         self.sr = hifigan_cfg.sampling_rate
         self.hop_length = HOP_LENGTH
-        self.weighting = generate_matrix_from_index(SPEAKER_INFORMATION_LAYER)
+        self.weighting = generate_matrix_from_index(wavlm_cfg.feature_layer)
         # the fast path's f0 extractor: 'fast' (native budget Harvest on a
         # background thread), 'harvest' / 'dio' / 'yin', or 'device' (the
         # device extractor inside the pool build, no host work)
         self.f0_method = "fast"
 
+    def _wavlm_only(self, path: str) -> None:
+        """Raise for a path that serves the WavLM encoder alone."""
+        if isinstance(self.wavlm_cfg, W2VBertConfig):
+            raise NotImplementedError(f"{path} serves the WavLM encoder only, not w2v-BERT 2.0")
+
     # ------------------------------------------------------------- factory
 
     @classmethod
     def load(cls, ckpt_dir: str, ckpt_type: str = "mix", wavlm_ckpt: str | None = None,
-             config_path: str | None = None, device: str | torch.device = "cuda") -> "KnnSvc":
+             config_path: str | None = None, device: str | torch.device = "cuda",
+             encoder_ckpt: str | None = None) -> "KnnSvc":
         """Build from a checkpoint directory (ref ddsp_hubconf.knn_vc). The
         HiFi-GAN file is the latest match of `*<ckpt_type>*` in ckpt_dir that
         is not a `do_` (discriminator) file and dispatches to the same model
@@ -393,8 +416,16 @@ class KnnSvc:
         <ckpt_dir>/WavLM-Large.pt): a torch `.pt` ({'cfg', 'model'}) or a
         `.knnsvc.pkl`. A directory with no such file but an `orbax/`
         checkpoint directory (train(checkpoint_backend='orbax') of either
-        package) serves the generator of its newest TrainState."""
+        package) serves the generator of its newest TrainState.
+
+        encoder_ckpt, in place of wavlm_ckpt, serves w2v-BERT 2.0 from a torch
+        file of a Wav2Vec2BertModel state dict under HF's names, bare (the
+        published widths) or as {'cfg': HF config.json keys, 'model': state
+        dict}."""
         from knnsvc_torch.io.checkpoints import load_hifigan_checkpoint, load_wavlm_checkpoint
+
+        if encoder_ckpt is not None and wavlm_ckpt is not None:
+            raise ValueError("pass wavlm_ckpt or encoder_ckpt, not both")
 
         h = HiFiGANConfig() if config_path is None else HiFiGANConfig.from_json(config_path)
         family = model_family_for_ckpt_type(ckpt_type)
@@ -416,6 +447,12 @@ class KnnSvc:
         else:
             hifigan_params = load_hifigan_checkpoint(cp_g, h, family)
 
+        if encoder_ckpt is not None:
+            payload = torch.load(encoder_ckpt, map_location="cpu", weights_only=True)
+            if "model" in payload:
+                return cls(payload["model"], W2VBertConfig.from_dict(payload.get("cfg") or {}),
+                           hifigan_params, h, ckpt_type, device=device)
+            return cls(payload, W2VBertConfig(), hifigan_params, h, ckpt_type, device=device)
         if wavlm_ckpt is None:
             wavlm_ckpt = os.path.join(ckpt_dir, "WavLM-Large.pt")
         if wavlm_ckpt.endswith(".knnsvc.pkl"):
@@ -432,17 +469,26 @@ class KnnSvc:
 
     @classmethod
     def random_init(cls, ckpt_type: str = "mix", seed: int = 0,
-                    device: str | torch.device = "cuda") -> "KnnSvc":
-        """Random weights at full architecture size (WavLM-Large, HiFi-GAN v1
-        config), drawn on the CPU from a torch.Generator seeded with `seed`,
-        so every device gets the same weights."""
+                    device: str | torch.device = "cuda", encoder: str = "wavlm") -> "KnnSvc":
+        """Random weights at full architecture size (WavLM-Large, or
+        w2v-BERT 2.0 with encoder='w2v-bert-2.0'; HiFi-GAN v1 config), drawn
+        on the CPU from a torch.Generator seeded with `seed`, so every device
+        gets the same weights."""
         resolve_device(device)
+        if encoder not in ENCODERS:
+            raise ValueError(f"encoder must be one of {ENCODERS}, not {encoder!r}")
         from knnsvc_torch.models.hifigan.generator import init_generator_params
+        from knnsvc_torch.models.w2vbert import init_w2vbert_params
         from knnsvc_torch.models.wavlm.model import init_wavlm_params
 
-        wavlm_cfg, h = WavLMConfig(), HiFiGANConfig()
+        h = HiFiGANConfig()
         gen = torch.Generator().manual_seed(seed)
-        wavlm_params = init_wavlm_params(wavlm_cfg, gen)
+        if encoder == "wavlm":
+            wavlm_cfg = WavLMConfig()
+            wavlm_params = init_wavlm_params(wavlm_cfg, gen)
+        else:
+            wavlm_cfg = W2VBertConfig()
+            wavlm_params = init_w2vbert_params(wavlm_cfg, gen)
         hifigan_params = init_generator_params(h, model_family_for_ckpt_type(ckpt_type), gen)
         return cls(wavlm_params, wavlm_cfg, hifigan_params, h, ckpt_type, device=device)
 
@@ -470,6 +516,8 @@ class KnnSvc:
             raise ValueError(f"--fast supports matcher 'exact', 'approx', 'sharded' or "
                              f"'sharded_int8', not {matcher!r} (the dense int8 pool is "
                              "host-prepared; use the default path for it)")
+        if matcher in SHARDED_MATCHERS:
+            self._wavlm_only(f"matcher {matcher!r}")
         # record_function spans name the stages in a torch.profiler trace
         pools = []
         for path in (src_wav_file, ref_wav_file):
@@ -694,6 +742,7 @@ class KnnSvc:
         sharded matchers shard the target pool over `mesh`'s pool axis."""
         from knnsvc_torch.match.pipeline import match_at_inference_time
 
+        self._wavlm_only("the host-pool path (convert_pair(fast=False), convert_features)")
         with record_function("knnsvc.bulk_match"):
             return match_at_inference_time(
                 src_path, ref_path, self.wavlm, self.weighting, self.weighting, topk=topk,
@@ -771,6 +820,7 @@ class KnnSvc:
         when known) spans several chunks: the conv frontend trims about a
         frame at each window edge, so a mid-stream window needs a hop of
         real context on each side."""
+        self._wavlm_only("streaming")
         if matcher not in ("exact", "approx", *SHARDED_MATCHERS):
             raise ValueError(f"streaming supports matcher 'exact', 'approx', 'sharded' or "
                              f"'sharded_int8', not {matcher!r}")
@@ -1143,6 +1193,7 @@ class KnnSvc:
         (data_batch defaults to that axis and must be a multiple of it):
         the batch is split over the data axis, composed with the pool axis
         for the sharded matchers."""
+        self._wavlm_only("bulk_convert")
         if not (os.path.isdir(src_dataset_path) and os.path.isdir(tgt_dataset_path)):
             raise ValueError("bulk_convert takes two dataset roots of speaker folders")
         os.makedirs(converted_audio_dir, exist_ok=True)

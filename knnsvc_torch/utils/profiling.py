@@ -14,7 +14,9 @@ prints).
 The program's spans come at two levels, told apart by the separator:
 
 - `knnsvc.<layer>` (a dot): a stage of a request, such as `pool_build`,
-  `vocode` or `smoothness`, and `convert_pair`, the request's root. A
+  `vocode` or `smoothness`, and `convert_pair`, the request's root; in
+  w2v-BERT 2.0, `fbank` (the frontend) and `conformer_conv` (each layer's
+  convolution module) take their device time out of `pool_build`'s. A
   trace's device time is charged to the innermost `knnsvc.` span open at
   its launch; readers of a trace take the layers' device time from that.
 - `knnsvc:<part>` (a colon): a sub-step inside a layer whose span is read
@@ -122,10 +124,12 @@ class StageTimer:
 def counters() -> dict[str, int]:
     """The program's counters now, one name each: the launches of the
     hand-written kernels (their entry points' `.launches`; the smoothness
-    kernel launches once an optimizer call on the card) and the smoothness
-    optimizer's steps and calls. Two snapshots' difference
-    counts what ran between them."""
+    kernel launches once an optimizer call on the card), the smoothness
+    optimizer's steps and calls, and the waveforms w2v-BERT 2.0 encoded and
+    the layers it ran over them. Two snapshots' difference counts what ran
+    between them."""
     from knnsvc_torch.match.smoothness import optimize_smoothness_from_surrounding as opt
+    from knnsvc_torch.models.w2vbert import W2VBert
     from knnsvc_torch.ops.attention import gated_bias_attention, gated_bias_attention_diag
     from knnsvc_torch.ops.concat_scan import concat_cost_pair
     from knnsvc_torch.ops.smoothness_adam import smoothness_adam
@@ -136,4 +140,5 @@ def counters() -> dict[str, int]:
             "concat_cost_pair.launches": concat_cost_pair.launches,
             "f0_viterbi.launches": f0_viterbi.launches,
             "smoothness_adam.launches": smoothness_adam.launches,
-            "smoothness.steps": opt.steps, "smoothness.runs": opt.runs}
+            "smoothness.steps": opt.steps, "smoothness.runs": opt.runs,
+            "w2vbert.chunks": W2VBert.chunks, "w2vbert.layers_run": W2VBert.layers_run}

@@ -137,7 +137,8 @@ def test_counters_names_and_tracks_the_program_counters(monkeypatch):
     before = counters()
     assert set(before) == {"attention.launches", "attention_diag.launches",
                            "concat_cost_pair.launches", "f0_viterbi.launches",
-                           "smoothness_adam.launches", "smoothness.steps", "smoothness.runs"}
+                           "smoothness_adam.launches", "smoothness.steps", "smoothness.runs",
+                           "w2vbert.chunks", "w2vbert.layers_run"}
     assert all(isinstance(v, int) for v in before.values())
     monkeypatch.setattr(gated_bias_attention_diag, "launches",
                         gated_bias_attention_diag.launches + 6)
@@ -146,4 +147,4 @@ def test_counters_names_and_tracks_the_program_counters(monkeypatch):
     assert {k: after[k] - before[k] for k in after} == {
         "attention.launches": 0, "attention_diag.launches": 6, "concat_cost_pair.launches": 0,
         "f0_viterbi.launches": 2, "smoothness_adam.launches": 0, "smoothness.steps": 0,
-        "smoothness.runs": 0}
+        "smoothness.runs": 0, "w2vbert.chunks": 0, "w2vbert.layers_run": 0}
